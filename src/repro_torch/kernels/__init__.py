@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port (``csrc/``) and their wrappers.
+
+:data:`KERNELS` names each kernel's wrapper; every wrapper counts the
+kernel calls it makes on CUDA tensors in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from .frontal_cholesky import (extend_add_batch, frontal_factor_batch,
+                               tri_solve_batch)
+from .spmv_bell import bell_spmv
+
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
+
+KERNELS = {
+    "frontal_factor_batch": frontal_factor_batch,
+    "extend_add_batch": extend_add_batch,
+    "tri_solve_batch": tri_solve_batch,
+    "bell_spmv": bell_spmv,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

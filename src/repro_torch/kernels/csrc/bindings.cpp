@@ -1,0 +1,159 @@
+// PyTorch bindings of the port's CUDA kernels, registered as torch.ops.repro_torch.*.
+//
+// The only source that includes PyTorch headers (the light torch/library.h
+// and c10/cuda ones), so the .cu files compile as plain CUDA. Every op checks
+// device, type, shape and layout, launches on PyTorch's current stream, and
+// raises through C10_CUDA_KERNEL_LAUNCH_CHECK() if a launch was refused.
+#include <ATen/core/Tensor.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/library.h>
+
+#include "kernels.h"
+
+namespace {
+
+void check_cuda(const at::Tensor& t, at::ScalarType type, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == type, name, " has dtype ", t.scalar_type(),
+              ", want ", type);
+}
+
+void check_int_vector(const at::Tensor& t, const at::Tensor& like,
+                      const char* name) {
+  check_cuda(t, at::kInt, name);
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.device() == like.device(), name, " is on another device");
+}
+
+int as_int(int64_t v, const char* name) {
+  TORCH_CHECK(v >= 0 && v <= INT32_MAX, name, " out of range: ", v);
+  return static_cast<int>(v);
+}
+
+void frontal_factor(at::Tensor& w, int64_t npiv, int64_t bs) {
+  check_cuda(w, at::kFloat, "w");
+  TORCH_CHECK(w.dim() == 3 && w.size(1) == w.size(2) && w.is_contiguous(),
+              "w must be a contiguous (B, M, M) stack");
+  const int64_t M = w.size(1);
+  TORCH_CHECK(bs >= 1 && bs <= kMaxPanel, "bs must lie in [1, ", kMaxPanel,
+              "], got ", bs);
+  TORCH_CHECK(npiv > 0 && npiv <= M && npiv % bs == 0,
+              "npiv must be a positive multiple of bs and at most M");
+  if (w.size(0) == 0) return;
+  const c10::cuda::CUDAGuard guard(w.device());
+  launch_frontal_factor(w.data_ptr<float>(), as_int(w.size(0), "B"),
+                        as_int(M, "M"), static_cast<int>(npiv),
+                        static_cast<int>(bs),
+                        c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void extend_add(at::Tensor& w, const at::Tensor& u, int64_t off,
+                const at::Tensor& src, const at::Tensor& rows,
+                const at::Tensor& seg_ptr, const at::Tensor& seg_dst) {
+  check_cuda(w, at::kFloat, "w");
+  check_cuda(u, at::kFloat, "u");
+  TORCH_CHECK(w.dim() == 3 && w.size(1) == w.size(2) && w.is_contiguous(),
+              "w must be a contiguous (B, M, M) stack");
+  TORCH_CHECK(u.dim() == 3 && u.size(1) == u.size(2) && u.is_contiguous(),
+              "u must be a contiguous (Bu, Mu, Mu) stack");
+  TORCH_CHECK(u.device() == w.device(), "u is on another device");
+  for (const auto* t : {&src, &rows, &seg_ptr, &seg_dst})
+    check_int_vector(*t, w, "index tensor");
+  TORCH_CHECK(rows.dim() == 2 && rows.size(0) == src.numel(),
+              "rows must be (C, R) with C = len(src)");
+  const int64_t R = rows.size(1);
+  TORCH_CHECK(off >= 0 && off + R <= u.size(1),
+              "u[:, off:off+R, off:off+R] is out of range");
+  TORCH_CHECK(seg_ptr.numel() == seg_dst.numel() + 1,
+              "seg_ptr must have one entry more than seg_dst");
+  TORCH_CHECK(R * sizeof(int) <= 48 * 1024, "R too large: ", R);
+  const int64_t nseg = seg_dst.numel();
+  if (nseg == 0 || R == 0) return;
+  const c10::cuda::CUDAGuard guard(w.device());
+  launch_extend_add(w.data_ptr<float>(), as_int(w.size(1), "M"),
+                    u.data_ptr<float>(), as_int(u.size(1), "Mu"),
+                    static_cast<int>(off), src.data_ptr<int>(),
+                    rows.data_ptr<int>(), static_cast<int>(R),
+                    seg_ptr.data_ptr<int>(), seg_dst.data_ptr<int>(),
+                    as_int(nseg, "nseg"), c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tri_solve(const at::Tensor& l, at::Tensor& x, int64_t bs, int64_t kt,
+               bool lower) {
+  check_cuda(l, at::kFloat, "l");
+  check_cuda(x, at::kFloat, "x");
+  TORCH_CHECK(l.device() == x.device(), "l and x are on different devices");
+  TORCH_CHECK(l.dim() == 3 && l.size(1) == l.size(2) && l.stride(2) == 1,
+              "l must be a (B, P, P) stack with unit column stride");
+  TORCH_CHECK(x.dim() == 3 && x.is_contiguous() && x.size(0) == l.size(0) &&
+                  x.size(1) == l.size(1),
+              "x must be a contiguous (B, P, K) stack matching l");
+  const int64_t P = l.size(1), K = x.size(2);
+  TORCH_CHECK(bs >= 1 && bs <= kMaxPanel && P % bs == 0,
+              "bs must divide P and lie in [1, ", kMaxPanel, "]");
+  TORCH_CHECK(kt >= 1 && kt <= 32, "kt must lie in [1, 32], got ", kt);
+  TORCH_CHECK(P * kt * sizeof(float) <= 227 * 1024,
+              "P x kt slab does not fit in shared memory");
+  if (x.numel() == 0) return;
+  const c10::cuda::CUDAGuard guard(x.device());
+  launch_tri_solve(l.data_ptr<float>(), l.stride(0), as_int(l.stride(1), "ldl"),
+                   x.data_ptr<float>(), as_int(x.size(0), "B"),
+                   static_cast<int>(P), as_int(K, "K"), static_cast<int>(kt),
+                   static_cast<int>(bs), lower,
+                   c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void bell_spmv(const at::Tensor& blocks, const at::Tensor& idx,
+               const at::Tensor& x, at::Tensor& y) {
+  const auto type = blocks.scalar_type();
+  TORCH_CHECK(type == at::kDouble || type == at::kFloat,
+              "blocks must be float64 or float32");
+  for (const at::Tensor* t : {&blocks, &x, static_cast<const at::Tensor*>(&y)}) {
+    check_cuda(*t, type, "blocks/x/y");
+    TORCH_CHECK(t->is_contiguous(), "blocks, x and y must be contiguous");
+    TORCH_CHECK(t->device() == blocks.device(), "tensors on different devices");
+  }
+  check_int_vector(idx, blocks, "idx");
+  TORCH_CHECK(blocks.dim() == 4 && blocks.size(2) == blocks.size(3),
+              "blocks must be (nrb, max_k, bs, bs)");
+  const int64_t nrb = blocks.size(0), max_k = blocks.size(1),
+                bs = blocks.size(2);
+  TORCH_CHECK(idx.dim() == 2 && idx.size(0) == nrb && idx.size(1) == max_k,
+              "idx must be (nrb, max_k)");
+  TORCH_CHECK(x.dim() == 2 && x.size(0) == nrb * bs && y.sizes() == x.sizes(),
+              "x and y must be (nrb * bs, k)");
+  if (y.numel() == 0) return;
+  const c10::cuda::CUDAGuard guard(y.device());
+  const auto stream = c10::cuda::getCurrentCUDAStream();
+  const int a = as_int(nrb, "nrb"), b = as_int(max_k, "max_k"),
+            c = static_cast<int>(bs), d = as_int(x.size(1), "k");
+  if (type == at::kDouble)
+    launch_bell_spmv_f64(blocks.data_ptr<double>(), idx.data_ptr<int>(),
+                         x.data_ptr<double>(), y.data_ptr<double>(), a, b, c, d,
+                         stream);
+  else
+    launch_bell_spmv_f32(blocks.data_ptr<float>(), idx.data_ptr<int>(),
+                         x.data_ptr<float>(), y.data_ptr<float>(), a, b, c, d,
+                         stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+TORCH_LIBRARY(repro_torch, m) {
+  m.def("frontal_factor(Tensor(a!) w, int npiv, int bs) -> ()",
+        &frontal_factor);
+  m.def(
+      "extend_add(Tensor(a!) w, Tensor u, int off, Tensor src, Tensor rows, "
+      "Tensor seg_ptr, Tensor seg_dst) -> ()",
+      &extend_add);
+  m.def("tri_solve(Tensor l, Tensor(a!) x, int bs, int kt, bool lower) -> ()",
+        &tri_solve);
+  m.def("bell_spmv(Tensor blocks, Tensor idx, Tensor x, Tensor(a!) y) -> ()",
+        &bell_spmv);
+}

@@ -1,0 +1,32 @@
+// Host launchers of the port's hand-written CUDA kernels (sm_90a).
+//
+// Each launcher enqueues its kernel(s) on `stream` and returns without
+// synchronising; it allocates nothing. After a failed launch it returns at
+// once, leaving the error for the caller's C10_CUDA_KERNEL_LAUNCH_CHECK().
+// The binding (bindings.cpp) checks shapes, types and devices first.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Widest panel the factor and sweep kernels take (pick_block_size caps at 32).
+constexpr int kMaxPanel = 32;
+
+void launch_frontal_factor(float* w, int B, int M, int npiv, int bs,
+                           cudaStream_t stream);
+
+void launch_extend_add(float* w, int M, const float* u, int Mu, int off,
+                       const int* src, const int* rows, int R,
+                       const int* seg_ptr, const int* seg_dst, int nseg,
+                       cudaStream_t stream);
+
+void launch_tri_solve(const float* l, long long l_bstride, int ldl, float* x,
+                      int B, int P, int K, int kt, int bs, bool lower,
+                      cudaStream_t stream);
+
+void launch_bell_spmv_f64(const double* blocks, const int* idx,
+                          const double* x, double* y, int nrb, int max_k,
+                          int bs, int kk, cudaStream_t stream);
+
+void launch_bell_spmv_f32(const float* blocks, const int* idx, const float* x,
+                          float* y, int nrb, int max_k, int bs, int kk,
+                          cudaStream_t stream);

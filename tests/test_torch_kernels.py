@@ -1,0 +1,177 @@
+"""The plain PyTorch version of each ported kernel against the reference
+Pallas kernel in interpret mode, on the same numpy inputs (seeded).
+
+Tolerances: f32 ~1e-5 relative to the largest magnitude — the two sum in
+other orders (the reference multiplies by the inverse of each diagonal
+tile, the port substitutes). The factor's Schur block is compared on its
+lower triangle only: that triangle is authoritative in both packages. The
+fp64 SpMV is held against a numpy dense product at 1e-12."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import frontal_cholesky as ref_fc  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels.spmv_bell import bell_spmv as ref_bell_spmv  # noqa: E402
+from repro.kernels.spmv_bell import csr_to_bell as ref_csr_to_bell  # noqa: E402
+
+from repro_torch.kernels import frontal_cholesky as fc  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.spmv_bell import bell_spmv, csr_to_bell  # noqa: E402
+
+RTOL = 1e-5
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rtol * scale, f"max abs err {err:.3e}, scale {scale:.3e}"
+
+
+def _spd_fronts(rng, B, M):
+    w = np.zeros((B, M, M), np.float32)
+    for b in range(B):
+        g = rng.standard_normal((M, M)) / np.sqrt(M)
+        w[b] = np.tril(g @ g.T + 2 * np.eye(M))
+    return w
+
+
+@pytest.mark.parametrize("B,M,npiv,bs", [(3, 24, 16, 8), (2, 40, 32, 16),
+                                         (1, 32, 32, 32), (2, 48, 24, 8)])
+def test_frontal_factor_plain_matches_pallas(B, M, npiv, bs):
+    rng = np.random.default_rng(B * 1000 + M)
+    w = _spd_fronts(rng, B, M)
+    want = np.asarray(ref_fc.frontal_factor_batch(w, npiv, bs=bs,
+                                                  interpret=True))
+    got = fc.frontal_factor_batch(torch.from_numpy(w.copy()), npiv, bs=bs)
+    _close(np.tril(got.numpy()), np.tril(want))
+
+
+def test_frontal_factor_ws_picks_the_reference_block_size():
+    rng = np.random.default_rng(7)
+    w = _spd_fronts(rng, 2, 56)
+    want = np.asarray(ref_ops.frontal_factor_batch_ws(w, 40))  # bs -> 20
+    got = ops.frontal_factor_batch_ws(torch.from_numpy(w.copy()), 40)
+    _close(np.tril(got.numpy()), np.tril(want))
+
+
+def _extend_inputs(rng, B, M, C, R):
+    w = rng.standard_normal((B, M, M)).astype(np.float32)
+    u = rng.standard_normal((C, R, R)).astype(np.float32)
+    dst = np.sort(rng.integers(0, B, C)).astype(np.int32)
+    rows = np.full((C, R), -1, dtype=np.int32)
+    for c in range(C):
+        k = int(rng.integers(1, R + 1))
+        rows[c, :k] = np.sort(rng.choice(M, size=k, replace=False))
+    return w, u, dst, rows
+
+
+@pytest.mark.parametrize("B,M,C,R", [(3, 16, 6, 8), (2, 24, 5, 16)])
+def test_extend_add_plain_matches_pallas(B, M, C, R):
+    rng = np.random.default_rng(C * 100 + R)
+    w, u, dst, rows = _extend_inputs(rng, B, M, C, R)
+    want = np.asarray(ref_fc.extend_add_batch(w, u, dst, rows,
+                                              interpret=True))
+    got = fc.extend_add_batch(torch.from_numpy(w.copy()), torch.from_numpy(u),
+                              dst, rows)
+    _close(got.numpy(), want)
+
+
+def test_extend_add_reads_u_through_src_and_offset():
+    """U[c] = u[src[c], off:off+R, off:off+R] equals the reference fed the
+    gathered blocks (what the pipelined backend's jnp.take built)."""
+    rng = np.random.default_rng(3)
+    w, _, dst, rows = _extend_inputs(rng, 3, 16, 6, 8)
+    stack = rng.standard_normal((4, 12, 12)).astype(np.float32)
+    src = rng.integers(0, 4, 6).astype(np.int32)
+    u = stack[src, 4:, 4:]
+    want = np.asarray(ref_fc.extend_add_batch(w, u, dst, rows,
+                                              interpret=True))
+    got = fc.extend_add_batch(torch.from_numpy(w.copy()),
+                              torch.from_numpy(stack), dst, rows, src=src,
+                              off=4)
+    _close(got.numpy(), want)
+
+
+def test_extend_add_rejects_unsorted_destinations():
+    w = torch.zeros((2, 8, 8))
+    with pytest.raises(ValueError, match="sorted"):
+        fc.extend_add_batch(w, torch.zeros((2, 4, 4)), [1, 0],
+                            np.zeros((2, 4), np.int32))
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("K", [1, 5])
+def test_tri_solve_plain_matches_pallas(lower, K):
+    rng = np.random.default_rng(K)
+    B, P, bs = 3, 32, 8
+    l = np.tril(rng.standard_normal((B, P, P))).astype(np.float32)
+    l += 4 * np.eye(P, dtype=np.float32)
+    x = rng.standard_normal((B, P, K)).astype(np.float32)
+    want = np.asarray(ref_fc.tri_solve_batch(l, x, bs=bs, lower=lower,
+                                             interpret=True))
+    # upper-triangle garbage must be ignored: the port reads only tril(l)
+    noisy = l + np.triu(rng.standard_normal((B, P, P)), 1).astype(np.float32)
+    got = fc.tri_solve_batch(torch.from_numpy(noisy),
+                             torch.from_numpy(x.copy()), bs=bs, lower=lower)
+    _close(got.numpy(), want)
+
+
+def test_ops_tri_solve_leaves_input_and_matches_reference_policy():
+    rng = np.random.default_rng(11)
+    l = np.tril(rng.standard_normal((2, 24, 24))).astype(np.float32)
+    l += 4 * np.eye(24, dtype=np.float32)
+    x = rng.standard_normal((2, 24, 3)).astype(np.float32)
+    want = np.asarray(ref_ops.tri_solve_batch(l, x, rt=2, lower=False))
+    xt = torch.from_numpy(x.copy())
+    got = ops.tri_solve_batch(torch.from_numpy(l), xt, rt=2, lower=False)
+    _close(got.numpy(), want)
+    np.testing.assert_array_equal(xt.numpy(), x)
+
+
+def _random_csr(rng, n, density):
+    a = (rng.random((n, n)) < density) * rng.standard_normal((n, n))
+    a += np.eye(n)
+    indptr = np.r_[0, np.cumsum((a != 0).sum(1))].astype(np.int32)
+    indices = np.nonzero(a)[1].astype(np.int32)
+    return a, indptr, indices, a[a != 0]
+
+
+def test_csr_to_bell_matches_reference():
+    rng = np.random.default_rng(5)
+    _, indptr, indices, data = _random_csr(rng, 37, 0.1)
+    got = csr_to_bell(indptr, indices, data, 37, 8)
+    want = ref_csr_to_bell(indptr, indices, data, 37, 8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [None, 4])
+def test_bell_spmv_plain_matches_pallas_f32(k):
+    rng = np.random.default_rng(6)
+    n = 37
+    _, indptr, indices, data = _random_csr(rng, n, 0.1)
+    blocks, idx, npad = csr_to_bell(indptr, indices, data, n, 8)
+    x = rng.standard_normal(npad if k is None else (npad, k)).astype(np.float32)
+    want = np.asarray(ref_bell_spmv(blocks.astype(np.float32), idx, x,
+                                    interpret=True))
+    got = bell_spmv(torch.from_numpy(blocks.astype(np.float32)),
+                    torch.from_numpy(idx), torch.from_numpy(x))
+    assert got.shape == x.shape
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_bell_spmv_fp64_matches_dense_product(k):
+    rng = np.random.default_rng(8)
+    n = 45
+    a, indptr, indices, data = _random_csr(rng, n, 0.08)
+    blocks, idx, npad = csr_to_bell(indptr, indices, data, n, 8)
+    x = np.zeros(npad if k is None else (npad, k))
+    x[:n] = rng.standard_normal(x[:n].shape)
+    got = bell_spmv(torch.from_numpy(blocks), torch.from_numpy(idx),
+                    torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    _close(got.numpy()[:n], a @ x[:n], rtol=1e-12)

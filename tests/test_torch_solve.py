@@ -1,0 +1,196 @@
+"""The port's numeric path against the reference on the same matrices and
+right-hand sides (seeded numpy): the pipelined factor, the device sweeps,
+the fp64 refinement and ``execute_plan`` as a whole, plus plans carried
+across with :mod:`repro_torch.convert`. The port runs its plain kernel
+versions here (``device="cpu"``); the reference runs its Pallas kernels in
+interpret mode.
+
+Tolerances: factors and f32 sweeps 1e-5 relative (f32, other summation
+orders). Refined solutions 1e-8 relative and residuals 1e-10, against the
+reference's ``sweep="level"`` refinement, which takes its residual in fp64
+on the host (its device refinement runs in f32 on this jax build)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.core.plan import PlanBuilder as RefPlanBuilder  # noqa: E402
+from repro.core.plan import execute_plan as ref_execute_plan  # noqa: E402
+from repro.core.plan_cache import matrix_fingerprint as ref_fingerprint  # noqa: E402
+from repro.sparse import multifrontal as ref_mf  # noqa: E402
+from repro.sparse.csr import make_spd  # noqa: E402
+from repro.sparse.dataset import block_arrow, grid2d  # noqa: E402
+from repro.sparse.refine import refine_solve as ref_refine_solve  # noqa: E402
+
+from repro_torch.convert import plan_arrays, plan_from_arrays  # noqa: E402
+from repro_torch.core.plan import SOLVE_STAGES, PlanBuilder, execute_plan  # noqa: E402
+from repro_torch.sparse import csr  # noqa: E402
+from repro_torch.sparse import multifrontal as mf  # noqa: E402
+from repro_torch.sparse.refine import RefineInfo, refine_solve_device  # noqa: E402
+
+LABELS = ["amd", "scotch", "nd", "rcm"]
+
+
+def _port(a):
+    return csr.CSRMatrix(a.indptr, a.indices, a.data, a.shape, a.name,
+                         a.group)
+
+
+def _close(got, want, rtol):
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    assert err <= rtol * scale, f"max abs err {err:.3e}, scale {scale:.3e}"
+
+
+def _residual(a, x, b):
+    return float(np.linalg.norm(a.matvec(x) - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def spd_grid():
+    return make_spd(grid2d(12, 12, "g12"))
+
+
+@pytest.fixture(scope="module")
+def factors(spd_grid):
+    return (ref_mf.multifrontal_cholesky(spd_grid, backend="pipelined"),
+            mf.multifrontal_cholesky(_port(spd_grid), device="cpu"))
+
+
+def test_pipelined_fronts_match_reference(factors):
+    ref, port = factors
+    assert len(port.fronts) == len(ref.fronts)
+    for got, want in zip(port.fronts, ref.fronts):
+        assert got.cols == want.cols
+        np.testing.assert_array_equal(got.rows, want.rows)
+        _close(got.L11, want.L11, 1e-5)
+        if want.L21.size:
+            _close(got.L21, want.L21, 1e-5)
+
+
+def test_pipelined_stats_match_reference(factors):
+    ref, port = factors
+    for key in ("t_factor_assemble", "t_factor_dispatch", "t_factor_sync",
+                "overlap_efficiency", "t_factor_schedule"):
+        assert key in port.stats
+    for key in ("nsup", "nlevels", "nbatches", "occupancy", "front_flops",
+                "peak_front", "nnz_L", "fill", "sym_flops", "backend"):
+        assert port.stats[key] == ref.stats[key], key
+
+
+def test_pipelined_mult8_fronts_match_reference():
+    a = make_spd(block_arrow(3, 20, 8, np.random.default_rng(0), "arrow"))
+    ref = ref_mf.multifrontal_cholesky(a, backend="pipelined", pad="mult8")
+    port = mf.multifrontal_cholesky(_port(a), pad="mult8", device="cpu")
+    for got, want in zip(port.fronts, ref.fronts):
+        _close(got.L11, want.L11, 1e-5)
+        if want.L21.size:
+            _close(got.L21, want.L21, 1e-5)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_device_sweeps_match_reference(factors, spd_grid, k):
+    ref, port = factors
+    rng = np.random.default_rng(4)
+    b = rng.standard_normal(spd_grid.n if k is None else (spd_grid.n, k))
+    want = ref_mf.multifrontal_solve(ref, b, mode="device")
+    got = mf.multifrontal_solve(port, b, mode="device")
+    assert got.shape == b.shape and got.dtype == np.float64
+    _close(got, want, 1e-5)
+
+
+def test_unported_modes_raise(factors, spd_grid):
+    with pytest.raises(ValueError, match="not ported"):
+        mf.multifrontal_solve(factors[1], np.ones(spd_grid.n), mode="level")
+    with pytest.raises(ValueError, match="not ported"):
+        mf.multifrontal_cholesky(_port(spd_grid), backend="batched",
+                                 device="cpu")
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_refine_solve_device_matches_host_refinement(factors, spd_grid, k):
+    ref, port = factors
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal(spd_grid.n if k is None else (spd_grid.n, k))
+    want, _ = ref_refine_solve(
+        spd_grid.matvec,
+        lambda r: ref_mf.multifrontal_solve(ref, r, mode="level"), b)
+    got, info = refine_solve_device(_port(spd_grid), port, b)
+    assert info.converged and info.final_residual <= 1e-12
+    assert info.iterations >= 1 and len(info.residuals) == info.iterations + 1
+    _close(got, want, 1e-8)
+    assert _residual(spd_grid, got, b) <= 1e-10
+
+
+def test_refine_zero_rhs_is_zero(factors, spd_grid):
+    x, info = refine_solve_device(_port(spd_grid), factors[1],
+                                  np.zeros(spd_grid.n))
+    assert not x.any() and info == RefineInfo(0, [0.0], True)
+    assert "t_setup" in {f.name for f in dataclasses.fields(RefineInfo)}
+
+
+@pytest.mark.parametrize("algorithm", LABELS)
+def test_execute_plan_matches_reference(spd_grid, algorithm):
+    rng = np.random.default_rng(6)
+    b = rng.standard_normal(spd_grid.n)
+    ref_plan = RefPlanBuilder().build(spd_grid, algorithm)
+    want = ref_execute_plan(spd_grid, ref_plan, b, backend="pipelined",
+                            sweep="level", solve_dtype="fp32_refine")
+    plan = plan_from_arrays(**plan_arrays(ref_plan))
+    got = execute_plan(_port(spd_grid), plan, b, device="cpu")
+    _close(got["x"], want["x"], 1e-8)
+    assert got["residual"] <= 1e-10
+    assert _residual(spd_grid, got["x"], b) <= 1e-10
+    assert got["refine_converged"] and got["solve_dtype"] == "fp32_refine"
+    for key in ("solve_backend", "solve_dtype", "solve_bs", "solve_pad"):
+        assert plan.meta[key] == ref_plan.meta[key], key
+    assert plan.meta["solve_sweep"] == "device"
+    assert set(got["spans"]) == set(SOLVE_STAGES)
+    assert set(want) - {"request_id"} <= set(got)
+
+
+def test_execute_plan_multi_rhs_and_fp64_promotion(spd_grid):
+    rng = np.random.default_rng(7)
+    b = rng.standard_normal((spd_grid.n, 3))
+    plan = PlanBuilder().build(_port(spd_grid), "nd")
+    ref_plan = RefPlanBuilder().build(spd_grid, "nd")
+    want = ref_execute_plan(spd_grid, ref_plan, b, backend="pipelined",
+                            sweep="level", solve_dtype="fp32_refine")
+    got = execute_plan(_port(spd_grid), plan, b, solve_dtype="fp64",
+                       device="cpu")
+    assert got["x"].shape == b.shape and got["solve_dtype"] == "fp32_refine"
+    _close(got["x"], want["x"], 1e-8)
+    assert _residual(spd_grid, got["x"], b) <= 1e-10
+
+
+def test_execute_plan_fp32_without_refinement(spd_grid):
+    b = np.random.default_rng(8).standard_normal(spd_grid.n)
+    plan = PlanBuilder().build(_port(spd_grid), "amd")
+    got = execute_plan(_port(spd_grid), plan, b, solve_dtype="fp32",
+                       device="cpu")
+    assert got["refine_iterations"] is None and got["residual"] <= 1e-5
+    assert "solve.refine" not in got["spans"]
+
+
+def test_plan_builder_matches_reference(spd_grid):
+    port_plan = PlanBuilder().build(_port(spd_grid), "scotch")
+    ref_plan = RefPlanBuilder().build(spd_grid, "scotch")
+    assert port_plan.fingerprint == ref_fingerprint(spd_grid)
+    got, want = plan_arrays(port_plan), plan_arrays(ref_plan)
+    assert got.keys() == want.keys()
+    for key in got:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert port_plan.predicted_flops == ref_plan.predicted_flops
+    assert port_plan.nnz_L == ref_plan.nnz_L and port_plan.n == ref_plan.n
+
+
+def test_convert_round_trips_a_reference_plan(spd_grid):
+    ref_plan = RefPlanBuilder().build(spd_grid, "rcm")
+    plan = plan_from_arrays(**plan_arrays(ref_plan))
+    back = plan_arrays(plan)
+    for key, value in plan_arrays(ref_plan).items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
+    assert plan.sym.nnz_L == ref_plan.sym.nnz_L
+    assert plan.predicted_flops == ref_plan.predicted_flops
