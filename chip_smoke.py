@@ -4,18 +4,36 @@ Run from the root of the repository, on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``,
-drives the main path (``PlanBuilder.build`` → ``execute_plan`` with
-``backend="pipelined"``, ``sweep="device"``, ``solve_dtype="fp32_refine"``)
-on ``grid3d(20,20,20)`` under ``amd``, ``scotch``, ``nd`` and ``rcm`` and on
-``grid3d(32,32,32)`` under ``nd`` (n = 32,768), each for one RHS and for
-eight, and requires a relative residual ≤ 1e-10 (fp64, scipy) and converged
-refinement. The launch counts of the four kernel wrappers are zeroed just
-before that run and read just after it; each must be positive. Then it
-holds each kernel against its plain PyTorch version at shapes taken from the
-32³ schedule (its most populated and its largest bucket) and times kernel,
-plain version and, where one exists, the PyTorch library call computing the
-same function. It prints the stage times, a ``kernels`` JSON line, the
+It builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives three paths, each with the kernels' launch counts zeroed just before
+it and read just after it:
+
+* **solve** (``PlanBuilder.build`` → ``execute_plan`` with
+  ``backend="pipelined"``, ``sweep="device"``, ``solve_dtype="fp32_refine"``)
+  on ``grid3d(20,20,20)`` under ``amd``, ``scotch``, ``nd`` and ``rcm`` and on
+  ``grid3d(32,32,32)`` under ``nd`` (n = 32,768), each for one RHS and for
+  eight: residual ≤ 1e-10 (fp64, scipy), refinement converged, and the four
+  solve kernels launched;
+* **select**: a ``SolverEngine`` trained on the tracked label set
+  ``artifacts/labels_c36_s7_x0.35_r1.npz`` (``fast_grids=True``, ``cv=3``)
+  selects for one served batch of 16 matrices,
+  ``generate_suite(16, seed=1, size_scale=8)`` (all 12 families, n up to
+  131,072, padded to E = 2^20 entries): the ``entry_stats`` and ``row_stats``
+  kernels launched, device features within 1e-4 relative of the host float64
+  featurizer, and names equal to the host path's (a mismatch passes only
+  where a split threshold on the host route lies between the host and
+  device values of a feature that differ by float32 rounding, and is
+  printed);
+* **engine**: ``SolverEngine.solve_batch`` over
+  ``generate_suite(16, seed=1, size_scale=4)`` with seeded right-hand sides:
+  every residual ≤ 1e-10 with refinement converged, all six kernels
+  launched, and a second ``plan_batch`` answered from the cache.
+
+Then it holds each kernel against its plain PyTorch version (the solve
+kernels at shapes from the 32³ schedule, the ``csr_stats`` kernels on the
+served batch) and times kernel, plain version and, where one exists, the
+PyTorch library call computing the same function; it profiles one solve and
+one selection. It prints the stage times, a ``kernels`` JSON line, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a CUDA
@@ -46,18 +64,32 @@ PEAK_BYTES = 3.35e12
 #: SpMV: both sum the same products of one block-row, in other orders.
 TOL = {"frontal_factor_batch": 1e-4, "extend_add_batch": 1e-5,
        "tri_solve_batch": 1e-5, "bell_spmv": 1e-12}
+#: csr_stats: the integer statistics (bandwidth, row max/min) must be exact;
+#: profile and squared deviations are float32 sums in the plain version
+#: (fp64 / int64 in the kernels), held per matrix at this relative tolerance
+CSR_STATS_RTOL = 1e-5
+
+#: a device feature within this relative distance of the host's float64
+#: value differs from it by float32 rounding only (a few ulps of 2^-24)
+F32_ROUNDING = 1e-6
+
+LABELS = "artifacts/labels_c36_s7_x0.35_r1.npz"
 
 REPLACES = {
     "frontal_factor_batch": "src/repro/kernels/frontal_cholesky.py:391",
     "extend_add_batch": "src/repro/kernels/frontal_cholesky.py:280",
     "tri_solve_batch": "src/repro/kernels/frontal_cholesky.py:364",
     "bell_spmv": "src/repro/kernels/spmv_bell.py:91",
+    "entry_stats": "src/repro/kernels/csr_stats.py:116",
+    "row_stats": "src/repro/kernels/csr_stats.py:142",
 }
 SOURCE = {
     "frontal_factor_batch": "src/repro_torch/kernels/csrc/frontal_factor.cu",
     "extend_add_batch": "src/repro_torch/kernels/csrc/extend_add.cu",
     "tri_solve_batch": "src/repro_torch/kernels/csrc/tri_solve.cu",
     "bell_spmv": "src/repro_torch/kernels/csrc/spmv_bell.cu",
+    "entry_stats": "src/repro_torch/kernels/csrc/csr_stats.cu",
+    "row_stats": "src/repro_torch/kernels/csrc/csr_stats.cu",
 }
 
 
@@ -184,22 +216,19 @@ def main_path(cases, dev) -> list:
     return plans
 
 
-def profile_solve(a, plan, dev) -> None:
-    """Device busy share of one warm ``execute_plan`` (one RHS): the union of
-    the CUDA kernel and copy intervals that ``torch.profiler`` records (device
+def profile_call(label: str, fn) -> None:
+    """Device busy share of one warm call of ``fn``: the union of the CUDA
+    kernel and copy intervals that ``torch.profiler`` records (device
     activity only), over the host wall time of the profiled call, which
     includes the profiler's own overhead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.plan import execute_plan
-
-    b = np.random.default_rng(2).standard_normal(a.n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        execute_plan(a, plan, b, device=dev)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -210,12 +239,30 @@ def profile_solve(a, plan, dev) -> None:
     for s0, s1, name in spans:
         busy += max(0.0, s1 - max(s0, end))
         end = max(end, s1)
-        by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
+        # summed by the name's first 60 characters, as printed
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (s1 - s0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile {a.name} {plan.algorithm} k=1: wall {wall:.4f} s, device "
+    log(f"profile {label}: wall {wall:.4f} s, device "
         f"busy {busy / 1e6:.4f} s ({busy / 1e6 / wall:.4f} of wall), "
         f"{len(spans)} device events; top (s): "
-        + json.dumps({n[:60]: round(t / 1e6, 6) for n, t in top}))
+        + json.dumps({n: round(t / 1e6, 6) for n, t in top}))
+
+
+def record(out: dict, name, shape, err, ms, plain_ms, lib_ms, flops, nbytes,
+           peak, headline) -> None:
+    """Log one kernel measurement and keep it in ``out[name]`` (the max
+    error over all of the kernel's checks; the times of the ``headline``
+    shape for the ``kernels`` line)."""
+    bms, by = bound(flops, nbytes, peak)
+    log(f"kernel {name} {shape}: max_abs_err {err:.3e}, ms {ms:.5f}, "
+        f"plain_ms {plain_ms:.5f}, bound_ms {bms:.5f} ({by}), "
+        f"library_ms {lib_ms if lib_ms is None else f'{lib_ms:.5f}'}")
+    rec = out.setdefault(name, dict(max_abs_err=0.0))
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    if headline:
+        rec.update(name=name, route="cuda", source=SOURCE[name],
+                   replaces=REPLACES[name], ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
 def pick_buckets(schedule, routes) -> dict:
@@ -262,19 +309,6 @@ def kernel_checks(a, plan, dev) -> dict:
              sched.buckets[li][bj].R] for t, (li, bj) in picks.items()}))
     rng = np.random.default_rng(1)
     out: dict = {}
-
-    def record(name, shape, err, ms, plain_ms, lib_ms, flops, nbytes, peak,
-               headline):
-        bms, by = bound(flops, nbytes, peak)
-        log(f"kernel {name} {shape}: max_abs_err {err:.3e}, ms {ms:.5f}, "
-            f"plain_ms {plain_ms:.5f}, bound_ms {bms:.5f} ({by}), "
-            f"library_ms {lib_ms if lib_ms is None else f'{lib_ms:.5f}'}")
-        rec = out.setdefault(name, dict(max_abs_err=0.0))
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if headline:
-            rec.update(name=name, route="cuda", source=SOURCE[name],
-                       replaces=REPLACES[name], ms=ms, plain_ms=plain_ms,
-                       bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
     def bucket_inputs(key):
         """The bucket's assembled workspaces, and its extend-add groups
@@ -331,7 +365,7 @@ def kernel_checks(a, plan, dev) -> dict:
         # written once, the row maps and slot indices read once
         nbytes = n_u * 4 + touched * 8 + sum(g[4].size * 4 + 8 * g[2].size
                                              for g in groups)
-        record("extend_add_batch",
+        record(out, "extend_add_batch",
                f"{tag} B={len(bk.members)} M={bk.M} groups={len(groups)} "
                f"C={sum(g[2].size for g in groups)} entries={n_u}",
                err, ms, pms, lms, n_u, nbytes, PEAK_FP32,
@@ -355,9 +389,9 @@ def kernel_checks(a, plan, dev) -> dict:
                         setup=lambda: wp.copy_(w0))
         R = M - P
         flops = B * (P ** 3 / 3 + P * P * R + P * R * R)
-        record("frontal_factor_batch", f"{tag} B={B} P={P} M={M} bs={bs}",
-               err, ms, pms, None, flops, 2 * w0.numel() * 4, PEAK_FP32,
-               tag == "largest")
+        record(out, "frontal_factor_batch",
+               f"{tag} B={B} P={P} M={M} bs={bs}", err, ms, pms, None, flops,
+               2 * w0.numel() * 4, PEAK_FP32, tag == "largest")
 
     # tri_solve_batch on the factored L11 of each bucket, lower and upper
     for tag in ("populated", "largest"):
@@ -384,7 +418,7 @@ def kernel_checks(a, plan, dev) -> dict:
                     Lt if lower else Lt.transpose(1, 2), x0, upper=not lower))
                 flops = B * P * P * k
                 nbytes = B * (P * (P + 1) // 2 * 4 + 2 * P * k * 4)
-                record("tri_solve_batch",
+                record(out, "tri_solve_batch",
                        f"{tag} B={B} P={P} k={k} bs={bs} "
                        f"{'lower' if lower else 'upper'}",
                        err, ms, pms, lms, flops, nbytes, PEAK_FP32,
@@ -413,11 +447,211 @@ def kernel_checks(a, plan, dev) -> dict:
         lms = device_ms(lambda: torch.sparse.mm(A_csr, xs))
         # every stored block (ELL padding included), the indices, x and y
         nbytes = blocks.nbytes + idxa.nbytes + 2 * x.numel() * 8
-        record("bell_spmv",
+        record(out, "bell_spmv",
                f"nrb={blocks.shape[0]} max_k={blocks.shape[1]} bs=8 k={k}",
                err, ms, pms, lms, 2 * blocks.size * k, nbytes, PEAK_FP64,
                k == 1)
     return out
+
+
+def launched(phase: str, counts: dict, names) -> None:
+    """Raise unless every kernel in ``names`` launched in ``phase``."""
+    log(f"kernels {phase} " + json.dumps({"launches": counts}))
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {phase} path: "
+                             f"{missing}")
+
+
+def train_phase():
+    """A SolverEngine (the defaults: device selection through the
+    csr_stats kernels, pipelined solve) trained on the tracked label set."""
+    from repro_torch.core.labeling import LabeledDataset
+    from repro_torch.engine import EngineConfig, SolverEngine
+
+    engine = SolverEngine(EngineConfig(fast_grids=True, cv=3))
+    t0 = time.perf_counter()
+    rep = engine.train(LabeledDataset.load(os.path.join(ROOT, LABELS)))
+    log(f"train: {time.perf_counter() - t0:.3f} s on {LABELS}, held-out "
+        f"accuracy {rep['test_accuracy']:.4f} (cv {rep['cv_score']:.4f}, "
+        f"{rep['best_params']}), fingerprint {engine.fingerprint}")
+    return engine
+
+
+def route_splits(model, x_host: np.ndarray, x_dev: np.ndarray) -> list:
+    """The splits on one matrix's host route where its device feature
+    (float32) falls on the other side of the threshold than its host
+    feature (float64): (tree, feature, threshold, host, device)."""
+    out = []
+    for t, tree in enumerate(getattr(model, "trees_", [model])):
+        node = tree.root_
+        while node.left is not None:
+            h, d = x_host[node.feature], x_dev[node.feature]
+            if (h <= node.threshold) != (d <= np.float32(node.threshold)):
+                out.append((t, node.feature, node.threshold, h, d))
+            node = node.left if h <= node.threshold else node.right
+    return out
+
+
+def select_phase(engine, mats, dev) -> None:
+    """``engine.select_batch`` on one served batch (cold, then warm), with
+    the launch counts of this path, the device features against the host
+    float64 featurizer, and the names against the host path's."""
+    import torch
+
+    from repro_torch.core.features import (extract_features_batch,
+                                           extract_features_batch_device,
+                                           pad_csr_batch)
+    from repro_torch.core.scaling import scaler_transform_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sparse.dataset import suite_summary
+
+    log("select batch " + json.dumps(suite_summary(mats)))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    names = engine.select_batch(mats)
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        again = engine.select_batch(mats)
+        warm.append(time.perf_counter() - t0)
+        if again != names:
+            raise AssertionError(f"selection is not repeatable: {names} "
+                                 f"then {again}")
+    launched("select", launch_counts(), ("entry_stats", "row_stats"))
+    log(f"select: cold {cold:.4f} s, warm batch s {min(warm):.4f} "
+        f"(median {sorted(warm)[2]:.4f}); names {names}")
+
+    # the stages of one warm batch, each ending in a sync
+    sel = engine.selector
+    t0 = time.perf_counter()
+    batch = pad_csr_batch(mats, bucket=True)
+    t_pad = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = extract_features_batch_device(batch, device=dev)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = sel._predict_device(feats)
+    t_inf = time.perf_counter() - t0
+    log(f"select stages: pad_csr_batch {t_pad:.4f} s "
+        f"(E={batch.indices.shape[1]}, N={batch.indptr.shape[1] - 1}), "
+        f"upload + featurize {t_feat:.4f} s, scaler + forest + argmax + "
+        f"copy back {t_inf:.4f} s")
+
+    host = extract_features_batch(mats)
+    got = feats.cpu().numpy().astype(np.float64)
+    rel = np.abs(got - host) / np.maximum(np.abs(host), 1e-30)
+    log(f"select features: max rel err vs host float64 {rel.max():.3e}")
+    if not rel.max() <= 1e-4:
+        raise AssertionError(f"device features differ from the host's by "
+                             f"{rel.max():.3e} relative")
+    host_names, _ = sel.select_batch(mats, path="host")
+    if [sel.algorithms[int(i)] for i in idx] != names:
+        raise AssertionError("staged selection disagrees with select_batch")
+    x_host = sel.scaler.transform(host)
+    x_dev = scaler_transform_device(sel.scaler, feats).cpu().numpy()
+    for i, (d, h) in enumerate(zip(names, host_names)):
+        if d == h:
+            continue
+        splits = route_splits(sel.model, x_host[i], x_dev[i])
+        # the deciding raw features may differ by float32 rounding only
+        f32 = all(rel[i, f] <= F32_ROUNDING for _, f, _, _, _ in splits)
+        log(f"select {mats[i].name}: device {d}, host {h}; splits between "
+            f"the float64 and float32 features: {splits}")
+        if not (splits and f32):
+            raise AssertionError(f"{mats[i].name}: device selects {d}, host "
+                                 f"{h}, not explained by float32 rounding "
+                                 f"at a split threshold")
+    log(f"select: host path names {host_names}")
+
+
+def engine_phase(engine, mats) -> dict:
+    """``engine.solve_batch`` over one served batch with seeded right-hand
+    sides; returns the launch counts of this path."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sparse.dataset import suite_summary
+
+    log("engine batch " + json.dumps(suite_summary(mats)))
+    rng = np.random.default_rng(0)
+    bs = [rng.standard_normal(a.n) for a in mats]
+    engine.builder.reset_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.solve_batch(mats, bs)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = engine.stats()
+    plans = engine.plan_batch(mats)  # warm: every plan from the cache
+    warm = engine.stats()
+    t_plan = sum(p.meta["t_build"] for p in plans)
+    t_exec = sum(r["time"] for r in results)
+    log(f"engine: solve_batch {wall:.3f} s = select {st['select_seconds']:.4f}"
+        f" s ({st['select_calls']} device batch) + plans {t_plan:.3f} s "
+        f"(reorder {sum(p.meta['t_reorder'] for p in plans):.3f}, symbolic "
+        f"{sum(p.meta['t_symbolic'] for p in plans):.3f}) + execute_plan "
+        f"{t_exec:.3f} s")
+    for a, b, r, p in zip(mats, bs, results, plans):
+        res = rel_residual(a, r["x"], b)
+        sp = r["spans"]
+        log(f"engine {a.name} n={a.n} nnz={a.nnz}: {r['algorithm']}, plan "
+            f"{p.meta['t_build']:.4f} s, nnz_L={p.nnz_L}; s: "
+            + ", ".join(f"{k} {sp[k]:.4f}" for k in (
+                "permute", "factor.schedule", "factor.assemble",
+                "factor.device", "solve.setup", "solve.sweep",
+                "solve.refine"))
+            + f"; residual {res:.3e}, refine iterations "
+            f"{r['refine_iterations']}")
+        if not (res <= 1e-10 and r["refine_converged"]):
+            raise AssertionError(f"engine {a.name}: residual {res:.3e}, "
+                                 f"converged {r['refine_converged']}")
+    if not (warm["hits"] - st["hits"] == len(mats)
+            and warm["select_calls"] == st["select_calls"]
+            and warm["sym_builds"] == st["sym_builds"]):
+        raise AssertionError(f"second plan_batch was not all cache hits: "
+                             f"{st} then {warm}")
+    log(f"engine: second plan_batch all {len(mats)} cache hits")
+    launched("engine", counts, REPLACES)
+    return counts
+
+
+def csr_stats_checks(mats, dev, out: dict) -> None:
+    """entry_stats / row_stats against their plain versions on the served
+    batch's arguments, as the featurizer builds them, with times and
+    bounds. Neither has a single PyTorch call computing the same function:
+    each statistic is a masked reduction, and no library call masks."""
+    import torch
+
+    from repro_torch.core.features import csr_stats_args, pad_csr_batch
+    from repro_torch.kernels import csr_stats as cs
+
+    ea, ra = csr_stats_args(pad_csr_batch(mats, bucket=True), dev)
+    B, E = ea[0].shape
+    N = ra[0].shape[1]
+    for name, args, plain, exact, ops in (
+            ("entry_stats", ea, cs.entry_stats_plain, [0], 4 * B * E),
+            ("row_stats", ra, cs.row_stats_plain, [0, 1], 5 * B * N)):
+        kern = getattr(cs, name)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        fl = [c for c in range(got.shape[1]) if c not in exact]
+        rel = ((got[:, fl] - want[:, fl]).abs()
+               / want[:, fl].abs().clamp(min=1e-30)).max().item()
+        if not (torch.equal(got[:, exact], want[:, exact])
+                and rel <= CSR_STATS_RTOL):
+            raise AssertionError(f"{name}: integer stats differ or float "
+                                 f"stats off by {rel:.3e} relative")
+        ms = device_ms(lambda: kern(*args))
+        pms = stream_ms(lambda: plain(*args))
+        # each input read once, the (B, 2) or (B, 3) result written once
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + got.numel() * 4
+        record(out, name, f"B={B} E={E} N={N} (max rel err float stats "
+               f"{rel:.3e})", err, ms, pms, None, ops, nbytes, PEAK_FP32,
+               True)
 
 
 def main() -> int:
@@ -427,30 +661,40 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.plan import execute_plan
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels._build import load_kernels
-    from repro_torch.sparse.dataset import grid3d
+    from repro_torch.sparse.dataset import generate_suite, grid3d
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     load_kernels()
-    log(f"build: {time.perf_counter() - t0:.1f} s (4 CUDA kernels, sm_90a)")
+    log(f"build: {time.perf_counter() - t0:.1f} s ({len(REPLACES)} CUDA "
+        f"kernels, sm_90a)")
 
     g20 = grid3d(20, 20, 20, "grid3d_20")
     g32 = grid3d(32, 32, 32, "grid3d_32")
     reset_launch_counts()
     plans = main_path([(g20, ["amd", "scotch", "nd", "rcm"]), (g32, ["nd"])],
                       dev)
-    counts = launch_counts()
-    log("kernels " + json.dumps({"launches": counts}))
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    launched("solve", launch_counts(), ("frontal_factor_batch",
+                                        "extend_add_batch",
+                                        "tri_solve_batch", "bell_spmv"))
+
+    engine = train_phase()
+    served = list(generate_suite(16, seed=1, size_scale=8))
+    select_phase(engine, served, dev)
+    counts = engine_phase(engine,
+                          list(generate_suite(16, seed=1, size_scale=4)))
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)
-    profile_solve(a, plan, dev)
+    csr_stats_checks(served, dev, records)
+    b = np.random.default_rng(2).standard_normal(a.n)
+    profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
+                 lambda: execute_plan(a, plan, b, device=dev))
+    profile_call("select_batch (16 served matrices)",
+                 lambda: engine.select_batch(served))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

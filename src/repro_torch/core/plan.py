@@ -1,22 +1,25 @@
-"""Port of ``repro/core/plan.py``: ``ExecutionPlan`` (:39),
-``PlanBuilder.build`` (:111) and ``execute_plan`` (:235), with
-``matrix_fingerprint`` copied from ``repro/core/plan_cache.py``.
+"""Port of ``repro/core/plan.py``: ``ExecutionPlan`` (:39), ``PlanBuilder``
+(:67) — ``build`` (:111), ``get_or_build``, ``select_names`` (:158),
+``plan_batch`` (:196), ``stats`` — and ``execute_plan`` (:235).
 
 An :class:`ExecutionPlan` carries everything that is a pure function of the
 sparsity structure — algorithm name, permutation, symbolic factor, predicted
 cost — so executing it only applies the permutation and runs the numeric
-phase. This slice builds plans for a named algorithm (no selector and no
-plan cache yet) and executes them on the pipelined multifrontal backend with
-device sweeps and fp64 refinement (``backend="pipelined"``,
-``sweep="device"``). Request contexts and the metrics registry wait for the
-engine slice; the solve-stage spans are returned in the result dict.
+phase. :class:`PlanBuilder` composes ``ReorderSelector.select_batch``
+(featurize + classify on the card), the reorderings and
+``symbolic_cholesky`` into plans, front-ended by the in-memory
+:class:`~repro_torch.core.plan_cache.PlanCache`. ``execute_plan`` runs the
+pipelined multifrontal backend with device sweeps and fp64 refinement
+(``backend="pipelined"``, ``sweep="device"``). Request contexts and the
+metrics registry are not ported yet; the solve-stage spans are returned in
+the result dict.
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,24 +29,10 @@ from ..sparse.multifrontal import multifrontal_cholesky, multifrontal_solve
 from ..sparse.refine import refine_solve_device
 from ..sparse.reorder import get_reordering
 from ..sparse.symbolic import SymbolicFactor, symbolic_cholesky
+from .plan_cache import PlanCache, matrix_fingerprint
 
 __all__ = ["ExecutionPlan", "PlanBuilder", "execute_plan", "SOLVE_STAGES",
            "matrix_fingerprint"]
-
-
-def matrix_fingerprint(a: CSRMatrix) -> str:
-    """Structure fingerprint: n, nnz, and a hash of the CSR index buffers.
-
-    Values (``a.data``) are deliberately excluded — ordering depends only on
-    the pattern, so numerically-different instances of one structure share
-    a plan.
-    """
-    h = hashlib.blake2b(digest_size=16)
-    h.update(np.int64(a.n).tobytes())
-    h.update(np.int64(a.nnz).tobytes())
-    h.update(np.ascontiguousarray(a.indptr, dtype=np.int32).tobytes())
-    h.update(np.ascontiguousarray(a.indices, dtype=np.int32).tobytes())
-    return h.hexdigest()
 
 
 @dataclasses.dataclass
@@ -75,26 +64,136 @@ class ExecutionPlan:
 
 
 class PlanBuilder:
-    """reorder → permute → symbolic on the host, for a named algorithm
-    (the selector and the plan cache join in the selection slice)."""
+    """select → reorder → symbolic, cache-aware and batch-first.
 
-    def build(self, a: CSRMatrix, algorithm: str,
+    ``plan_batch`` is the serving entry point: fingerprints the request,
+    answers repeats from the cache, runs the selector's device path once
+    over the deduplicated misses, and builds and installs fresh plans.
+    Counters expose how much work each stage did, so a warm hit can be shown
+    to do no feature extraction, classification or symbolic analysis.
+    ``device`` is where the device path featurizes and classifies
+    (``None`` → CUDA).
+    """
+
+    def __init__(self, selector=None, cache: Optional[PlanCache] = None, *,
+                 path: str = "device", batch_size: int = 16, device=None):
+        self.selector = selector
+        self.cache = cache if cache is not None else PlanCache()
+        self.path = path
+        self.batch_size = batch_size
+        self.device = device
+        # stage counters, updated through _count
+        self._stats_lock = threading.Lock()
+        self.plans_built = 0
+        self.sym_builds = 0
+        self.select_calls = 0
+        self.select_seconds = 0.0
+        self.build_seconds = 0.0
+
+    def _count(self, **deltas) -> None:
+        with self._stats_lock:
+            for k, d in deltas.items():
+                setattr(self, k, getattr(self, k) + d)
+
+    def reset_stats(self) -> None:
+        """Zero the stage counters (and the cache's, via its own reset)."""
+        with self._stats_lock:
+            self.plans_built = self.sym_builds = self.select_calls = 0
+            self.select_seconds = self.build_seconds = 0.0
+        self.cache.reset_stats()
+
+    # -- single-matrix ------------------------------------------------------
+    def build(self, a: CSRMatrix, algorithm: Optional[str] = None,
               fingerprint: Optional[str] = None) -> ExecutionPlan:
-        """Build a plan from scratch. ``meta`` records ``t_build`` and its
-        ``t_reorder`` / ``t_symbolic`` split."""
+        """Build a plan from scratch (no cache involvement); without an
+        ``algorithm`` the selector picks one on the host. ``meta`` records
+        ``t_select`` and ``t_build`` with its ``t_reorder`` / ``t_symbolic``
+        split."""
+        t_sel = 0.0
         if algorithm is None:
-            raise ValueError("no algorithm given; selection is not ported yet")
-        t0 = time.perf_counter()
-        perm = get_reordering(algorithm)(a)
+            if self.selector is None:
+                raise ValueError("no algorithm given and no selector set")
+            algorithm, t_sel = self.selector.select(a)
+            self._count(select_calls=1, select_seconds=t_sel)
+        t0 = time.perf_counter()  # select_seconds and build_seconds are
+        perm = get_reordering(algorithm)(a)  # disjoint stages in reports
         t_reorder = time.perf_counter() - t0
         pa = permute_symmetric(a, perm)
         sym = symbolic_cholesky(pa)
         dt = time.perf_counter() - t0
+        self._count(sym_builds=1, plans_built=1, build_seconds=dt)
         return ExecutionPlan(
             fingerprint or matrix_fingerprint(a), algorithm,
             np.asarray(perm, dtype=np.int64), sym, sym.flops,
             meta=dict(t_build=dt, t_reorder=t_reorder,
-                      t_symbolic=dt - t_reorder, t_select=0.0))
+                      t_symbolic=dt - t_reorder, t_select=t_sel))
+
+    def get_or_build(self, a: CSRMatrix) -> Tuple[ExecutionPlan, bool]:
+        """(plan, was_hit) for one matrix through the cache."""
+        key = matrix_fingerprint(a)
+        plan = self.cache.get(key)
+        if plan is not None:
+            return plan, True
+        plan = self.build(a, fingerprint=key)
+        self.cache.put(key, plan)
+        return plan, False
+
+    # -- batched serving path ------------------------------------------------
+    def select_names(self, mats: Sequence[CSRMatrix]) -> List[str]:
+        """Device-batched selection in size-tiered chunks of ``batch_size``.
+
+        Partial device chunks are padded to ``batch_size`` (repeating a
+        member) so the batch dim stays one shape bucket; filler results are
+        dropped.
+        """
+        if self.selector is None:
+            raise ValueError("PlanBuilder has no selector for cache misses")
+        order = sorted(range(len(mats)), key=lambda i: (mats[i].nnz,
+                                                        mats[i].n))
+        names: List[Optional[str]] = [None] * len(mats)
+        for lo in range(0, len(order), self.batch_size):
+            chunk = order[lo : lo + self.batch_size]
+            batch = [mats[i] for i in chunk]
+            if self.path == "device":
+                batch += [batch[0]] * (self.batch_size - len(chunk))
+            got, dt = self.selector.select_batch(batch, path=self.path,
+                                                 device=self.device)
+            self._count(select_calls=1, select_seconds=dt)
+            for i, name in zip(chunk, got):
+                names[i] = name
+        return names  # type: ignore[return-value]
+
+    def plan_batch(self, mats: Sequence[CSRMatrix]) -> List[ExecutionPlan]:
+        """Plans for a request batch; hits skip select+reorder+symbolic."""
+        keys = [matrix_fingerprint(m) for m in mats]
+        plans: List[Optional[ExecutionPlan]] = [None] * len(mats)
+        pending: Dict[str, List[int]] = {}
+        for i, key in enumerate(keys):
+            hit = self.cache.get(key)
+            if hit is not None:
+                plans[i] = hit
+            else:
+                pending.setdefault(key, []).append(i)
+        if pending:
+            miss_idx = [idxs[0] for idxs in pending.values()]
+            names = self.select_names([mats[i] for i in miss_idx])
+            for i, name in zip(miss_idx, names):
+                plan = self.build(mats[i], algorithm=name,
+                                  fingerprint=keys[i])
+                self.cache.put(keys[i], plan)
+                for j in pending[keys[i]]:
+                    plans[j] = plan
+        return plans  # type: ignore[return-value]
+
+    def stats(self) -> dict:
+        s = self.cache.stats()
+        with self._stats_lock:
+            s.update(plans_built=self.plans_built,
+                     sym_builds=self.sym_builds,
+                     select_calls=self.select_calls,
+                     select_seconds=self.select_seconds,
+                     build_seconds=self.build_seconds)
+        return s
 
 
 #: solve-stage names: the reference's spans, plus ``factor.schedule``

@@ -1,0 +1,142 @@
+"""Port of ``repro/engine/config.py``: :class:`EngineConfig`, one dataclass
+for the whole stack.
+
+The fields and their validation are the reference's, plus ``device`` and
+less ``use_pallas``: the port's device featurizer always runs the
+``csr_stats`` kernels on the card, so there is no switch to the plain
+reductions there. The defaults are the served main path of the port: device featurization through
+the ``csr_stats`` kernels, forest inference on the card, the pipelined
+factor, device sweeps and fp64 refinement, and an in-memory plan cache. A
+value that names something not ported yet raises ``NotImplementedError``
+naming the ROADMAP item; nothing falls back. The fields of the parts not
+ported yet (the disk tier, serving, the bundle lifecycle, the tuner) are
+kept so that a config reads as in the reference; any value but the
+default raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Optional, Sequence
+
+__all__ = ["EngineConfig"]
+
+#: fields read by parts not ported yet, by ROADMAP slice-queue item: any
+#: value but the default raises
+_UNPORTED_FIELDS = {
+    "serving": ("cache_dir", "cache_max_disk_bytes", "cache_max_disk_entries",
+                "max_wait_ms", "build_workers", "max_queue",
+                "default_deadline_ms", "metrics_jsonl", "rpc_host",
+                "rpc_port", "bundle_dir", "promote_min_accuracy",
+                "promote_min_shadow_requests", "promote_min_win_rate",
+                "shadow_max_queue"),
+    "the solve tuner": ("autotune_solve", "autotune_dir"),
+}
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Everything a :class:`SolverEngine` composes, in one place.
+
+    Capability fields (``model``, ``scaling``, ``feature_set``,
+    ``algorithms``) are *registry names*, so swapping any of them is a
+    config edit, not a code edit.
+    """
+
+    # capability selection (registry names)
+    model: str = "random_forest"
+    scaling: str = "standard"
+    feature_set: str = "paper12"
+    # None → adopt the label set of the training dataset / loaded bundle;
+    # set it to *assert* the labels (train() rejects a dataset whose
+    # algorithm list disagrees)
+    algorithms: Optional[Sequence[str]] = None
+
+    # plan cache: in-memory (dir=None); the disk tier is not ported yet
+    cache_dir: Optional[str] = None
+    cache_capacity: int = 4096
+    cache_max_disk_bytes: Optional[int] = None
+    cache_max_disk_entries: Optional[int] = None
+
+    # featurization / inference path
+    path: str = "device"          # "device" (padded CSR batch) or "host"
+    batch_size: int = 16
+    serving_devices: Optional[int] = None
+    # where the device path and the solve run: None → CUDA (raising when
+    # there is no card); "cpu" runs the kernels' plain versions
+    device: Optional[str] = None
+
+    # async serving and RPC (not ported yet)
+    max_wait_ms: float = 5.0
+    build_workers: int = 2
+    max_queue: Optional[int] = None
+    default_deadline_ms: Optional[float] = None
+    metrics_jsonl: Optional[str] = None
+    rpc_host: str = "127.0.0.1"
+    rpc_port: int = 0
+
+    # numeric solve (see repro_torch.core.plan.execute_plan)
+    solver: str = "multifrontal"
+    backend: str = "pipelined"
+    solve_dtype: str = "fp32_refine"
+    sweep: str = "device"
+    autotune_solve: bool = False
+    autotune_dir: str = os.path.join("artifacts", "autotune")
+
+    # training
+    fast_grids: bool = False
+    cv: int = 5
+    test_size: float = 0.2
+    seed: int = 0
+
+    # bundle lifecycle (not ported yet)
+    bundle_dir: str = os.path.join("artifacts", "bundles")
+    promote_min_accuracy: float = 0.5
+    promote_min_shadow_requests: int = 10
+    promote_min_win_rate: float = 0.5
+    shadow_max_queue: int = 512
+
+    def __post_init__(self) -> None:
+        if self.path not in ("host", "device"):
+            raise ValueError(f"path must be 'host' or 'device', "
+                             f"got {self.path!r}")
+        if self.backend not in ("numpy", "pallas", "batched", "pipelined"):
+            raise ValueError(f"backend must be 'numpy', 'pallas', 'batched' "
+                             f"or 'pipelined', got {self.backend!r}")
+        if self.solve_dtype not in ("fp64", "fp32", "fp32_refine"):
+            raise ValueError(f"solve_dtype must be 'fp64', 'fp32' or "
+                             f"'fp32_refine', got {self.solve_dtype!r}")
+        if self.sweep not in ("auto", "seq", "level", "device"):
+            raise ValueError(f"sweep must be 'auto', 'seq', 'level' or "
+                             f"'device', got {self.sweep!r}")
+        if self.device not in (None, "cuda", "cpu"):
+            raise ValueError(f"device must be None, 'cuda' or 'cpu', got "
+                             f"{self.device!r}")
+        pallas = ("the per-front pallas backend" if self.backend == "pallas"
+                  else "other solve paths")
+        for what, unported, item in (
+                (f"backend {self.backend!r}", self.backend != "pipelined",
+                 pallas),
+                (f"sweep {self.sweep!r}", self.sweep != "device",
+                 "other solve paths"),
+                (f"solver {self.solver!r}", self.solver != "multifrontal",
+                 "other solve paths"),
+                ("a serving mesh (serving_devices > 1)",
+                 (self.serving_devices or 1) > 1, "serving")):
+            if unported:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP.md, slice queue: "
+                    f"{item})")
+        for f in dataclasses.fields(self):
+            for item, names in _UNPORTED_FIELDS.items():
+                if f.name in names and getattr(self, f.name) != f.default:
+                    raise NotImplementedError(
+                        f"{f.name}={getattr(self, f.name)!r}: not ported yet "
+                        f"(ROADMAP.md, slice queue: {item})")
+        if self.solve_dtype == "fp64":
+            warnings.warn(
+                "backend 'pipelined' factors in fp32; solve_dtype 'fp64' "
+                "will run as 'fp32_refine' (fp32 factorization + fp64 "
+                "iterative refinement). Set solve_dtype='fp32_refine' "
+                "explicitly to silence this.", UserWarning, stacklevel=2)

@@ -1,0 +1,289 @@
+"""Port of ``repro/engine/core.py``: :class:`SolverEngine` — matrix in,
+best reordering (and solve) out.
+
+The facade composes the registries, the selector pipeline and the
+ExecutionPlan builder and cache behind one object with one configuration:
+``train`` → ``select`` / ``select_batch`` → ``plan`` / ``plan_batch`` →
+``solve`` / ``solve_batch``, ``save`` / ``load`` as
+:class:`~repro_torch.engine.bundle.SelectorBundle`\\ s, and ``stats``. The
+fingerprint of the fitted model/scaler versions the plan cache: a refit
+gets a fresh cache front-end, so a stale plan is never served by a newer
+model.
+
+``solve_batch`` is the served main path on the card: featurize through the
+``csr_stats`` kernels and classify with the forest on the card, build plans
+(reorder + symbolic on the host), then the pipelined factor, the device
+sweeps and fp64 refinement. Not ported yet (ROADMAP): ``serve``, shadow /
+promote / rollback and the bundle registry, ``metrics``, request-context
+spans, and the solve tuner (the engine passes the reference's conservative
+default policy, ``pad="pow2"``, ``bs=None``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .bundle import SelectorBundle
+from .config import EngineConfig
+
+__all__ = ["SolverEngine", "EngineError"]
+
+
+class EngineError(RuntimeError):
+    """Engine misuse: untrained access, config/selector mismatch, etc."""
+
+
+def _dataset_provenance(ds) -> Dict[str, Any]:
+    """Plain-data description of a LabeledDataset for bundle schema v2."""
+    labels = np.asarray(ds.labels)
+    return dict(
+        kind=type(ds).__name__,
+        n_samples=int(np.asarray(ds.features).shape[0]),
+        algorithms=list(ds.algorithms),
+        feature_set=getattr(ds, "feature_set", "paper12"),
+        groups=sorted(set(getattr(ds, "groups", []))),
+        dim_range=[int(np.min(ds.dims)), int(np.max(ds.dims))],
+        nnz_range=[int(np.min(ds.nnzs)), int(np.max(ds.nnzs))],
+        label_counts={alg: int((labels == i).sum())
+                      for i, alg in enumerate(ds.algorithms)},
+    )
+
+
+class SolverEngine:
+    """One API for train → select → plan → solve → save/load.
+
+    Build one from a config and train it, attach an existing fitted
+    selector, or load a persisted :class:`SelectorBundle`::
+
+        engine = SolverEngine(EngineConfig())
+        engine.train(dataset)
+        results = engine.solve_batch(mats, bs)
+        engine.save("selector.bundle")
+        engine = SolverEngine.load("selector.bundle")
+    """
+
+    def __init__(self, config: Optional[EngineConfig] = None,
+                 selector=None):
+        self.config = config if config is not None else EngineConfig()
+        self._selector = None
+        self._fingerprint: Optional[str] = None
+        self._builder = None
+        self.last_report: Optional[Dict[str, Any]] = None
+        # dataset provenance of the last train() — persisted into bundle
+        # schema v2 by save() (None for attach()/load()-built engines)
+        self.last_provenance: Optional[Dict[str, Any]] = None
+        if selector is not None:
+            self.attach(selector)
+
+    # -- selector lifecycle --------------------------------------------------
+    @property
+    def selector(self):
+        if self._selector is None:
+            raise EngineError("engine has no trained selector yet — call "
+                              "train(dataset), attach(selector), or "
+                              "SolverEngine.load(path)")
+        return self._selector
+
+    def attach(self, selector) -> "SolverEngine":
+        """Adopt a fitted ``ReorderSelector`` (feature set must match)."""
+        fs = getattr(selector, "feature_set", "paper12")
+        if fs != self.config.feature_set:
+            raise EngineError(
+                f"selector was trained on feature set {fs!r} but the engine "
+                f"is configured for {self.config.feature_set!r}")
+        self._selector = selector
+        self.refresh_fingerprint()
+        return self
+
+    def train(self, dataset, **overrides) -> Dict[str, Any]:
+        """Grid-search + refit on a :class:`LabeledDataset`; returns the
+        evaluation report. Any ``train_selector`` keyword can be overridden
+        per call (e.g. ``grid=...``); the new fit gets a new fingerprint,
+        which re-versions the plan cache automatically."""
+        from ..core.selector import train_selector
+
+        cfg = self.config
+        if (cfg.algorithms is not None
+                and list(cfg.algorithms) != list(dataset.algorithms)):
+            raise EngineError(
+                f"config asserts algorithms {list(cfg.algorithms)} but the "
+                f"dataset was labeled over {list(dataset.algorithms)} — "
+                "relabel the dataset or drop the config assertion")
+        kwargs: Dict[str, Any] = dict(
+            model_name=cfg.model, scaling=cfg.scaling,
+            feature_set=cfg.feature_set, fast=cfg.fast_grids, cv=cfg.cv,
+            test_size=cfg.test_size, seed=cfg.seed)
+        kwargs.update(overrides)
+        self._selector, report = train_selector(dataset, **kwargs)
+        self.last_report = report
+        self.last_provenance = _dataset_provenance(dataset)
+        self.refresh_fingerprint()
+        return report
+
+    # -- fingerprint → cache version -----------------------------------------
+    @property
+    def fingerprint(self) -> Optional[str]:
+        """Fingerprint of the fitted (model, scaler, features, algorithms);
+        ``None`` while untrained. This exact value versions the plan cache,
+        and equals the reference's for the same fitted state."""
+        return self._fingerprint
+
+    def refresh_fingerprint(self) -> Optional[str]:
+        """Recompute the fingerprint from the live selector and, if it
+        changed, drop the cache front-end so it is rebuilt under the new
+        version. ``train``/``attach``/``load`` call this; call it yourself
+        only after mutating the fitted model out of band."""
+        if self._selector is None:
+            return None
+        fp = SelectorBundle.from_selector(self._selector).fingerprint
+        if fp != self._fingerprint:
+            self._fingerprint = fp
+            self._builder = None  # rebuilt lazily under the new version
+        return fp
+
+    @property
+    def cache_version(self) -> str:
+        if self._fingerprint is None:
+            raise EngineError("no fingerprint before training")
+        return f"sel-{self._fingerprint[:16]}"
+
+    def _get_builder(self):
+        if self._builder is None:
+            from ..core.plan import PlanBuilder
+            from ..core.plan_cache import PlanCache
+
+            cfg = self.config
+            self._builder = PlanBuilder(
+                self.selector, PlanCache(cfg.cache_capacity), path=cfg.path,
+                batch_size=cfg.batch_size, device=cfg.device)
+        return self._builder
+
+    @property
+    def builder(self):
+        """The fingerprint-versioned :class:`PlanBuilder` (cache included)."""
+        return self._get_builder()
+
+    # -- selection -----------------------------------------------------------
+    def select(self, a) -> Tuple[str, float]:
+        """(algorithm name, prediction seconds) for one matrix (host)."""
+        return self.selector.select(a)
+
+    def select_batch(self, mats: Sequence) -> List[str]:
+        """Algorithm names for a batch via the configured path."""
+        names, _ = self.selector.select_batch(
+            mats, path=self.config.path, device=self.config.device)
+        return names
+
+    # -- planning ------------------------------------------------------------
+    def plan(self, a):
+        """Cached :class:`ExecutionPlan` for one matrix."""
+        plan, _ = self._get_builder().get_or_build(a)
+        return plan
+
+    def plan_batch(self, mats: Sequence) -> List:
+        """Plans for a request batch (hits skip every cold stage)."""
+        return self._get_builder().plan_batch(mats)
+
+    # -- solving -------------------------------------------------------------
+    def _solve_kwargs(self) -> Dict[str, Any]:
+        """The numeric knobs of ``execute_plan``: the config's path and the
+        reference's conservative default policy (no tuner yet)."""
+        cfg = self.config
+        return dict(solver=cfg.solver, backend=cfg.backend,
+                    solve_dtype=cfg.solve_dtype, pad="pow2", bs=None,
+                    sweep=cfg.sweep, sweep_bs=None, rt=None,
+                    device=cfg.device)
+
+    def solve(self, a, b: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        """Plan (cached) + numeric factor + solve; returns the result dict
+        of :func:`repro_torch.core.plan.execute_plan` (x, timings, spans,
+        residual)."""
+        from ..core.plan import execute_plan
+
+        return execute_plan(a, self.plan(a), b, **self._solve_kwargs())
+
+    def solve_batch(self, mats: Sequence,
+                    bs: Optional[Sequence[Optional[np.ndarray]]] = None
+                    ) -> List[Dict[str, Any]]:
+        """``plan_batch`` (one device selection over the misses), then one
+        ``execute_plan`` per matrix; ``bs[i]`` is the right-hand side of
+        ``mats[i]`` (None: a seeded one)."""
+        from ..core.plan import execute_plan
+
+        plans = self.plan_batch(mats)
+        if bs is None:
+            bs = [None] * len(mats)
+        kw = self._solve_kwargs()
+        return [execute_plan(a, p, b, **kw)
+                for a, p, b in zip(mats, plans, bs)]
+
+    # -- persistence ---------------------------------------------------------
+    def _report_card(self) -> Optional[Dict[str, Any]]:
+        """The schema-v2 report card of the last ``train()``, or None for
+        an attach()/load()-built engine (whose quality was not measured
+        here)."""
+        if self.last_report is None:
+            return None
+        rep = self.last_report
+        conf = rep.get("confusion")
+        return dict(
+            test_accuracy=rep.get("test_accuracy"),
+            cv_score=rep.get("cv_score"),
+            best_params=rep.get("best_params"),
+            per_algorithm_recall=rep.get("per_algorithm_recall"),
+            confusion=(np.asarray(conf).tolist()
+                       if conf is not None else None),
+            test_support=rep.get("test_support"),
+        )
+
+    def save(self, path: str, meta: Optional[Dict[str, Any]] = None) -> str:
+        """Persist the fitted selector as a versioned SelectorBundle.
+
+        When the engine trained the selector itself, the bundle carries the
+        schema-v2 training-report card and the dataset provenance; an
+        attach()/load()-built engine saves a bundle with both ``None``."""
+        meta = dict(meta or {})
+        report_card = self._report_card()
+        if report_card is not None:
+            meta.setdefault("test_accuracy", report_card["test_accuracy"])
+        return SelectorBundle.from_selector(
+            self.selector, meta=meta, report_card=report_card,
+            provenance=self.last_provenance).save(path)
+
+    @classmethod
+    def load(cls, path: str, config: Optional[EngineConfig] = None
+             ) -> "SolverEngine":
+        """Rebuild an engine from a bundle (validating it), adopting the
+        bundle's feature set when no config is given. A config whose
+        ``feature_set`` disagrees with the bundle is rejected. The
+        capability fields (model / scaling / algorithms) are synced to what
+        the bundle serves; a passed config contributes the cache, path and
+        solve knobs."""
+        bundle = SelectorBundle.load(path)
+        if config is None:
+            config = EngineConfig(feature_set=bundle.feature_set)
+        elif config.feature_set != bundle.feature_set:
+            raise EngineError(
+                f"bundle {path!r} was trained on feature set "
+                f"{bundle.feature_set!r} but the engine config asks for "
+                f"{config.feature_set!r}")
+        config = dataclasses.replace(config, model=bundle.model_name,
+                                     scaling=bundle.scaler_name,
+                                     algorithms=list(bundle.algorithms))
+        return cls(config).attach(bundle.to_selector())
+
+    # -- introspection -------------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        s = (self._get_builder().stats() if self._selector is not None
+             else {})
+        s.update(fingerprint=self._fingerprint,
+                 model=self.config.model, scaling=self.config.scaling,
+                 feature_set=self.config.feature_set)
+        return s
+
+    def __repr__(self) -> str:
+        fp = self._fingerprint[:12] if self._fingerprint else "untrained"
+        return (f"SolverEngine(model={self.config.model!r}, "
+                f"features={self.config.feature_set!r}, fingerprint={fp})")

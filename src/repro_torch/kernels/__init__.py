@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .csr_stats import entry_stats, row_stats
 from .frontal_cholesky import (extend_add_batch, frontal_factor_batch,
                                tri_solve_batch)
 from .spmv_bell import bell_spmv
@@ -18,6 +19,8 @@ KERNELS = {
     "extend_add_batch": extend_add_batch,
     "tri_solve_batch": tri_solve_batch,
     "bell_spmv": bell_spmv,
+    "entry_stats": entry_stats,
+    "row_stats": row_stats,
 }
 
 

@@ -143,6 +143,88 @@ void bell_spmv(const at::Tensor& blocks, const at::Tensor& idx,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void check_batch(const at::Tensor& t, at::ScalarType type,
+                 const at::Tensor& like, const char* name) {
+  check_cuda(t, type, name);
+  TORCH_CHECK(t.dim() == 2 && t.is_contiguous(), name,
+              " must be a contiguous (B, len) batch");
+  TORCH_CHECK(t.sizes() == like.sizes(), name, " has shape ", t.sizes(),
+              ", want ", like.sizes());
+  TORCH_CHECK(t.device() == like.device(), name, " is on another device");
+}
+
+// Partial buffers of a (B, len) reduction in chunks of `chunk`.
+void check_parts(const at::Tensor& t, at::ScalarType type, int64_t B,
+                 int64_t len, int64_t chunk, const at::Tensor& like,
+                 const char* name) {
+  check_cuda(t, type, name);
+  TORCH_CHECK(t.is_contiguous() && t.dim() == 2 && t.size(0) == B &&
+                  t.size(1) == (len + chunk - 1) / chunk,
+              name, " must be a contiguous (B, ceil(len / chunk)) buffer");
+  TORCH_CHECK(t.device() == like.device(), name, " is on another device");
+}
+
+void check_out(const at::Tensor& t, int64_t B, int64_t k,
+               const at::Tensor& like) {
+  check_cuda(t, at::kFloat, "out");
+  TORCH_CHECK(t.is_contiguous() && t.dim() == 2 && t.size(0) == B &&
+                  t.size(1) == k,
+              "out must be a contiguous (B, ", k, ") float32 tensor");
+  TORCH_CHECK(t.device() == like.device(), "out is on another device");
+}
+
+void entry_stats(const at::Tensor& rows, const at::Tensor& cols,
+                 const at::Tensor& valid, const at::Tensor& first,
+                 int64_t chunk, at::Tensor& bw_part, at::Tensor& prof_part,
+                 at::Tensor& out) {
+  check_batch(rows, at::kInt, rows, "rows");
+  check_batch(cols, at::kInt, rows, "cols");
+  check_batch(valid, at::kInt, rows, "valid");
+  check_batch(first, at::kInt, rows, "first");
+  const int64_t B = rows.size(0), E = rows.size(1);
+  TORCH_CHECK(chunk >= 1 && chunk <= INT32_MAX, "chunk out of range");
+  TORCH_CHECK(B <= 65535, "at most 65,535 matrices in a batch, got ", B);
+  check_parts(bw_part, at::kInt, B, E, chunk, rows, "bw_part");
+  check_parts(prof_part, at::kLong, B, E, chunk, rows, "prof_part");
+  check_out(out, B, 2, rows);
+  if (B == 0) return;
+  const c10::cuda::CUDAGuard guard(rows.device());
+  launch_entry_stats(rows.data_ptr<int>(), cols.data_ptr<int>(),
+                     valid.data_ptr<int>(), first.data_ptr<int>(),
+                     static_cast<int>(B), as_int(E, "E"),
+                     static_cast<int>(chunk), bw_part.data_ptr<int>(),
+                     prof_part.data_ptr<int64_t>(), out.data_ptr<float>(),
+                     c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void row_stats(const at::Tensor& row_nnz, const at::Tensor& row_valid,
+               const at::Tensor& mean, int64_t chunk, at::Tensor& mx_part,
+               at::Tensor& mn_part, at::Tensor& sq_part, at::Tensor& out) {
+  check_batch(row_nnz, at::kInt, row_nnz, "row_nnz");
+  check_batch(row_valid, at::kInt, row_nnz, "row_valid");
+  const int64_t B = row_nnz.size(0), N = row_nnz.size(1);
+  check_cuda(mean, at::kFloat, "mean");
+  TORCH_CHECK(mean.dim() == 1 && mean.size(0) == B && mean.is_contiguous(),
+              "mean must be a contiguous (B,) float32 tensor");
+  TORCH_CHECK(mean.device() == row_nnz.device(), "mean is on another device");
+  TORCH_CHECK(chunk >= 1 && chunk <= INT32_MAX, "chunk out of range");
+  TORCH_CHECK(B <= 65535, "at most 65,535 matrices in a batch, got ", B);
+  check_parts(mx_part, at::kInt, B, N, chunk, row_nnz, "mx_part");
+  check_parts(mn_part, at::kInt, B, N, chunk, row_nnz, "mn_part");
+  check_parts(sq_part, at::kDouble, B, N, chunk, row_nnz, "sq_part");
+  check_out(out, B, 3, row_nnz);
+  if (B == 0) return;
+  const c10::cuda::CUDAGuard guard(row_nnz.device());
+  launch_row_stats(row_nnz.data_ptr<int>(), row_valid.data_ptr<int>(),
+                   mean.data_ptr<float>(), static_cast<int>(B),
+                   as_int(N, "N"), static_cast<int>(chunk),
+                   mx_part.data_ptr<int>(), mn_part.data_ptr<int>(),
+                   sq_part.data_ptr<double>(), out.data_ptr<float>(),
+                   c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -156,4 +238,14 @@ TORCH_LIBRARY(repro_torch, m) {
         &tri_solve);
   m.def("bell_spmv(Tensor blocks, Tensor idx, Tensor x, Tensor(a!) y) -> ()",
         &bell_spmv);
+  m.def(
+      "entry_stats(Tensor rows, Tensor cols, Tensor valid, Tensor first, "
+      "int chunk, Tensor(a!) bw_part, Tensor(b!) prof_part, Tensor(c!) out) "
+      "-> ()",
+      &entry_stats);
+  m.def(
+      "row_stats(Tensor row_nnz, Tensor row_valid, Tensor mean, int chunk, "
+      "Tensor(a!) mx_part, Tensor(b!) mn_part, Tensor(c!) sq_part, "
+      "Tensor(d!) out) -> ()",
+      &row_stats);
 }

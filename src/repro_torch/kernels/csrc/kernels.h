@@ -8,6 +8,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 // Widest panel the factor and sweep kernels take (pick_block_size caps at 32).
 constexpr int kMaxPanel = 32;
 
@@ -30,3 +32,15 @@ void launch_bell_spmv_f64(const double* blocks, const int* idx,
 void launch_bell_spmv_f32(const float* blocks, const int* idx, const float* x,
                           float* y, int nrb, int max_k, int bs, int kk,
                           cudaStream_t stream);
+
+// csr_stats.cu: partial buffers are (B, ceil(len / chunk)); out is (B, 2)
+// for entry_stats and (B, 3) for row_stats.
+void launch_entry_stats(const int* rows, const int* cols, const int* valid,
+                        const int* first, int B, int E, int chunk,
+                        int* bw_part, int64_t* prof_part, float* out,
+                        cudaStream_t stream);
+
+void launch_row_stats(const int* row_nnz, const int* row_valid,
+                      const float* mean, int B, int N, int chunk,
+                      int* mx_part, int* mn_part, double* sq_part, float* out,
+                      cudaStream_t stream);

@@ -1,6 +1,6 @@
 """Copy of ``repro/sparse/csr.py``: ``CSRMatrix`` (with ``matvec``),
-``coo_to_csr``, ``permute_symmetric``, ``symmetrize_pattern`` and
-``make_spd``.
+``coo_to_csr``, ``bandwidth``, ``profile``, ``permute_symmetric``,
+``symmetrize_pattern`` and ``make_spd``.
 
 Compressed-sparse-row container and structural utilities. Host-side
 structure manipulation is vectorized numpy (int32 indices); numeric payloads
@@ -17,6 +17,8 @@ import numpy as np
 __all__ = [
     "CSRMatrix",
     "coo_to_csr",
+    "bandwidth",
+    "profile",
     "permute_symmetric",
     "symmetrize_pattern",
     "make_spd",
@@ -112,6 +114,27 @@ def coo_to_csr(
     np.add.at(indptr, rows.astype(np.int64) + 1, 1)
     indptr = np.cumsum(indptr, dtype=np.int64).astype(np.int32)
     return CSRMatrix(indptr, cols.astype(np.int32), vals, shape, name, group)
+
+
+def bandwidth(a: CSRMatrix) -> int:
+    """Bandwidth = max_{a_ij != 0} |i - j|   (paper Eq. 2)."""
+    if a.nnz == 0:
+        return 0
+    rows = np.repeat(np.arange(a.n, dtype=np.int64), a.row_lengths())
+    return int(np.abs(rows - a.indices.astype(np.int64)).max())
+
+
+def profile(a: CSRMatrix) -> int:
+    """Profile = sum_i (i - min{j : a_ij != 0})   (paper Eq. 3).
+
+    Rows with no entry left of (or on) the diagonal contribute 0. Columns
+    are sorted within a row, so a row's first entry holds its minimum; the
+    reference's row loop is vectorized here (same integer result).
+    """
+    lo, hi = a.indptr[:-1], a.indptr[1:]
+    rows = np.nonzero(hi > lo)[0]
+    jmin = a.indices[lo[rows]].astype(np.int64)
+    return int(np.maximum(rows - jmin, 0).sum())
 
 
 # Permutation  B = P A Pᵀ  with  B[k, l] = A[perm[k], perm[l]]: `perm` lists
