@@ -4,8 +4,8 @@ Run from the root of the repository, on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives three paths, each with the kernels' launch counts zeroed just before
+It builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives four paths, each with the kernels' launch counts zeroed just before
 it and read just after it:
 
 * **solve** (``PlanBuilder.build`` → ``execute_plan`` with
@@ -26,14 +26,23 @@ it and read just after it:
   printed);
 * **engine**: ``SolverEngine.solve_batch`` over
   ``generate_suite(16, seed=1, size_scale=4)`` with seeded right-hand sides:
-  every residual ≤ 1e-10 with refinement converged, all six kernels
-  launched, and a second ``plan_batch`` answered from the cache.
+  every residual ≤ 1e-10 with refinement converged, the six kernels of the
+  served path launched, and a second ``plan_batch`` answered from the cache;
+* **per_front**: ``execute_plan`` with ``backend="pallas"`` (one front at a
+  time through ``chol_tile``, ``tri_inv_tile`` and ``matmul_nt``),
+  ``sweep="device"``, ``solve_dtype="fp32_refine"`` on the 32³ ``nd`` plan
+  of the solve path; then ``batched`` + ``level`` and ``numpy`` + ``device``
+  on the 20³ ``nd`` plan; then ``SolverEngine(EngineConfig(
+  backend="pallas")).solve_batch`` over ``generate_suite(4, seed=2,
+  size_scale=4)``: every residual ≤ 1e-10 with refinement converged, and
+  each tile kernel launched more than once.
 
 Then it holds each kernel against its plain PyTorch version (the solve
-kernels at shapes from the 32³ schedule, the ``csr_stats`` kernels on the
-served batch) and times kernel, plain version and, where one exists, the
-PyTorch library call computing the same function; it profiles one solve and
-one selection. It prints the stage times, a ``kernels`` JSON line, the
+kernels at shapes from the 32³ schedule, the tile kernels on the first panel
+of that schedule's peak (root) front and of a leaf front, the ``csr_stats`` kernels
+on the served batch) and times kernel, plain version and, where one exists,
+the PyTorch library call computing the same function; it profiles the
+pipelined and the per-front solve and one selection. It prints the stage times, a ``kernels`` JSON line, the
 card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a CUDA
@@ -63,7 +72,10 @@ PEAK_BYTES = 3.35e12
 #: each Schur entry is a sum of up to P = 256 products), hence 1e-4. fp64
 #: SpMV: both sum the same products of one block-row, in other orders.
 TOL = {"frontal_factor_batch": 1e-4, "extend_add_batch": 1e-5,
-       "tri_solve_batch": 1e-5, "bell_spmv": 1e-12}
+       "tri_solve_batch": 1e-5, "bell_spmv": 1e-12,
+       # the tile Cholesky's error grows along its 128-step chain of
+       # dependent updates; the inverse and the product are short sums
+       "chol_tile": 1e-4, "tri_inv_tile": 1e-5, "matmul_nt": 1e-5}
 #: csr_stats: the integer statistics (bandwidth, row max/min) must be exact;
 #: profile and squared deviations are float32 sums in the plain version
 #: (fp64 / int64 in the kernels), held per matrix at this relative tolerance
@@ -82,6 +94,9 @@ REPLACES = {
     "bell_spmv": "src/repro/kernels/spmv_bell.py:91",
     "entry_stats": "src/repro/kernels/csr_stats.py:116",
     "row_stats": "src/repro/kernels/csr_stats.py:142",
+    "chol_tile": "src/repro/kernels/frontal_cholesky.py:113",
+    "tri_inv_tile": "src/repro/kernels/frontal_cholesky.py:133",
+    "matmul_nt": "src/repro/kernels/frontal_cholesky.py:177",
 }
 SOURCE = {
     "frontal_factor_batch": "src/repro_torch/kernels/csrc/frontal_factor.cu",
@@ -90,7 +105,15 @@ SOURCE = {
     "bell_spmv": "src/repro_torch/kernels/csrc/spmv_bell.cu",
     "entry_stats": "src/repro_torch/kernels/csrc/csr_stats.cu",
     "row_stats": "src/repro_torch/kernels/csrc/csr_stats.cu",
+    "chol_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
+    "tri_inv_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
+    "matmul_nt": "src/repro_torch/kernels/csrc/tile_kernels.cu",
 }
+#: the kernels each path must launch
+SOLVE_KERNELS = ("frontal_factor_batch", "extend_add_batch",
+                 "tri_solve_batch", "bell_spmv")
+SERVED_KERNELS = SOLVE_KERNELS + ("entry_stats", "row_stats")
+TILE_KERNELS = ("chol_tile", "tri_inv_tile", "matmul_nt")
 
 
 def log(*args) -> None:
@@ -424,6 +447,21 @@ def kernel_checks(a, plan, dev) -> dict:
                        err, ms, pms, lms, flops, nbytes, PEAK_FP32,
                        tag == "largest" and k == 1 and lower)
 
+    # the tile kernels on the first panel of a front as the per-front path
+    # builds it: the peak front (the root's, m = 1,208) and a leaf front
+    peak = max(sched.fronts, key=lambda fp: fp.m).k
+    slot = {"populated": (picks["populated"], 0)}
+    for li in range(sched.nlevels):
+        for bj, bk in enumerate(sched.buckets[li]):
+            if peak in bk.members:
+                slot["peak"] = ((li, bj), bk.members.index(peak))
+    for tag in ("peak", "populated"):
+        key, bi = slot[tag]
+        bk, w0, groups = bucket_inputs(key)
+        for u, off, src, dst, rows in groups:
+            fc.extend_add_batch(w0, u, dst, rows, src=src, off=off)
+        tile_checks(tag, sched, bk, w0[bi], bk.members[bi], out)
+
     # bell_spmv over the permuted matrix's fp64 blocks (the residual's)
     blocks, idxa, npad = csr_to_bell(pa.indptr, pa.indices, pa.data, pa.n, 8)
     blocks_d, idx_d = to_device(blocks, dev), to_device(idxa, dev)
@@ -452,6 +490,70 @@ def kernel_checks(a, plan, dev) -> dict:
                err, ms, pms, lms, 2 * blocks.size * k, nbytes, PEAK_FP64,
                k == 1)
     return out
+
+
+def tile_checks(tag: str, sched, bucket, w, k: int, out: dict) -> None:
+    """chol_tile, tri_inv_tile and matmul_nt against their plain versions
+    on the first panel of ``ops.frontal_factor`` for front ``k`` of
+    ``bucket``, whose assembled workspace (A's entries and the children's
+    Schur blocks) is ``w`` in the bucket's padded layout."""
+    import torch
+
+    from repro_torch.kernels import frontal_cholesky as fc
+    from repro_torch.kernels import ops
+
+    fp = sched.fronts[k]
+    idx = torch.cat([torch.arange(fp.npiv),
+                     bucket.P + torch.arange(fp.nrest)]).to(w.device)
+    bs = 128
+    W = ops.front_workspace(w[idx][:, idx], fp.npiv, -(-fp.npiv // bs) * bs,
+                            -(-fp.nrest // bs) * bs)
+    M = W.shape[0]
+    shape = f"{tag} front m={fp.m} npiv={fp.npiv} M={M}"
+    headline = tag == "peak"
+    tri_bytes = (bs * (bs + 1) // 2 + bs * bs) * 4  # lower read, tile out
+
+    a = W[:bs, :bs]
+    sym = (torch.tril(a) + torch.tril(a, -1).T).contiguous()
+    L = fc.chol_tile(a)
+    err = compare("chol_tile", L, fc.chol_tile_plain(a))
+    record(out, "chol_tile", f"{shape} bs={bs}", err,
+           device_ms(lambda: fc.chol_tile(a)),
+           stream_ms(lambda: fc.chol_tile_plain(a)),
+           device_ms(lambda: torch.linalg.cholesky(sym)), bs ** 3 / 3,
+           tri_bytes, PEAK_FP32, headline)
+
+    eye = torch.eye(bs, device=W.device)
+    inv = fc.tri_inv_tile(L)
+    err = compare("tri_inv_tile", inv, fc.tri_inv_tile_plain(L))
+    record(out, "tri_inv_tile", f"{shape} bs={bs}", err,
+           device_ms(lambda: fc.tri_inv_tile(L)),
+           stream_ms(lambda: fc.tri_inv_tile_plain(L)),
+           device_ms(lambda: torch.linalg.solve_triangular(L, eye,
+                                                           upper=False)),
+           bs ** 3 / 3, tri_bytes, PEAK_FP32, headline)
+
+    panel = W[bs:, :bs]
+    lpanel = fc.matmul_nt(panel, inv, torch.zeros_like(panel), alpha=1.0,
+                          beta=0.0)
+    trail = W[bs:, bs:]
+    for what, (x, y, c, alpha, beta) in (
+            ("panel", (panel, inv, torch.zeros_like(panel), 1.0, 0.0)),
+            ("trailing", (lpanel, lpanel, trail, -1.0, 1.0))):
+        m_, k_, n_ = x.shape[0], x.shape[1], y.shape[0]
+        got = fc.matmul_nt(x, y, c, alpha=alpha, beta=beta)
+        err = compare("matmul_nt", got,
+                      fc.matmul_nt_plain(x, y, c, alpha, beta))
+        xc, yc, cc = x.contiguous(), y.contiguous(), c.contiguous()
+        record(out, "matmul_nt", f"{shape} {what} ({m_} x {k_}) "
+               f"({n_} x {k_})^T", err,
+               device_ms(lambda: fc.matmul_nt(x, y, c, alpha=alpha,
+                                              beta=beta)),
+               stream_ms(lambda: fc.matmul_nt_plain(x, y, c, alpha, beta)),
+               device_ms(lambda: torch.addmm(cc, xc, yc.T, beta=beta,
+                                             alpha=alpha)),
+               2 * m_ * n_ * k_, 4 * (m_ * k_ + n_ * k_ + 2 * m_ * n_),
+               PEAK_FP32, headline and what == "trailing")
 
 
 def launched(phase: str, counts: dict, names) -> None:
@@ -613,7 +715,82 @@ def engine_phase(engine, mats) -> dict:
         raise AssertionError(f"second plan_batch was not all cache hits: "
                              f"{st} then {warm}")
     log(f"engine: second plan_batch all {len(mats)} cache hits")
-    launched("engine", counts, REPLACES)
+    launched("engine", counts, SERVED_KERNELS)
+    return counts
+
+
+def gate(label: str, a, r, b) -> None:
+    """Raise unless the solve reached the fp64 residual gate (and, where it
+    refined, converged)."""
+    res = rel_residual(a, r["x"], b)
+    sp = r["spans"]
+    log(f"{label}: residual {res:.3e}, refine iterations "
+        f"{r['refine_iterations']}; s: total {r['time']:.4f}, "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sp.items()))
+    if not (res <= 1e-10 and r["refine_converged"] in (True, None)):
+        raise AssertionError(f"{label}: residual {res:.3e}, converged "
+                             f"{r['refine_converged']}")
+
+
+def per_front_phase(plans, engine, dev) -> dict:
+    """The per-front ``pallas`` backend on the 32³ ``nd`` plan, the other
+    backends on the 20³ ``nd`` plan, and an engine configured for
+    ``pallas``; returns the launch counts of the per-front 32³ solve."""
+    from repro_torch.core.plan import execute_plan
+    from repro_torch.engine import EngineConfig, SolverEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sparse.dataset import generate_suite, suite_summary
+
+    from repro_torch.sparse.csr import permute_symmetric
+    from repro_torch.sparse.multifrontal import multifrontal_cholesky
+
+    rng = np.random.default_rng(3)
+    a, plan = plans[-1]
+    b = rng.standard_normal(a.n)
+    # where the per-front factorization's time goes: host assembly, uploads
+    # and launches, and the blocking copies back of each front
+    st = multifrontal_cholesky(permute_symmetric(a, plan.perm), sym=plan.sym,
+                               backend="pallas", device=dev).stats
+    log(f"per_front factor {a.name} {plan.algorithm}: {st['nsup']} fronts; "
+        f"s: schedule {st['t_factor_schedule']:.4f}, assemble "
+        f"{st['t_factor_assemble']:.4f}, dispatch {st['t_factor_dispatch']:.4f}"
+        f", sync {st['t_factor_sync']:.4f}")
+    reset_launch_counts()
+    r = execute_plan(a, plan, b, backend="pallas", sweep="device",
+                     solve_dtype="fp32_refine", device=dev)
+    counts = launch_counts()
+    gate(f"per_front {a.name} {plan.algorithm} pallas/device", a, r, b)
+    if not r["refine_converged"]:
+        raise AssertionError("per_front: refinement did not converge")
+    launched("per_front", counts, TILE_KERNELS)
+    if min(counts[k] for k in TILE_KERNELS) < 2:
+        raise AssertionError(f"per_front: a tile kernel launched once only: "
+                             f"{counts}")
+
+    a20, p20 = next((a_, p_) for a_, p_ in plans
+                    if a_.name == "grid3d_20" and p_.algorithm == "nd")
+    b20 = rng.standard_normal(a20.n)
+    reset_launch_counts()
+    for backend, sweep in (("batched", "level"), ("numpy", "device")):
+        r = execute_plan(a20, p20, b20, backend=backend, sweep=sweep,
+                         solve_dtype="fp32_refine", device=dev)
+        gate(f"per_front {a20.name} nd {backend}/{sweep}", a20, r, b20)
+    launched("per_front other backends", launch_counts(),
+             ("frontal_factor_batch", "tri_solve_batch", "bell_spmv"))
+
+    mats = list(generate_suite(4, seed=2, size_scale=4))
+    log("per_front engine batch " + json.dumps(suite_summary(mats)))
+    eng = SolverEngine(EngineConfig(backend="pallas"),
+                       selector=engine.selector)
+    bs = [rng.standard_normal(m.n) for m in mats]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.solve_batch(mats, bs)
+    log(f"per_front engine: solve_batch {time.perf_counter() - t0:.3f} s")
+    for m, b_, r in zip(mats, bs, results):
+        gate(f"per_front engine {m.name} {r['algorithm']} pallas", m, r, b_)
+    launched("per_front engine", launch_counts(),
+             TILE_KERNELS + ("entry_stats", "row_stats"))
     return counts
 
 
@@ -677,15 +854,15 @@ def main() -> int:
     reset_launch_counts()
     plans = main_path([(g20, ["amd", "scotch", "nd", "rcm"]), (g32, ["nd"])],
                       dev)
-    launched("solve", launch_counts(), ("frontal_factor_batch",
-                                        "extend_add_batch",
-                                        "tri_solve_batch", "bell_spmv"))
+    launched("solve", launch_counts(), SOLVE_KERNELS)
 
     engine = train_phase()
     served = list(generate_suite(16, seed=1, size_scale=8))
     select_phase(engine, served, dev)
     counts = engine_phase(engine,
                           list(generate_suite(16, seed=1, size_scale=4)))
+    counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
+                   if k in TILE_KERNELS})
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)
@@ -693,6 +870,9 @@ def main() -> int:
     b = np.random.default_rng(2).standard_normal(a.n)
     profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                  lambda: execute_plan(a, plan, b, device=dev))
+    profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",
+                 lambda: execute_plan(a, plan, b, backend="pallas",
+                                      device=dev))
     profile_call("select_batch (16 served matrices)",
                  lambda: engine.select_batch(served))
     smi = subprocess.run(

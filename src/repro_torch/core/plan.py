@@ -8,11 +8,13 @@ cost — so executing it only applies the permutation and runs the numeric
 phase. :class:`PlanBuilder` composes ``ReorderSelector.select_batch``
 (featurize + classify on the card), the reorderings and
 ``symbolic_cholesky`` into plans, front-ended by the in-memory
-:class:`~repro_torch.core.plan_cache.PlanCache`. ``execute_plan`` runs the
-pipelined multifrontal backend with device sweeps and fp64 refinement
-(``backend="pipelined"``, ``sweep="device"``). Request contexts and the
-metrics registry are not ported yet; the solve-stage spans are returned in
-the result dict.
+:class:`~repro_torch.core.plan_cache.PlanCache`. ``execute_plan`` runs
+every branch of the reference's (:302-345): the four multifrontal backends,
+the four sweep modes, host or device fp64 refinement and the simplicial
+solver; its defaults are the served path (``backend="pipelined"``,
+``sweep="device"``, ``solve_dtype="fp32_refine"``). Request contexts and
+the metrics registry are not ported yet; the solve-stage spans are returned
+in the result dict.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import numpy as np
 
 from ..device import resolve_device
 from ..sparse.csr import CSRMatrix, permute_symmetric
-from ..sparse.multifrontal import multifrontal_cholesky, multifrontal_solve
-from ..sparse.refine import refine_solve_device
+from ..sparse.multifrontal import (DEVICE_BACKENDS, SWEEP_MODES,
+                                   multifrontal_cholesky, multifrontal_solve)
+from ..sparse.numeric import cholesky_solve, sparse_cholesky
+from ..sparse.refine import refine_solve, refine_solve_device
 from ..sparse.reorder import get_reordering
 from ..sparse.symbolic import SymbolicFactor, symbolic_cholesky
 from .plan_cache import PlanCache, matrix_fingerprint
@@ -198,7 +202,8 @@ class PlanBuilder:
 
 #: solve-stage names: the reference's spans, plus ``factor.schedule``
 #: (supernodes, level schedule, extend-add routing) and ``solve.setup``
-#: (block-ELL conversion of A and uploads for the refinement loop)
+#: (block-ELL conversion of A and uploads for the device refinement loop).
+#: A path records the stages it has: the served path all of them.
 SOLVE_STAGES = ("permute", "factor", "factor.schedule", "factor.assemble",
                 "factor.device", "solve", "solve.setup", "solve.sweep",
                 "solve.refine")
@@ -220,25 +225,30 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
     runs the plain versions of the kernels).
 
     The only structure work left is applying the stored permutation; the
-    symbolic factor is consumed as-is. ``solve_dtype`` is ``fp32`` (f32
-    factor and sweeps) or ``fp32_refine`` (plus fp64 iterative refinement,
-    device-resident); ``fp64`` is promoted to ``fp32_refine`` because the
-    factor and the sweeps run in f32. ``pad``/``bs`` are the bucket pad
-    policy and panel cap, ``sweep_bs``/``rt`` the sweep knobs. ``b`` may be
-    ``(n,)`` or ``(n, k)``. The effective precision and policy land in the
-    result dict and in ``plan.meta``; ``spans`` holds the times of the
-    :data:`SOLVE_STAGES` in seconds.
+    symbolic factor is consumed as-is. ``solver`` is ``multifrontal`` or
+    ``simplicial`` (host fp64, one RHS). ``backend`` picks the front math
+    (host ``numpy``, per-front ``pallas``, level-scheduled ``batched``,
+    ``pipelined``) and ``sweep`` the triangular sweeps (``auto`` →
+    ``level``, ``seq``, ``level``, ``device``; see
+    :func:`repro_torch.sparse.multifrontal.multifrontal_solve`).
+    ``solve_dtype`` is ``fp64``, ``fp32`` or ``fp32_refine`` (f32 factor
+    and/or sweeps plus fp64 iterative refinement: on the device with
+    ``sweep="device"``, else on the host); as in the reference, ``fp64`` is
+    promoted to ``fp32_refine`` when the backend or the sweeps run in f32.
+    ``pad``/``bs`` are the bucket pad policy and panel cap,
+    ``sweep_bs``/``rt`` the device sweep's knobs. ``b`` may be ``(n,)`` or
+    ``(n, k)``. The effective precision, sweep and policy land in the result
+    dict and in ``plan.meta``; ``spans`` holds the times of the
+    :data:`SOLVE_STAGES` the path has, in seconds.
     """
     if a.data is None:
         raise ValueError("numeric execution needs values")
     if solve_dtype not in ("fp64", "fp32", "fp32_refine"):
         raise ValueError(f"unknown solve_dtype {solve_dtype!r}")
-    if solver != "multifrontal":
-        raise ValueError(f"solver {solver!r} is not ported; the port has "
-                         f"solver='multifrontal'")
-    if sweep != "device":
-        raise ValueError(f"sweep {sweep!r} is not ported; the port has "
-                         f"sweep='device'")
+    if sweep not in SWEEP_MODES:
+        raise ValueError(f"unknown sweep {sweep!r}")
+    if solver not in ("multifrontal", "simplicial"):
+        raise ValueError(f"unknown solver {solver!r}")
     dev = resolve_device(device)
     if b is None:
         b = np.random.default_rng(0).standard_normal(a.n)
@@ -248,32 +258,54 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
     t_perm = time.perf_counter() - t0
 
     refine_info = None
-    # the factor and the sweeps run in f32
-    eff_dtype = "fp32_refine" if solve_dtype == "fp64" else solve_dtype
+    eff_dtype, eff_sweep = solve_dtype, sweep
+    fstats: dict = {}
     t0 = time.perf_counter()
-    f = multifrontal_cholesky(pa, sym=plan.sym, backend=backend, pad=pad,
-                              bs=bs, device=dev)
-    fstats = f.stats
-    t_fac = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pb = np.ascontiguousarray(b[perm], dtype=np.float64)
-    if eff_dtype == "fp32_refine":
-        z, refine_info = refine_solve_device(pa, f, pb, sweep_bs=sweep_bs,
-                                             rt=rt)
+    if solver == "multifrontal":
+        if (backend in DEVICE_BACKENDS or sweep == "device") \
+                and solve_dtype == "fp64":
+            eff_dtype = "fp32_refine"  # f32 factor and/or f32 sweeps
+        f = multifrontal_cholesky(
+            pa, sym=plan.sym, backend=backend,
+            dtype=np.float64 if eff_dtype == "fp64" else np.float32,
+            pad=pad, bs=bs, device=dev)
+        fstats = f.stats
+        t_fac = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if eff_sweep == "auto":
+            eff_sweep = "level"
+        pb = np.ascontiguousarray(b[perm], dtype=np.float64)
+        if eff_dtype == "fp32_refine" and eff_sweep == "device":
+            z, refine_info = refine_solve_device(pa, f, pb,
+                                                 sweep_bs=sweep_bs, rt=rt)
+        elif eff_dtype == "fp32_refine":
+            z, refine_info = refine_solve(
+                pa.matvec,
+                lambda r: multifrontal_solve(f, r, mode=eff_sweep), pb)
+        else:
+            z = multifrontal_solve(f, pb, mode=eff_sweep, sweep_bs=sweep_bs,
+                                   rt=rt)
     else:
-        z = multifrontal_solve(f, pb, mode=sweep, sweep_bs=sweep_bs, rt=rt)
+        eff_dtype, eff_sweep = "fp64", "seq"  # host fp64 only
+        fac = sparse_cholesky(pa, sym=plan.sym)
+        t_fac = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        z = cholesky_solve(fac, b[perm])
     t_sol = time.perf_counter() - t0
 
     spans = {"permute": t_perm, "factor": t_fac, "solve": t_sol,
-             "solve.sweep": t_sol,
-             "factor.schedule": fstats["t_factor_schedule"],
-             "factor.assemble": fstats["t_factor_assemble"],
-             "factor.device": (fstats["t_factor_dispatch"]
-                               + fstats["t_factor_sync"])}
+             "solve.sweep": t_sol}
+    if "t_factor_schedule" in fstats:
+        spans["factor.schedule"] = fstats["t_factor_schedule"]
+    if "t_factor_assemble" in fstats:
+        spans["factor.assemble"] = fstats["t_factor_assemble"]
+        spans["factor.device"] = (fstats["t_factor_dispatch"]
+                                  + fstats["t_factor_sync"])
     if refine_info is not None:
         spans["solve.sweep"] = refine_info.t_sweep
         spans["solve.refine"] = refine_info.t_residual
-        spans["solve.setup"] = refine_info.t_setup
+        if eff_sweep == "device":
+            spans["solve.setup"] = refine_info.t_setup
     x = np.empty_like(z)
     x[perm] = z
     resid = float(np.linalg.norm(a.matvec(x) - b)
@@ -282,12 +314,12 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
     plan.meta["solve_dtype"] = eff_dtype
     plan.meta["solve_bs"] = bs
     plan.meta["solve_pad"] = pad
-    plan.meta["solve_sweep"] = sweep
+    plan.meta["solve_sweep"] = eff_sweep
     return dict(x=x, time=t_perm + t_fac + t_sol, t_permute=t_perm,
                 t_factor=t_fac, t_solve=t_sol, residual=resid,
                 algorithm=plan.algorithm, solver=solver,
                 backend=backend, solve_dtype=eff_dtype, bs=bs, pad=pad,
-                sweep=sweep, rt=rt,
+                sweep=eff_sweep, rt=rt,
                 overlap_efficiency=fstats.get("overlap_efficiency"),
                 refine_iterations=(None if refine_info is None
                                    else refine_info.iterations),

@@ -6,9 +6,11 @@ less ``use_pallas``: the port's device featurizer always runs the
 ``csr_stats`` kernels on the card, so there is no switch to the plain
 reductions there. The defaults are the served main path of the port: device featurization through
 the ``csr_stats`` kernels, forest inference on the card, the pipelined
-factor, device sweeps and fp64 refinement, and an in-memory plan cache. A
-value that names something not ported yet raises ``NotImplementedError``
-naming the ROADMAP item; nothing falls back. The fields of the parts not
+factor, device sweeps and fp64 refinement, and an in-memory plan cache.
+Every ``backend``, ``sweep`` and ``solver`` of the reference is accepted. A
+value that names something not ported yet (a serving mesh, the disk cache,
+the serving and lifecycle fields, the solve tuner) raises
+``NotImplementedError`` naming the ROADMAP item; nothing falls back. The fields of the parts not
 ported yet (the disk tier, serving, the bundle lifecycle, the tuner) are
 kept so that a config reads as in the reference; any value but the
 default raises.
@@ -113,30 +115,28 @@ class EngineConfig:
         if self.device not in (None, "cuda", "cpu"):
             raise ValueError(f"device must be None, 'cuda' or 'cpu', got "
                              f"{self.device!r}")
-        pallas = ("the per-front pallas backend" if self.backend == "pallas"
-                  else "other solve paths")
-        for what, unported, item in (
-                (f"backend {self.backend!r}", self.backend != "pipelined",
-                 pallas),
-                (f"sweep {self.sweep!r}", self.sweep != "device",
-                 "other solve paths"),
-                (f"solver {self.solver!r}", self.solver != "multifrontal",
-                 "other solve paths"),
-                ("a serving mesh (serving_devices > 1)",
-                 (self.serving_devices or 1) > 1, "serving")):
-            if unported:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md, slice queue: "
-                    f"{item})")
+        if self.solver not in ("multifrontal", "simplicial"):
+            raise ValueError(f"solver must be 'multifrontal' or "
+                             f"'simplicial', got {self.solver!r}")
+        if (self.serving_devices or 1) > 1:
+            raise NotImplementedError(
+                "a serving mesh (serving_devices > 1) is not ported yet "
+                "(ROADMAP.md, slice queue: serving)")
         for f in dataclasses.fields(self):
             for item, names in _UNPORTED_FIELDS.items():
                 if f.name in names and getattr(self, f.name) != f.default:
                     raise NotImplementedError(
                         f"{f.name}={getattr(self, f.name)!r}: not ported yet "
                         f"(ROADMAP.md, slice queue: {item})")
-        if self.solve_dtype == "fp64":
+        if (self.solve_dtype == "fp64"
+                and (self.backend in ("pallas", "batched", "pipelined")
+                     or self.sweep == "device")):
+            what = (f"backend {self.backend!r} factors"
+                    if self.backend != "numpy" or self.sweep != "device"
+                    else "sweep 'device' solves")
             warnings.warn(
-                "backend 'pipelined' factors in fp32; solve_dtype 'fp64' "
-                "will run as 'fp32_refine' (fp32 factorization + fp64 "
-                "iterative refinement). Set solve_dtype='fp32_refine' "
-                "explicitly to silence this.", UserWarning, stacklevel=2)
+                f"{what} in fp32; solve_dtype "
+                f"'fp64' will run as 'fp32_refine' (fp32 factorization + "
+                f"fp64 iterative refinement). Set solve_dtype="
+                f"'fp32_refine' explicitly to silence this.",
+                UserWarning, stacklevel=2)

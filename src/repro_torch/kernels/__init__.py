@@ -8,7 +8,8 @@ from __future__ import annotations
 from typing import Dict
 
 from .csr_stats import entry_stats, row_stats
-from .frontal_cholesky import (extend_add_batch, frontal_factor_batch,
+from .frontal_cholesky import (chol_tile, extend_add_batch,
+                               frontal_factor_batch, matmul_nt, tri_inv_tile,
                                tri_solve_batch)
 from .spmv_bell import bell_spmv
 
@@ -21,6 +22,9 @@ KERNELS = {
     "bell_spmv": bell_spmv,
     "entry_stats": entry_stats,
     "row_stats": row_stats,
+    "chol_tile": chol_tile,
+    "tri_inv_tile": tri_inv_tile,
+    "matmul_nt": matmul_nt,
 }
 
 

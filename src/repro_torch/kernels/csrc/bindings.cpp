@@ -225,9 +225,81 @@ void row_stats(const at::Tensor& row_nnz, const at::Tensor& row_valid,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// A float32 matrix on `like`'s device with unit column stride; returns its
+// row stride.
+int check_matrix(const at::Tensor& t, const at::Tensor& like,
+                 const char* name) {
+  check_cuda(t, at::kFloat, name);
+  TORCH_CHECK(t.dim() == 2, name, " must be a matrix");
+  TORCH_CHECK(t.device() == like.device(), name, " is on another device");
+  TORCH_CHECK(t.size(1) <= 1 || t.stride(1) == 1, name,
+              " must have unit column stride");
+  TORCH_CHECK(t.size(0) <= 1 || t.stride(0) >= t.size(1), name,
+              " has overlapping rows");
+  return as_int(t.size(0) <= 1 ? t.size(1) : t.stride(0), "row stride");
+}
+
+void check_tile_pair(const at::Tensor& in, const at::Tensor& out) {
+  const int64_t bs = in.size(0);
+  TORCH_CHECK(in.size(1) == bs && bs >= 1 && bs <= kMaxTile,
+              "tile must be square with 1 <= bs <= ", kMaxTile, ", got ",
+              in.sizes());
+  TORCH_CHECK(out.sizes() == in.sizes() && out.is_contiguous(),
+              "out must be a contiguous tile of the input's shape");
+}
+
+void chol_tile(const at::Tensor& a, at::Tensor& l) {
+  const int lda = check_matrix(a, a, "a");
+  check_matrix(l, a, "l");
+  check_tile_pair(a, l);
+  const c10::cuda::CUDAGuard guard(a.device());
+  launch_chol_tile(a.data_ptr<float>(), lda, l.data_ptr<float>(),
+                   static_cast<int>(a.size(0)),
+                   c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tri_inv_tile(const at::Tensor& l, at::Tensor& y) {
+  const int ldl = check_matrix(l, l, "l");
+  check_matrix(y, l, "y");
+  check_tile_pair(l, y);
+  const c10::cuda::CUDAGuard guard(l.device());
+  launch_tri_inv_tile(l.data_ptr<float>(), ldl, y.data_ptr<float>(),
+                      static_cast<int>(l.size(0)),
+                      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void matmul_nt(const at::Tensor& a, const at::Tensor& b, const at::Tensor& c,
+               at::Tensor& out, double alpha, double beta) {
+  const int lda = check_matrix(a, a, "a");
+  const int ldb = check_matrix(b, a, "b");
+  const int ldc = check_matrix(c, a, "c");
+  const int ldo = check_matrix(out, a, "out");
+  const int64_t M = a.size(0), K = a.size(1), N = b.size(0);
+  TORCH_CHECK(b.size(1) == K, "a is ", a.sizes(), " but b is ", b.sizes());
+  TORCH_CHECK(c.size(0) == M && c.size(1) == N && out.sizes() == c.sizes(),
+              "c and out must be (", M, ", ", N, ")");
+  TORCH_CHECK(M <= 65535LL * 64, "too many rows: ", M);
+  if (M == 0 || N == 0) return;
+  const c10::cuda::CUDAGuard guard(a.device());
+  launch_matmul_nt(a.data_ptr<float>(), lda, b.data_ptr<float>(), ldb,
+                   c.data_ptr<float>(), ldc, out.data_ptr<float>(), ldo,
+                   static_cast<int>(M), as_int(N, "N"), as_int(K, "K"),
+                   static_cast<float>(alpha), static_cast<float>(beta),
+                   c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
+  m.def("chol_tile(Tensor a, Tensor(a!) l) -> ()", &chol_tile);
+  m.def("tri_inv_tile(Tensor l, Tensor(a!) y) -> ()", &tri_inv_tile);
+  m.def(
+      "matmul_nt(Tensor a, Tensor b, Tensor c, Tensor(a!) out, float alpha, "
+      "float beta) -> ()",
+      &matmul_nt);
   m.def("frontal_factor(Tensor(a!) w, int npiv, int bs) -> ()",
         &frontal_factor);
   m.def(

@@ -13,6 +13,9 @@
 // Widest panel the factor and sweep kernels take (pick_block_size caps at 32).
 constexpr int kMaxPanel = 32;
 
+// Widest tile chol_tile and tri_inv_tile take (ops.frontal_factor's bs = 128).
+constexpr int kMaxTile = 128;
+
 void launch_frontal_factor(float* w, int B, int M, int npiv, int bs,
                            cudaStream_t stream);
 
@@ -43,4 +46,18 @@ void launch_entry_stats(const int* rows, const int* cols, const int* valid,
 void launch_row_stats(const int* row_nnz, const int* row_valid,
                       const float* mean, int B, int N, int chunk,
                       int* mx_part, int* mn_part, double* sq_part, float* out,
+                      cudaStream_t stream);
+
+// tile_kernels.cu: `a`, `l` and the matmul operands are row-major with the
+// given row strides (unit column stride); `l` and `y` are contiguous
+// (bs, bs) outputs. matmul_nt's `out` may alias `c`, never `a` or `b`.
+void launch_chol_tile(const float* a, int lda, float* l, int bs,
+                      cudaStream_t stream);
+
+void launch_tri_inv_tile(const float* l, int ldl, float* y, int bs,
+                         cudaStream_t stream);
+
+void launch_matmul_nt(const float* a, int lda, const float* b, int ldb,
+                      const float* c, int ldc, float* out, int ldo, int M,
+                      int N, int K, float alpha, float beta,
                       cudaStream_t stream);

@@ -1,16 +1,23 @@
-"""Port of ``repro/kernels/frontal_cholesky.py``: ``frontal_factor_batch``,
-``extend_add_batch`` and ``tri_solve_batch``, each a hand-written CUDA
-kernel (``csrc/frontal_factor.cu``, ``csrc/extend_add.cu``,
-``csrc/tri_solve.cu``) with its plain PyTorch version beside it.
+"""Port of ``repro/kernels/frontal_cholesky.py``: all six kernels, each a
+hand-written CUDA kernel with its plain PyTorch version beside it.
+
+* The per-front tile kernels of ``ops.frontal_factor``: ``chol_tile``,
+  ``tri_inv_tile`` and ``matmul_nt`` (``csrc/tile_kernels.cu``). Like the
+  TPU kernels they return new tensors; ``matmul_nt`` can also write into a
+  given ``out``.
+* The batched kernels of the level-scheduled backends:
+  ``frontal_factor_batch``, ``extend_add_batch`` and ``tri_solve_batch``
+  (``csrc/frontal_factor.cu``, ``csrc/extend_add.cu``,
+  ``csrc/tri_solve.cu``). These work in place on the tensor they are given,
+  as the TPU kernels' aliased outputs did.
 
 Each wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel (building it at first use) or raises. The
 wrappers count their kernel launches in ``<wrapper>.launches``.
 
-All three work in place on the tensor they are given, as the TPU kernels'
-aliased outputs did. The lower triangle of every front is authoritative:
-the factor reads and writes only entries on or below the diagonal of the
-trailing block, and the substitution reads only the lower triangle of L.
+The lower triangle of every front and tile is authoritative: the factors
+read and write only entries on or below the diagonal, and the substitution
+and the tile inverse read only the lower triangle of L.
 """
 from __future__ import annotations
 
@@ -22,9 +29,125 @@ import torch
 from ..device import on_cuda, to_device
 from ._build import load_kernels
 
-__all__ = ["frontal_factor_batch", "frontal_factor_batch_plain",
+__all__ = ["chol_tile", "chol_tile_plain", "tri_inv_tile",
+           "tri_inv_tile_plain", "matmul_nt", "matmul_nt_plain",
+           "frontal_factor_batch", "frontal_factor_batch_plain",
            "extend_add_batch", "extend_add_batch_plain",
            "tri_solve_batch", "tri_solve_batch_plain"]
+
+
+#: widest tile ``chol_tile`` and ``tri_inv_tile`` take (the kernels' limit)
+MAX_TILE = 128
+
+
+def _check_tile(t: torch.Tensor, name: str) -> int:
+    bs = t.shape[0]
+    if t.dim() != 2 or t.shape[1] != bs or not 1 <= bs <= MAX_TILE:
+        raise ValueError(f"{name} must be a square tile of at most "
+                         f"{MAX_TILE} rows, got {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    return bs
+
+
+# -- chol_tile ---------------------------------------------------------------
+
+def chol_tile_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version: unblocked right-looking Cholesky of the lower
+    triangle of ``a``, column by column as ``_chol_block`` steps."""
+    A = torch.tril(a)
+    for j in range(A.shape[0]):
+        d = torch.sqrt(A[j, j])
+        A[j, j] = d
+        A[j + 1 :, j] /= d
+        col = A[j + 1 :, j]
+        A[j + 1 :, j + 1 :] -= torch.tril(torch.outer(col, col))
+    return A
+
+
+def chol_tile(a: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor L of one (bs, bs) f32 SPD tile (bs ≤ 128), read from
+    its lower triangle only; returns a new tensor with zeros above the
+    diagonal. ``a`` may be a strided view with unit column stride, such as a
+    diagonal tile of a workspace. A non-positive pivot gives NaN."""
+    bs = _check_tile(a, "a")
+    if not on_cuda(a):
+        return chol_tile_plain(a)
+    out = torch.empty((bs, bs), dtype=torch.float32, device=a.device)
+    load_kernels().chol_tile(a, out)
+    chol_tile.launches += 1
+    return out
+
+
+chol_tile.launches = 0
+
+
+# -- tri_inv_tile ------------------------------------------------------------
+
+def tri_inv_tile_plain(l: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``Y = L⁻¹`` row by row,
+    ``y_r = (e_r − L[r, :r] Y[:r]) / L[r, r]``, as ``_tri_inv_block``."""
+    L = torch.tril(l)
+    Y = torch.zeros_like(L)
+    for r in range(L.shape[0]):
+        Y[r] = -(L[r, :r] @ Y[:r])
+        Y[r, r] += 1.0
+        Y[r] /= L[r, r]
+    return Y
+
+
+def tri_inv_tile(l: torch.Tensor) -> torch.Tensor:
+    """Inverse of the lower-triangular (bs, bs) f32 tile ``l`` (bs ≤ 128;
+    the lower triangle is read); returns a new lower-triangular tensor."""
+    bs = _check_tile(l, "l")
+    if not on_cuda(l):
+        return tri_inv_tile_plain(l)
+    out = torch.empty((bs, bs), dtype=torch.float32, device=l.device)
+    load_kernels().tri_inv_tile(l, out)
+    tri_inv_tile.launches += 1
+    return out
+
+
+tri_inv_tile.launches = 0
+
+
+# -- matmul_nt ---------------------------------------------------------------
+
+def matmul_nt_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    alpha: float, beta: float) -> torch.Tensor:
+    """Plain version: ``beta·c + alpha·a bᵀ`` in f32."""
+    return beta * c + alpha * (a @ b.T)
+
+
+def matmul_nt(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+              alpha: float = 1.0, beta: float = 1.0,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``beta·c + alpha·a bᵀ`` for f32 ``a`` (M, K), ``b`` (N, K) and ``c``
+    (M, N), accumulated in f32 (``beta = 0`` still forms ``0·c``). Any of
+    them may be a strided view with unit column stride. The result goes to a
+    new tensor, or into ``out`` when given: ``out`` may be ``c`` itself (the
+    in-place trailing update of ``ops.frontal_factor``) but must not overlap
+    ``a`` or ``b``. Returns the result."""
+    M, K = a.shape
+    N = b.shape[0]
+    if b.shape != (N, K) or c.shape != (M, N) or (
+            out is not None and out.shape != (M, N)):
+        raise ValueError(f"bad shapes a={tuple(a.shape)} b={tuple(b.shape)} "
+                         f"c={tuple(c.shape)}")
+    if any(t.dtype != torch.float32 for t in (a, b, c)):
+        raise TypeError("a, b and c must be float32")
+    tensors = (a, b, c) if out is None else (a, b, c, out)
+    if not on_cuda(*tensors):
+        res = matmul_nt_plain(a, b, c, alpha, beta)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    load_kernels().matmul_nt(a, b, c, out, float(alpha), float(beta))
+    matmul_nt.launches += 1
+    return out
+
+
+matmul_nt.launches = 0
 
 
 # -- frontal_factor_batch ----------------------------------------------------

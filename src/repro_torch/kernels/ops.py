@@ -1,8 +1,10 @@
 """Port of ``repro/kernels/ops.py``: the block-size policy
 (``pick_block_size`` :144, ``rhs_tile`` :248, copied) and the wrappers the
-solver calls, ``frontal_factor_batch_ws`` (:164), ``extend_add_batch``
-(:192), ``tri_solve_batch`` (:258), ``sweep_forward`` and
-``sweep_backward`` (:283-334).
+solver calls: ``matmul_nt_padded`` (:74), the per-front ``frontal_factor``
+(:87) over the three tile kernels, ``frontal_factor_batch_ws`` (:164),
+``extend_add_batch`` (:192), ``frontal_factor_batch`` (:206),
+``tri_solve_batch`` (:258), ``sweep_forward`` and ``sweep_backward``
+(:283-334), and ``spmv`` (:337).
 
 There is no jit cache here: PyTorch runs eagerly, and the kernels take their
 shapes at run time. The device follows the tensors (see
@@ -14,15 +16,19 @@ rounding (about 1e-6 relative), not bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..device import resolve_device, to_device
 from . import frontal_cholesky as fc
+from .spmv_bell import bell_spmv, csr_to_bell
 
-__all__ = ["pick_block_size", "rhs_tile", "frontal_factor_batch_ws",
-           "extend_add_batch", "tri_solve_batch", "sweep_forward",
-           "sweep_backward"]
+__all__ = ["pick_block_size", "rhs_tile", "matmul_nt_padded",
+           "front_workspace", "frontal_factor", "frontal_factor_batch_ws",
+           "extend_add_batch", "frontal_factor_batch", "tri_solve_batch",
+           "sweep_forward", "sweep_backward", "spmv"]
 
 #: widest RHS tile one tri-solve block holds (the kernel's limit)
 MAX_RHS_TILE = 32
@@ -61,6 +67,72 @@ def _kernel_tile(k: int, rt: Optional[int]) -> int:
     return min(rhs_tile(k, rt), MAX_RHS_TILE)
 
 
+def matmul_nt_padded(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+                     alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """``beta·c + alpha·a bᵀ`` for any shapes. The reference zero-padded to
+    whole tiles; the CUDA kernel masks its ragged edge tiles instead, so
+    nothing is padded here."""
+    return fc.matmul_nt(a, b, c, alpha=alpha, beta=beta)
+
+
+def front_workspace(f, npiv: int, P: int, R: int) -> torch.Tensor:
+    """The padded f32 workspace of the front ``f`` (m, m), or of each front
+    of a (B, m, m) stack, on ``f``'s device: (..., P + R, P + R) holding the
+    lower triangle of the pivot block, identity columns padding it to ``P``
+    (decoupled: they factor to 1 and contribute nothing), the coupling
+    block and the lower triangle of the update block, in ``R ≥ m − npiv``
+    rows."""
+    f = torch.as_tensor(f, dtype=torch.float32)
+    nrest = f.shape[-1] - npiv
+    W = f.new_zeros(f.shape[:-2] + (P + R, P + R))
+    W[..., :npiv, :npiv] = torch.tril(f[..., :npiv, :npiv])
+    W.diagonal(dim1=-2, dim2=-1)[..., npiv:P] = 1.0
+    if nrest:
+        W[..., P : P + nrest, :npiv] = f[..., npiv:, :npiv]
+        W[..., P : P + nrest, P : P + nrest] = torch.tril(f[..., npiv:, npiv:])
+    return W
+
+
+def frontal_factor(f, npiv: int, *, bs: int = 128
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial Cholesky of a frontal matrix (the lower triangle of ``f`` is
+    read), on ``f``'s device: returns ``(L11, L21, S)`` as the reference's
+    ``partial_cholesky_ref``, with ``S`` symmetrized from its lower
+    triangle.
+
+    The workspace is :func:`front_workspace`, its pivot block and update
+    rows padded to multiples of ``bs``, so every tile is ``bs`` square.
+    Per panel of ``bs`` columns: ``chol_tile`` of the
+    diagonal tile, ``tri_inv_tile`` of its factor, the panel
+    ``L21 = W21 L11⁻ᵀ`` by ``matmul_nt`` into a new tensor, then the
+    trailing update ``S −= L21 L21ᵀ`` by ``matmul_nt`` in place on the
+    workspace (its columns are disjoint from the panel's).
+    """
+    nrest = f.shape[0] - npiv
+    P = -(-npiv // bs) * bs
+    W = front_workspace(f, npiv, P, -(-nrest // bs) * bs)
+    M = W.shape[0]
+    for lo in range(0, P, bs):
+        hi = lo + bs
+        ltt = fc.chol_tile(W[lo:hi, lo:hi])
+        W[lo:hi, lo:hi] = ltt
+        if hi == M:
+            continue
+        inv = fc.tri_inv_tile(ltt)
+        panel = W[hi:, lo:hi]
+        lpanel = fc.matmul_nt(panel, inv, torch.zeros_like(panel),
+                              alpha=1.0, beta=0.0)
+        panel.copy_(lpanel)
+        trail = W[hi:, hi:]
+        fc.matmul_nt(lpanel, lpanel, trail, alpha=-1.0, beta=1.0, out=trail)
+
+    L11 = torch.tril(W[:npiv, :npiv])
+    L21 = W[P : P + nrest, :npiv]
+    S = W[P : P + nrest, P : P + nrest]
+    S = torch.tril(S) + torch.tril(S, -1).T  # the lower triangle is kept
+    return L11, L21, S
+
+
 def frontal_factor_batch_ws(w: torch.Tensor, npiv: int, *,
                             bs: int | None = None) -> torch.Tensor:
     """Factor the leading ``npiv`` columns of every (M, M) front workspace
@@ -76,6 +148,31 @@ def extend_add_batch(w: torch.Tensor, u: torch.Tensor, dst, rows, *,
     """On-device extend-add in place on ``w`` (see
     :func:`repro_torch.kernels.frontal_cholesky.extend_add_batch`)."""
     return fc.extend_add_batch(w, u, dst, rows, src=src, off=off)
+
+
+def frontal_factor_batch(fs, npiv: int, *, bs: int | None = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched analogue of :func:`frontal_factor` for a uniform (B, m, m)
+    stack of SPD fronts sharing one pivot count, on the stack's device.
+    Pads the pivot block with decoupled identity columns (to a power of two
+    ≥ 8 when ``bs`` is None, else to a multiple of ``bs``), factors the
+    stack with one ``frontal_factor_batch`` call and returns (L11, L21, S)
+    of shapes (B, npiv, npiv), (B, m − npiv, npiv), (B, m − npiv, m − npiv).
+    """
+    fs = torch.as_tensor(fs, dtype=torch.float32)
+    nrest = fs.shape[-1] - npiv
+    if bs is None:
+        P = max(8, 1 << (npiv - 1).bit_length())
+        bs = pick_block_size(P)
+    else:
+        P = -(-npiv // bs) * bs
+    W = frontal_factor_batch_ws(front_workspace(fs, npiv, P, nrest), P,
+                                bs=bs)
+    L11 = torch.tril(W[:, :npiv, :npiv])
+    L21 = W[:, P:, :npiv]
+    S = W[:, P:, P:]
+    S = torch.tril(S) + torch.tril(S, -1).transpose(1, 2)
+    return L11, L21, S
 
 
 def tri_solve_batch(l: torch.Tensor, x: torch.Tensor, *,
@@ -127,3 +224,17 @@ def sweep_backward(x: torch.Tensor, l11: torch.Tensor, l21: torch.Tensor,
     x.index_copy_(0, piv.reshape(-1), rhs.view(-1, k))
     return x
 
+
+def spmv(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+         x: np.ndarray, *, bs: int = 8, device=None) -> np.ndarray:
+    """CSR SpMV through the block-ELL kernel in f32, as the reference: the
+    layout is converted on the host, the product runs on ``device``
+    (``None`` → CUDA; ``"cpu"`` runs the plain version)."""
+    dev = resolve_device(device)
+    n = x.shape[0]
+    blocks, idx, npad = csr_to_bell(indptr, indices, data, n, bs)
+    xp = np.zeros(npad, dtype=np.float32)
+    xp[:n] = x
+    y = bell_spmv(to_device(blocks.astype(np.float32), dev),
+                  to_device(idx, dev), to_device(xp, dev))
+    return y.cpu().numpy()[:n]

@@ -1,5 +1,5 @@
 """Copy of ``repro/sparse/csr.py``: ``CSRMatrix`` (with ``matvec``),
-``coo_to_csr``, ``bandwidth``, ``profile``, ``permute_symmetric``,
+``coo_to_csr``, ``csr_from_dense``, ``bandwidth``, ``profile``, ``permute_symmetric``,
 ``symmetrize_pattern`` and ``make_spd``.
 
 Compressed-sparse-row container and structural utilities. Host-side
@@ -17,6 +17,7 @@ import numpy as np
 __all__ = [
     "CSRMatrix",
     "coo_to_csr",
+    "csr_from_dense",
     "bandwidth",
     "profile",
     "permute_symmetric",
@@ -114,6 +115,11 @@ def coo_to_csr(
     np.add.at(indptr, rows.astype(np.int64) + 1, 1)
     indptr = np.cumsum(indptr, dtype=np.int64).astype(np.int32)
     return CSRMatrix(indptr, cols.astype(np.int32), vals, shape, name, group)
+
+
+def csr_from_dense(a: np.ndarray, name: str = "", group: str = "") -> CSRMatrix:
+    rows, cols = np.nonzero(a)
+    return coo_to_csr(rows, cols, a[rows, cols], a.shape, name, group)
 
 
 def bandwidth(a: CSRMatrix) -> int:

@@ -1,5 +1,5 @@
-"""Port of ``repro/sparse/refine.py``: ``RefineInfo``, ``_should_stop`` and
-``refine_solve_device`` (:146).
+"""Port of ``repro/sparse/refine.py``: ``RefineInfo``, ``_should_stop``,
+the host loop ``refine_solve`` (:79) and ``refine_solve_device`` (:146).
 
 Mixed-precision iterative refinement [Wilkinson 1963; Carson & Higham
 2018]: factor once in fp32, then recover working-precision accuracy with a
@@ -9,7 +9,10 @@ short residual-correction loop in fp64:
     rᵢ = b − A xᵢ            (fp64 block-ELL SpMV kernel)
     xᵢ₊₁ = xᵢ + L⁻ᵀ L⁻¹ rᵢ
 
-The loop stops at ``tol``, at ``max_iter``, or when progress stalls. x, r and
+The loop stops at ``tol``, at ``max_iter``, or when progress stalls.
+:func:`refine_solve` runs it on the host around caller-supplied ``matvec``
+and ``solve`` closures (any backend, the host sweeps).
+:func:`refine_solve_device` is the loop of ``sweep="device"``: x, r and
 the factor stacks stay on the device; the only host↔device traffic per
 iteration is the residual-norm scalar. The residual runs in torch float64,
 so no x64 context is needed (the reference's device refinement ran in f32
@@ -19,16 +22,17 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import to_device
 from ..kernels.spmv_bell import bell_spmv, csr_to_bell
-from .multifrontal import _device_sweep_passes
+from .multifrontal import _device_sweep_passes, sweep_device
 
-__all__ = ["RefineInfo", "refine_solve_device", "DEFAULT_TOL"]
+__all__ = ["RefineInfo", "refine_solve", "refine_solve_device",
+           "DEFAULT_TOL"]
 
 DEFAULT_TOL = 1e-12
 _STALL_FACTOR = 0.5   # require ≥ 2× residual reduction per sweep to continue
@@ -67,6 +71,43 @@ def _should_stop(residuals: List[float], tol: float, iters: int,
     return False, False
 
 
+def refine_solve(matvec: Callable[[np.ndarray], np.ndarray],
+                 solve: Callable[[np.ndarray], np.ndarray],
+                 b: np.ndarray, *,
+                 tol: float = DEFAULT_TOL,
+                 max_iter: int = 10) -> tuple[np.ndarray, RefineInfo]:
+    """Solve A x = b to fp64 accuracy on the host with a low-precision
+    inner solver: ``matvec`` is the fp64 operator of A, ``solve`` the
+    factorization's solve applied to an fp64 right-hand side. ``b`` may be
+    ``(n,)`` or ``(n, k)`` (both closures must then take blocks; the
+    residual norm is Frobenius over the block). Returns ``(x, RefineInfo)``;
+    ``t_setup`` stays 0."""
+    pc = time.perf_counter
+    b = np.asarray(b, dtype=np.float64)
+    nb = float(np.linalg.norm(b))
+    if nb == 0.0:
+        return np.zeros_like(b), RefineInfo(0, [0.0], True)
+    t0 = pc()
+    x = np.asarray(solve(b), dtype=np.float64)
+    t_sweep = pc() - t0
+    residuals: List[float] = []
+    iters = 0
+    t_res = 0.0
+    while True:
+        t0 = pc()
+        r = b - np.asarray(matvec(x), dtype=np.float64)
+        rel = float(np.linalg.norm(r)) / nb
+        t_res += pc() - t0
+        residuals.append(rel)
+        stop, ok = _should_stop(residuals, tol, iters, max_iter)
+        if stop:
+            return x, RefineInfo(iters, residuals, ok, t_sweep, t_res)
+        t0 = pc()
+        x = x + np.asarray(solve(r), dtype=np.float64)
+        t_sweep += pc() - t0
+        iters += 1
+
+
 def refine_solve_device(a, f, b: np.ndarray, *,
                         tol: float = DEFAULT_TOL, max_iter: int = 10,
                         sweep_bs: Optional[int] = None,
@@ -76,7 +117,7 @@ def refine_solve_device(a, f, b: np.ndarray, *,
 
     ``a`` is the (permuted) fp64 :class:`repro_torch.sparse.csr.CSRMatrix`,
     ``f`` the :class:`~repro_torch.sparse.multifrontal.MultifrontalFactor`
-    (its device is the loop's). The correction solve is the device sweep on
+    of any backend (the loop runs on its sweep device). The correction solve is the device sweep on
     the resident factor stacks, the residual matvec the block-ELL SpMV
     kernel over fp64 blocks (converted from CSR once), and the one
     per-iteration host↔device transfer is the residual-norm scalar — the
@@ -91,7 +132,7 @@ def refine_solve_device(a, f, b: np.ndarray, *,
     nb = float(np.linalg.norm(b2))
     if nb == 0.0:
         return np.zeros_like(b), RefineInfo(0, [0.0], True)
-    device = f.device
+    device = sweep_device(f)
     t0 = pc()
     blocks, idx, npad = csr_to_bell(a.indptr, a.indices, a.data, n,
                                     bs=spmv_bs)

@@ -157,7 +157,27 @@ def test_engine_misuse_raises():
 @pytest.mark.parametrize("kw", [
     dict(backend="numpy"), dict(backend="pallas"), dict(backend="batched"),
     dict(sweep="seq"), dict(sweep="level"), dict(sweep="auto"),
-    dict(solver="simplicial"), dict(cache_dir="artifacts/plan_cache"),
+    dict(solver="simplicial")],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_config_solves_with_every_ported_path(engines, mats, kw):
+    """The values the config once refused: each now goes through
+    ``solve_batch`` to the reference's residual gate."""
+    _, port = engines
+    eng = SolverEngine(EngineConfig(device="cpu", **kw),
+                       selector=port.selector)
+    a2 = mats[1][:2]
+    rng = np.random.default_rng(3)
+    bs = [rng.standard_normal(a.n) for a in a2]
+    for a, b, r in zip(a2, bs, eng.solve_batch(a2, bs)):
+        assert r["residual"] <= 1e-10, (kw, r["residual"])
+        assert np.linalg.norm(a.matvec(r["x"]) - b) \
+            <= 1e-10 * np.linalg.norm(b)
+        assert r["backend"] == kw.get("backend", "pipelined")
+        assert r["solver"] == kw.get("solver", "multifrontal")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cache_dir="artifacts/plan_cache"),
     dict(serving_devices=2), dict(autotune_solve=True),
     dict(max_queue=8), dict(metrics_jsonl="m.jsonl"), dict(rpc_port=9000),
     dict(bundle_dir="bundles")],

@@ -27,9 +27,13 @@ def _port_modules():
 
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    mods = _port_modules()
+    for m in ("repro_torch.sparse.numeric", "repro_torch.core.labeling",
+              "repro_torch.kernels.frontal_cholesky"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
-        f"for m in {_port_modules()!r}:\n"
+        f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
@@ -84,6 +88,13 @@ def test_wrappers_refuse_devices_other_than_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         fc.extend_add_batch(meta, torch.empty((1, 8, 8)), [0],
                             np.zeros((1, 8), np.int32))
+    tile = torch.empty((8, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fc.chol_tile(tile)
+    with pytest.raises(ValueError, match="CUDA"):
+        fc.tri_inv_tile(tile)
+    with pytest.raises(ValueError, match="CUDA"):
+        fc.matmul_nt(tile, torch.empty((8, 8)), torch.empty((8, 8)))
     with pytest.raises(ValueError, match="CUDA"):
         bell_spmv(torch.empty((1, 1, 8, 8), dtype=torch.float64,
                               device="meta"),

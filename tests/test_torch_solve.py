@@ -102,10 +102,22 @@ def test_device_sweeps_match_reference(factors, spd_grid, k):
 
 
 def test_unported_modes_raise(factors, spd_grid):
-    with pytest.raises(ValueError, match="not ported"):
-        mf.multifrontal_solve(factors[1], np.ones(spd_grid.n), mode="level")
-    with pytest.raises(ValueError, match="not ported"):
-        mf.multifrontal_cholesky(_port(spd_grid), backend="batched",
+    """Every mode and backend of the reference is ported now: the ones this
+    test once saw refused run and agree with the reference, and only
+    unknown names raise."""
+    ref, port = factors
+    b = np.ones(spd_grid.n)
+    _close(mf.multifrontal_solve(port, b, mode="level"),
+           ref_mf.multifrontal_solve(ref, b, mode="level"), 1e-5)
+    batched = mf.multifrontal_cholesky(_port(spd_grid), backend="batched",
+                                       device="cpu")
+    assert batched.stats["backend"] == "batched"
+    _close(mf.multifrontal_solve(batched, b, mode="device"),
+           ref_mf.multifrontal_solve(ref, b, mode="device"), 1e-5)
+    with pytest.raises(ValueError, match="unknown sweep mode"):
+        mf.multifrontal_solve(port, b, mode="bogus")
+    with pytest.raises(ValueError, match="unknown backend"):
+        mf.multifrontal_cholesky(_port(spd_grid), backend="bogus",
                                  device="cpu")
 
 
