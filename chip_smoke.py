@@ -4,8 +4,8 @@ Run from the root of the repository, on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-It builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives four paths, each with the kernels' launch counts zeroed just before
+It builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives five paths, each with the kernels' launch counts zeroed just before
 it and read just after it:
 
 * **solve** (``PlanBuilder.build`` → ``execute_plan`` with
@@ -35,15 +35,26 @@ it and read just after it:
   on the 20³ ``nd`` plan; then ``SolverEngine(EngineConfig(
   backend="pallas")).solve_batch`` over ``generate_suite(4, seed=2,
   size_scale=4)``: every residual ≤ 1e-10 with refinement converged, and
-  each tile kernel launched more than once.
+  each tile kernel launched more than once;
+* **lm_serve**: qwen3-1.7b at full width and depth (28 layers, d_model
+  2,048, vocab 151,936; random bf16 weights from a seeded generator),
+  served as ``repro_torch.launch.serve`` does: a prefill of 4 × 4,096
+  tokens, whose attention takes the chunked branch and so the
+  ``flash_attention`` kernel (exactly 28 launches), held at ‖Δ‖/‖ref‖ ≤
+  2e-2 against the same prefill on the plain chunked twin, then 16 greedy
+  decode steps (finite logits); then a prompt of 64, where the plain branch
+  runs and the kernel launches 0 times.
 
 Then it holds each kernel against its plain PyTorch version (the solve
 kernels at shapes from the 32³ schedule, the tile kernels on the first panel
 of that schedule's peak (root) front and of a leaf front, the ``csr_stats`` kernels
-on the served batch) and times kernel, plain version and, where one exists,
-the PyTorch library call computing the same function; it profiles the
-pipelined and the per-front solve and one selection. It prints the stage times, a ``kernels`` JSON line, the
-card's name and power limit, and as its last line
+on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
+attention shapes, at a ragged length and in float32) and times kernel,
+plain version and, where one exists, the PyTorch library call computing
+the same function; it profiles the pipelined and the per-front solve, one
+selection, and one prefill and 16 decode steps of the served model. It
+prints the stage times, a ``kernels`` JSON line, the card's name and power
+limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a CUDA
 device. Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -65,6 +76,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12
 PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
+#: dense bf16 tensor-core peak (data sheet)
+PEAK_BF16 = 989e12
 
 #: relative tolerances of kernel vs plain version (max abs error over the
 #: largest magnitude of the plain result). f32: the two sum in different
@@ -85,6 +98,30 @@ CSR_STATS_RTOL = 1e-5
 #: value differs from it by float32 rounding only (a few ulps of 2^-24)
 F32_ROUNDING = 1e-6
 
+#: flash_attention vs its plain version on the same inputs: elementwise
+#: |Δ| ≤ rtol·|plain| + atol, and ‖Δ‖/‖plain‖ ≤ rnorm. The kernel's float32
+#: result lies within ~1e-5 of the plain version's (P enters the tensor
+#: cores as a bf16 high part plus its remainder, 16 significant bits), so in
+#: bf16 the two round to the same value or to neighbours one bf16 step apart,
+#: and a step is at most 2^-7·|x|; atol covers outputs near 0. Few elements
+#: straddle a rounding boundary, so the relative norm stays far below one
+#: step: rnorm is 9x the largest reading at these shapes (PERF.md). f32:
+#: the reference attention test's 2e-5·(1 + |plain|), sums in other orders.
+ATTN_TOL = {"bfloat16": dict(rtol=2 ** -7, atol=1e-4, rnorm=2e-3),
+            "float32": dict(rtol=2e-5, atol=2e-5, rnorm=2e-5)}
+#: the served model and its traffic: 4 requests of 4,096 prompt tokens (the
+#: chunked attention branch starts above 2,048), then 16 decode steps; a
+#: prompt of 64 takes the plain branch
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_SHORT = "qwen3-1.7b", 4, 4096, 16, 64
+#: prefill logits on the kernel vs the same model with every layer's
+#: attention on the kernel's plain version (P in float32, the function the
+#: kernel computes), relative norm. bf16 roundings through 28 random layers
+#: leave a floor near this limit (the kernel reads 1.77e-2, the chunked twin
+#: 1.93e-2, an attention 1 % off 3.12e-2: PERF.md), so the per-layer hold
+#: of ``lm_serve_phase`` is the check that sees a kernel fault; this one
+#: fails if the 1 % control passes it
+LM_PREFILL_RTOL = 2e-2
+
 LABELS = "artifacts/labels_c36_s7_x0.35_r1.npz"
 
 REPLACES = {
@@ -97,6 +134,7 @@ REPLACES = {
     "chol_tile": "src/repro/kernels/frontal_cholesky.py:113",
     "tri_inv_tile": "src/repro/kernels/frontal_cholesky.py:133",
     "matmul_nt": "src/repro/kernels/frontal_cholesky.py:177",
+    "flash_attention": "src/repro/kernels/flash_attention.py:91",
 }
 SOURCE = {
     "frontal_factor_batch": "src/repro_torch/kernels/csrc/frontal_factor.cu",
@@ -108,6 +146,7 @@ SOURCE = {
     "chol_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "tri_inv_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "matmul_nt": "src/repro_torch/kernels/csrc/tile_kernels.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 #: the kernels each path must launch
 SOLVE_KERNELS = ("frontal_factor_batch", "extend_add_batch",
@@ -831,6 +870,257 @@ def csr_stats_checks(mats, dev, out: dict) -> None:
                True)
 
 
+def hold_attention(tag: str, got, want) -> tuple:
+    """Holds a flash_attention output against its plain version's within
+    ATTN_TOL; returns (max abs err, ‖Δ‖/‖plain‖, the largest share of its
+    elementwise limit that an element uses). Syncs first."""
+    import torch
+
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(want.dtype).split(".")[1]]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err, rnorm = float(diff.max()), float((g - w).norm() / w.norm())
+    share = float((diff / (tol["rtol"] * w.abs() + tol["atol"])).max())
+    if not (bool(torch.isfinite(got).all()) and share <= 1.0
+            and rnorm <= tol["rnorm"]):
+        raise AssertionError(
+            f"flash_attention {tag}: max abs err {err:.3e}, ‖Δ‖/‖plain‖ "
+            f"{rnorm:.3e}, {share:.3f} of the elementwise limit (limits "
+            f"{tol})")
+    return err, rnorm, share
+
+
+def attention_checks(dev, out: dict) -> None:
+    """flash_attention against its plain version at the served models'
+    attention shapes (qwen3-1.7b: B 4, Hq 16, Hkv 8, S 4,096, D 128, bf16,
+    causal — the headline; llama3.2-1b: Hq 32, D 64), at a ragged S = 4,097
+    without the causal mask, at S = 65 without it (63 of the last key
+    tile's 64 slots past the keys) and with a kv_len of 70 of 256 keys,
+    where a key mask that failed would move every output, and in float32, on
+    seeded random inputs, with times; SDPA (on k/v repeated to the query
+    heads beforehand) is the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (("qwen3-1.7b", 16, 128, 4096, True, None, bf16),
+             ("llama3.2-1b", 32, 64, 4096, True, None, bf16),
+             ("qwen3-1.7b ragged", 16, 128, 4097, False, None, bf16),
+             ("qwen3-1.7b ragged short", 16, 128, 65, False, None, bf16),
+             ("qwen3-1.7b kv_len", 16, 128, 256, False, 70, bf16),
+             ("qwen3-1.7b f32", 16, 128, 4096, True, None, f32))
+    for tag, hq, d, s, causal, kv_len, dtype in cases:
+        b, hkv = LM_BATCH, 8
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
+                               ).to(dtype) for h in (hq, hkv, hkv))
+        kw = dict(causal=causal, kv_len=kv_len)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        err, rnorm, share = hold_attention(tag, got, want)
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        mask = None if kv_len is None else \
+            (torch.arange(s, device=dev) < kv_len)[None, None, None, :]
+        ms = device_ms(lambda: flash_attention(q, k, v, **kw))
+        pms = stream_ms(lambda: flash_attention_plain(q, k, v, **kw))
+        lms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask, is_causal=causal))
+        pairs = s * (s + 1) // 2 if causal else s * min(s, kv_len or s)
+        flops = 4 * b * hq * d * pairs
+        nbytes = q.element_size() * d * b * 2 * (hq * s
+                                                 + hkv * min(s, kv_len or s))
+        peak = PEAK_BF16 if dtype == bf16 else PEAK_FP32
+        log(f"flash_attention {tag}: ‖Δ‖/‖plain‖ {rnorm:.3e}, "
+            f"{share:.3f} of the elementwise limit; bound at the fp32 "
+            f"CUDA-core peak {flops / PEAK_FP32 * 1e3:.4f} ms")
+        record(out, "flash_attention", f"{tag} B={b} Hq={hq} Hkv={hkv} S={s}"
+               f" D={d} {str(dtype).split('.')[1]} causal={causal} kv_len="
+               f"{kv_len}", err, ms, pms, lms, flops, nbytes, peak,
+               tag == "qwen3-1.7b")
+        del q, k, v, kr, vr, got, want
+        torch.cuda.empty_cache()
+
+
+def attention_as(fn):
+    """A stand-in for ``ops.attention`` (same signature) that runs ``fn``."""
+    def attention(q, k, v, *, causal=True):
+        return fn(q, k, v, causal)
+    return attention
+
+
+def twin_attention(q, k, v, causal, q_chunk: int, kv_chunk: int):
+    """The model's plain chunked twin (P rounded to bf16 before P·V, as the
+    reference's XLA twin does), on the grouped heads as ``gqa_attention``
+    lays them out on the CPU."""
+    from repro_torch.models.layers import flash_attention_xla
+
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    out = flash_attention_xla(
+        q.reshape(b * hkv, rep, s, d),
+        k.reshape(b * hkv, 1, t, d).expand(b * hkv, rep, t, d),
+        v.reshape(b * hkv, 1, t, d).expand(b * hkv, rep, t, d),
+        causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.reshape(b, hq, s, d)
+
+
+def lm_serve_phase(dev) -> dict:
+    """qwen3-1.7b at full width served as ``repro_torch.launch.serve``
+    serves it; returns the launch counts of the 4 × 4,096 prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import make_batch, serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"lm_serve {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params} parameters ({n_params * 2 / 1e9:.3f} GB bf16), drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = make_batch(cfg, LM_BATCH, LM_PROMPT, dev)
+    max_seq = LM_PROMPT + LM_STEPS
+
+    reset_launch_counts()
+    logits, cache = prefill(cfg, params, batch, max_seq)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launched("lm_serve prefill", counts, ("flash_attention",))
+    if counts["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"lm_serve: the prefill launched the attention "
+                             f"kernel {counts['flash_attention']} times, want "
+                             f"{cfg.num_layers}")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for lc in cache["layers"] for t in lc.values())
+    del cache
+
+    # each layer's kernel output against the plain version on the same
+    # inputs, in a second prefill (these launches are not the counted run's)
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers
+
+    held = []
+
+    def kernel_then_plain(q, k, v, causal):
+        got = flash_attention(q, k, v, causal=causal)
+        held.append(hold_attention(f"lm_serve layer {len(held)}", got,
+                                   flash_attention_plain(q, k, v,
+                                                         causal=causal)))
+        return got
+
+    def prefill_on(fn):
+        real = layers.ops.attention
+        layers.ops.attention = attention_as(fn)
+        try:
+            out, _ = prefill(cfg, params, batch, max_seq)
+        finally:
+            layers.ops.attention = real
+        torch.cuda.synchronize()
+        return out
+
+    prefill_on(kernel_then_plain)
+    log(f"lm_serve prefill, each layer's attention vs the plain version on "
+        f"its inputs ({len(held)} layers): max abs err "
+        f"{max(h[0] for h in held):.3e}, ‖Δ‖/‖plain‖ up to "
+        f"{max(h[1] for h in held):.3e}, up to "
+        f"{max(h[2] for h in held):.3f} of the elementwise limit")
+    if len(held) != cfg.num_layers:
+        raise AssertionError(f"lm_serve: {len(held)} layers held, want "
+                             f"{cfg.num_layers}")
+    # the logits against the model on the plain version (what the kernel
+    # computes); the chunked twin, which rounds P to bf16, shows how far a
+    # perturbation of that size moves these logits (printed, not held)
+    plain = prefill_on(lambda q, k, v, causal: flash_attention_plain(
+        q, k, v, causal=causal))
+    twin = prefill_on(lambda q, k, v, causal: twin_attention(
+        q, k, v, causal, cfg.attn_q_chunk, cfg.attn_kv_chunk))
+    # the control: an attention 1 % off (a kernel that let the 63 padded
+    # keys of a ragged tile into the sum at S = 4,097 would be ~0.9 % off)
+    off = prefill_on(lambda q, k, v, causal: (flash_attention_plain(
+        q, k, v, causal=causal).float() * (1 - 1e-2)).to(q.dtype))
+    rel, rel_twin, rel_off = (float((x - plain).norm() / plain.norm())
+                              for x in (logits, twin, off))
+    log(f"lm_serve prefill logits vs the model on the plain version: "
+        f"‖Δ‖/‖ref‖ {rel:.3e} (limit {LM_PREFILL_RTOL}), max abs "
+        f"{float((logits - plain).abs().max()):.3e}, argmax equal "
+        f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{LM_BATCH}; "
+        f"the chunked twin {rel_twin:.3e}; the control 1 % off "
+        f"{rel_off:.3e}")
+    if not (bool(torch.isfinite(logits).all()) and rel <= LM_PREFILL_RTOL):
+        raise AssertionError(f"lm_serve: prefill logits off the plain "
+                             f"version's by {rel:.3e} relative")
+    if rel_off <= LM_PREFILL_RTOL:
+        raise AssertionError(f"lm_serve: an attention 1 % off moves the "
+                             f"logits by {rel_off:.3e} only, within the "
+                             f"limit {LM_PREFILL_RTOL}: the check is blind")
+    del plain, twin, off, logits
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = serve(cfg, params, batch, LM_STEPS)
+    if not (bool(torch.isfinite(r["logits"]).all())
+            and r["tokens"].shape == (LM_BATCH, LM_STEPS)
+            and 0 <= r["tokens"].min() and r["tokens"].max() < cfg.vocab_size):
+        raise AssertionError("lm_serve: decode gave non-finite logits or "
+                             "tokens out of range")
+    tp, td = r["t_prefill"], r["t_decode"]
+    log(f"lm_serve serve {LM_BATCH}x{LM_PROMPT} + {LM_STEPS} steps: prefill "
+        f"{tp:.4f} s ({LM_BATCH * LM_PROMPT / tp:.0f} prompt tokens/s), "
+        f"decode {td:.4f} s = {td / LM_STEPS * 1e3:.3f} ms/step "
+        f"({LM_BATCH * LM_STEPS / td:.1f} tokens/s over {LM_BATCH} "
+        f"sequences); KV cache {cache_bytes / 1e9:.3f} GB, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens (seq 0) "
+        f"{r['tokens'][0].tolist()}")
+
+    profile_call(f"lm_serve prefill {LM_BATCH}x{LM_PROMPT}",
+                 lambda: prefill(cfg, params, batch, max_seq))
+    _, cache = prefill(cfg, params, batch, max_seq)
+    tok = r["prefill_logits"].argmax(-1)[:, None]
+
+    def decode_all():
+        nonlocal cache
+        t = tok
+        for _ in range(LM_STEPS):
+            lg, cache = decode_step(cfg, params, cache, t)
+            t = lg.argmax(-1)[:, None]
+
+    profile_call(f"lm_serve {LM_STEPS} decode steps at {LM_PROMPT}",
+                 decode_all)
+    del cache
+
+    short = make_batch(cfg, LM_BATCH, LM_SHORT, dev)
+    reset_launch_counts()
+    r = serve(cfg, params, short, LM_STEPS)
+    n = launch_counts()["flash_attention"]
+    log(f"lm_serve serve {LM_BATCH}x{LM_SHORT} + {LM_STEPS} steps: prefill "
+        f"{r['t_prefill']:.4f} s, decode {r['t_decode'] / LM_STEPS * 1e3:.3f}"
+        f" ms/step; flash_attention launches {n}")
+    if n != 0 or not bool(torch.isfinite(r["logits"]).all()):
+        raise AssertionError(f"lm_serve: a {LM_SHORT}-token prompt launched "
+                             f"the kernel {n} times or gave non-finite logits")
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -863,10 +1153,12 @@ def main() -> int:
                           list(generate_suite(16, seed=1, size_scale=4)))
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
                    if k in TILE_KERNELS})
+    counts["flash_attention"] = lm_serve_phase(dev)["flash_attention"]
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)
     csr_stats_checks(served, dev, records)
+    attention_checks(dev, records)
     b = np.random.default_rng(2).standard_normal(a.n)
     profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                  lambda: execute_plan(a, plan, b, device=dev))

@@ -1,0 +1,20 @@
+"""phi3.5-moe-42b-a6.6b — 16 experts top-2 [hf:microsoft/Phi-3.5-MoE-instruct]."""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi3.5-moe-42b-a6.6b", family="moe",
+        num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
+        d_ff=6400, vocab_size=32064,
+        num_experts=16, experts_per_token=2, moe_period=1,
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="phi35-moe-smoke", family="moe",
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+        d_ff=96, vocab_size=512,
+        num_experts=4, experts_per_token=2, moe_period=1,
+    )

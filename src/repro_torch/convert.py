@@ -14,6 +14,10 @@ names — as plain dicts, lists and numpy arrays, and
 :func:`bundle_from_arrays` builds the port's validated
 :class:`~repro_torch.engine.bundle.SelectorBundle` from them, with the same
 fingerprint.
+
+:func:`lm_params_from_jax` builds the port's language-model parameters
+(:mod:`repro_torch.models.transformer`) from the reference's nested dict of
+numpy arrays, one entry per layer where the reference stacks layer groups.
 """
 from __future__ import annotations
 
@@ -21,13 +25,17 @@ import copy
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.plan import ExecutionPlan
+from .device import resolve_device
 from .engine.bundle import SelectorBundle
+from .models.config import ModelConfig
+from .models.transformer import check_ported
 from .sparse.symbolic import SymbolicFactor
 
 __all__ = ["plan_arrays", "plan_from_arrays", "selector_bundle_arrays",
-           "bundle_from_arrays"]
+           "bundle_from_arrays", "lm_params_from_jax"]
 
 
 def plan_arrays(plan) -> dict:
@@ -65,3 +73,39 @@ def bundle_from_arrays(**fields) -> SelectorBundle:
     registry names resolve here, the feature schema matches, and the
     fingerprint recomputes to the stored one)."""
     return SelectorBundle(**fields).validate()
+
+
+def _lm_leaf(a, device: torch.device) -> torch.Tensor:
+    """One parameter array as a tensor of the same dtype. A bfloat16 array
+    (numpy's ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+    goes through float32, which holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_jax(cfg: ModelConfig, params, device=None) -> dict:
+    """The port's parameters for ``cfg`` from the reference's
+    (``repro.models.init_params``) nested dict of arrays: ``embed``,
+    ``lm_head`` and ``final_norm`` as they are, and ``groups`` — every leaf
+    stacked over ``cfg.num_groups`` groups of ``cfg.pattern_period`` slots
+    ``s0``, ``s1``, ... — unstacked so that layer g · period + j is group g's
+    slot j. Values are copied bit for bit, on ``device`` (default: the
+    card). Raises ``NotImplementedError`` for a config that is not
+    attention-only and expert-free."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+
+    def tree(node, g):
+        if isinstance(node, dict):
+            return {k: tree(v, g) for k, v in node.items()}
+        return _lm_leaf(np.asarray(node)[g], dev)
+
+    out = {k: _lm_leaf(params[k], dev)
+           for k in ("embed", "final_norm", "lm_head") if k in params}
+    out["layers"] = [tree(params["groups"][f"s{j}"], g)
+                     for g in range(cfg.num_groups)
+                     for j in range(cfg.pattern_period)]
+    return out

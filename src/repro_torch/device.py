@@ -21,10 +21,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     ``"cpu"`` selects the plain PyTorch versions of the kernels.
 
     Also turns TF32 off for matmuls and cuDNN, so float32 products on the
-    card run in full float32 like the reference's f32 accumulation.
+    card run in full float32 like the reference's f32 accumulation, and
+    keeps the reductions of bfloat16 products in float32 (no split-K sums
+    rounded to bfloat16), as XLA sums them.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

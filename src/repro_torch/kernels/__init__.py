@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .csr_stats import entry_stats, row_stats
+from .flash_attention import flash_attention
 from .frontal_cholesky import (chol_tile, extend_add_batch,
                                frontal_factor_batch, matmul_nt, tri_inv_tile,
                                tri_solve_batch)
@@ -25,6 +26,7 @@ KERNELS = {
     "chol_tile": chol_tile,
     "tri_inv_tile": tri_inv_tile,
     "matmul_nt": matmul_nt,
+    "flash_attention": flash_attention,
 }
 
 

@@ -19,7 +19,8 @@ __all__ = ["load_kernels"]
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("bindings.cpp", "frontal_factor.cu", "extend_add.cu",
-           "tri_solve.cu", "spmv_bell.cu", "csr_stats.cu", "tile_kernels.cu")
+           "tri_solve.cu", "spmv_bell.cu", "csr_stats.cu", "tile_kernels.cu",
+           "flash_attention.cu")
 
 
 @functools.cache

@@ -10,6 +10,9 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <algorithm>
+#include <cstdint>
+
 #include "kernels.h"
 
 namespace {
@@ -291,6 +294,70 @@ void matmul_nt(const at::Tensor& a, const at::Tensor& b, const at::Tensor& c,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// A (B, H, S, D) operand of flash_attention: on `like`'s device with its
+// dtype, unit stride along D, and (for the kernel's 16-byte loads) strides
+// that are multiples of 8 elements on 16-byte aligned storage.
+void check_attention_operand(const at::Tensor& t, const at::Tensor& like,
+                             const char* name) {
+  check_cuda(t, like.scalar_type(), name);
+  TORCH_CHECK(t.dim() == 4, name, " must be (B, H, S, D)");
+  TORCH_CHECK(t.device() == like.device(), name, " is on another device");
+  TORCH_CHECK(t.stride(3) == 1, name, " must have unit stride along D");
+  TORCH_CHECK(t.stride(0) % 8 == 0 && t.stride(1) % 8 == 0 &&
+                  t.stride(2) % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0,
+              name, " must have strides that are multiples of 8 on 16-byte "
+              "aligned storage");
+}
+
+void flash_attention(const at::Tensor& q, const at::Tensor& k,
+                     const at::Tensor& v, at::Tensor& o, bool causal,
+                     double sm_scale, int64_t kv_len) {
+  const auto type = q.scalar_type();
+  TORCH_CHECK(type == at::kFloat || type == at::kBFloat16,
+              "q must be float32 or bfloat16, got ", type);
+  for (const at::Tensor* t : {&q, &k, &v, static_cast<const at::Tensor*>(&o)})
+    check_attention_operand(*t, q, "q/k/v/o");
+  const int64_t B = q.size(0), Hq = q.size(1), Sq = q.size(2), D = q.size(3);
+  const int64_t Hkv = k.size(1), Skv = k.size(2);
+  TORCH_CHECK(D == 16 || D == 32 || D == 64 || D == 128,
+              "head dim must be 16, 32, 64 or 128, got ", D);
+  TORCH_CHECK(k.sizes() == v.sizes() && k.size(0) == B && k.size(3) == D,
+              "k and v must be (B, Hkv, Skv, D) matching q");
+  TORCH_CHECK(Hkv > 0 && Hq % Hkv == 0, "Hq must be a multiple of Hkv");
+  TORCH_CHECK(o.sizes() == q.sizes(), "o must have q's shape");
+  TORCH_CHECK(B <= 65535 && Hq <= 65535, "too many batches or heads");
+  if (B == 0 || Hq == 0 || Sq == 0) return;
+  FlashParams p{};
+  p.q = q.data_ptr();
+  p.k = k.data_ptr();
+  p.v = v.data_ptr();
+  p.o = o.data_ptr();
+  p.B = static_cast<int>(B);
+  p.Hq = static_cast<int>(Hq);
+  p.Hkv = static_cast<int>(Hkv);
+  p.Sq = as_int(Sq, "Sq");
+  p.Skv = as_int(Skv, "Skv");
+  p.D = static_cast<int>(D);
+  p.kv_end = kv_len < 0 ? p.Skv : static_cast<int>(std::min(kv_len, Skv));
+  p.causal = causal;
+  p.scale = static_cast<float>(sm_scale);
+  const auto strides = [](const at::Tensor& t, long long& sb, long long& sh,
+                          long long& ss) {
+    sb = t.stride(0);
+    sh = t.stride(1);
+    ss = t.stride(2);
+  };
+  strides(q, p.q_sb, p.q_sh, p.q_ss);
+  strides(k, p.k_sb, p.k_sh, p.k_ss);
+  strides(v, p.v_sb, p.v_sh, p.v_ss);
+  strides(o, p.o_sb, p.o_sh, p.o_ss);
+  const c10::cuda::CUDAGuard guard(q.device());
+  launch_flash_attention(p, type == at::kBFloat16,
+                         c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -315,6 +382,10 @@ TORCH_LIBRARY(repro_torch, m) {
       "int chunk, Tensor(a!) bw_part, Tensor(b!) prof_part, Tensor(c!) out) "
       "-> ()",
       &entry_stats);
+  m.def(
+      "flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) o, "
+      "bool causal, float sm_scale, int kv_len) -> ()",
+      &flash_attention);
   m.def(
       "row_stats(Tensor row_nnz, Tensor row_valid, Tensor mean, int chunk, "
       "Tensor(a!) mx_part, Tensor(b!) mn_part, Tensor(c!) sq_part, "

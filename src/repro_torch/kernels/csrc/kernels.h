@@ -61,3 +61,23 @@ void launch_matmul_nt(const float* a, int lda, const float* b, int ldb,
                       const float* c, int ldc, float* out, int ldo, int M,
                       int N, int K, float alpha, float beta,
                       cudaStream_t stream);
+
+// flash_attention.cu: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) and o (B, Hq,
+// Sq, D), all float32 or all bfloat16, each with a unit stride along D and
+// the given element strides of its batch, head and sequence dims (for
+// bfloat16: multiples of 8, on 16-byte aligned storage). Keys at or past
+// kv_end (<= Skv) are masked; causal masks keys past the query's index.
+struct FlashParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, Hq, Hkv, Sq, Skv, D, kv_end;
+  bool causal;
+  float scale;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+      o_ss;
+};
+
+void launch_flash_attention(const FlashParams& p, bool bf16,
+                            cudaStream_t stream);

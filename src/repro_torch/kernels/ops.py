@@ -1,4 +1,5 @@
-"""Port of ``repro/kernels/ops.py``: the block-size policy
+"""Port of ``repro/kernels/ops.py``: the attention entry point
+``attention`` (:49) over the flash-attention kernel, the block-size policy
 (``pick_block_size`` :144, ``rhs_tile`` :248, copied) and the wrappers the
 solver calls: ``matmul_nt_padded`` (:74), the per-front ``frontal_factor``
 (:87) over the three tile kernels, ``frontal_factor_batch_ws`` (:164),
@@ -23,15 +24,29 @@ import torch
 
 from ..device import resolve_device, to_device
 from . import frontal_cholesky as fc
+from .flash_attention import flash_attention
 from .spmv_bell import bell_spmv, csr_to_bell
 
-__all__ = ["pick_block_size", "rhs_tile", "matmul_nt_padded",
+__all__ = ["attention", "pick_block_size", "rhs_tile", "matmul_nt_padded",
            "front_workspace", "frontal_factor", "frontal_factor_batch_ws",
            "extend_add_batch", "frontal_factor_batch", "tri_solve_batch",
            "sweep_forward", "sweep_backward", "spmv"]
 
 #: widest RHS tile one tri-solve block holds (the kernel's limit)
 MAX_RHS_TILE = 32
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """GQA flash attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D).
+
+    The reference repeated the kv heads to match the q heads and padded
+    both sequences to its block sizes (``block_q``/``block_kv``) before the
+    Pallas kernel; :func:`~repro_torch.kernels.flash_attention.flash_attention`
+    maps query head h to kv head h // (Hq / Hkv) and masks ragged lengths
+    itself, so this is a direct call and the block sizes are the kernel's
+    own."""
+    return flash_attention(q, k, v, causal=causal)
 
 
 def pick_block_size(npiv: int, bs: int | None = None) -> int:

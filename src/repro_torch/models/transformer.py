@@ -1,0 +1,252 @@
+"""Port of ``repro/models/transformer.py`` for the attention-only,
+expert-free architectures: parameter init (``init_params`` :114 with
+``_init_attn_slot`` :50 and ``_init_mlp_slot`` :66), ``_attn_apply``
+(:137) without its mesh branches, ``_mlp_apply`` (:208, dense gated and
+GELU), ``_embed_inputs`` (:252), ``_rope_tables`` (:258, M-RoPE included),
+``_unembed`` (:270), and serving: ``init_cache`` (:351),
+``_apply_group_serve`` (:372) for 'a' layers, ``prefill`` (:406) and
+``decode_step`` (:429).
+
+Parameters are a plain dict with one entry per layer in ``"layers"``; the
+reference's ``scan`` over stacked groups is a Python loop here. Weights keep
+the reference's (in, out) layout (``x @ w``), so that carrying them across
+(:func:`repro_torch.convert.lm_params_from_jax`) is a copy. The cache is
+``{"pos": int, "layers": [{"k", "v"}, ...]}`` with (B, Hkv, S_max, hd)
+buffers; ``prefill`` fills a new cache and ``decode_step`` writes the new
+key and value into the buffers in place and advances ``pos`` on the same
+dict (the reference returned a new cache).
+
+Layers of kind 'm', 'M' or 's' (Mamba, mLSTM, sLSTM) and MoE MLPs are not
+ported: :func:`init_params`, :func:`lm_params_from_jax` and
+:func:`init_cache` raise ``NotImplementedError`` for such a config.
+``loss_fn`` and the training forward wait for training (ROADMAP §1, item
+3.1).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import (apply_rope, gqa_attention, init_dense, init_norm,
+                     mrope_cos_sin, rms_norm, rope_cos_sin, swiglu_mlp)
+
+__all__ = ["init_params", "prefill", "decode_step", "init_cache",
+           "model_dtype", "check_ported"]
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
+    attention with a dense MLP."""
+    other = sorted(set(cfg.block_pattern) - {"a"})
+    if other or cfg.num_experts:
+        what = ", ".join([f"{k!r} layers" for k in other]
+                         + (["MoE MLPs"] if cfg.num_experts else []))
+        raise NotImplementedError(
+            f"{cfg.name}: {what} are not ported yet (ROADMAP §1, item 3.2: "
+            f"the MoE, Mamba and xLSTM mixers)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def _init_attn_slot(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
+    d, hd = cfg.d_model, cfg.head_dim_
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    p = dict(wq=init_dense(gen, (d, hq * hd), dtype=dtype),
+             wk=init_dense(gen, (d, hkv * hd), dtype=dtype),
+             wv=init_dense(gen, (d, hkv * hd), dtype=dtype),
+             wo=init_dense(gen, (hq * hd, d), dtype=dtype))
+    if cfg.qk_norm:
+        p["q_norm"] = init_norm((hd,), dtype, gen.device)
+        p["k_norm"] = init_norm((hd,), dtype, gen.device)
+    return p
+
+
+def _init_mlp_slot(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    if not cfg.mlp_gated:
+        return dict(wi=init_dense(gen, (d, f), dtype=dtype),
+                    wd=init_dense(gen, (f, d), dtype=dtype))
+    return dict(wg=init_dense(gen, (d, f), dtype=dtype),
+                wu=init_dense(gen, (d, f), dtype=dtype),
+                wd=init_dense(gen, (f, d), dtype=dtype))
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """Random weights with the reference's distributions, drawn in order
+    from ``gen`` and placed on its device: the embedding N(0, 0.02²), every
+    projection N(0, 1/fan_in), norms 1. Raises ``NotImplementedError`` for a
+    config with layers other than attention or with MoE MLPs."""
+    check_ported(cfg)
+    dtype, dev = model_dtype(cfg), gen.device
+    params: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens" or cfg.tie_embeddings:
+        params["embed"] = init_dense(gen, (cfg.vocab_size, cfg.d_model),
+                                     scale=0.02, dtype=dtype)
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer: Dict[str, Any] = dict(
+            norm1=init_norm((cfg.d_model,), dtype, dev),
+            attn=_init_attn_slot(gen, cfg, dtype))
+        if cfg.d_ff:
+            layer["norm2"] = init_norm((cfg.d_model,), dtype, dev)
+            layer["mlp"] = _init_mlp_slot(gen, cfg, dtype)
+        layers.append(layer)
+    params["layers"] = layers
+    params["final_norm"] = init_norm((cfg.d_model,), dtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_dense(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype=dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _attn_apply(layer, x, cos, sin, cfg: ModelConfig, *, causal=True,
+                cache=None, pos: Optional[int] = None):
+    """x: (B, S, D). With ``cache``, write k/v at ``pos`` into its buffers
+    (in place) and attend: a prefill over the fresh k/v, causally, and a
+    decode step (S = 1) over the whole masked buffer. Returns (out,
+    cache)."""
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    a = layer["attn"]
+    h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+    q = (h @ a["wq"]).view(b, s, hq, hd)
+    k = (h @ a["wk"]).view(b, s, hkv, hd)
+    v = (h @ a["wv"]).view(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, a["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, a["k_norm"], cfg.norm_eps)
+    q = apply_rope(q.transpose(1, 2), cos, sin)  # (B, H, S, hd)
+    k = apply_rope(k.transpose(1, 2), cos, sin)
+    v = v.transpose(1, 2)
+    chunks = dict(q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    if cache is not None:
+        if pos + s > cache["k"].shape[2]:
+            raise ValueError(f"the cache holds {cache['k'].shape[2]} "
+                             f"positions; cannot write {s} at {pos}")
+        cache["k"][:, :, pos:pos + s] = k
+        cache["v"][:, :, pos:pos + s] = v
+        if s == 1:
+            # decode: read the whole (masked) buffer — the HBM-bound path
+            att = gqa_attention(q, cache["k"], cache["v"], causal=False,
+                                kv_valid_len=pos + s, impl="plain", **chunks)
+        else:
+            # prefill: attend causally over the fresh k/v, not the buffer
+            att = gqa_attention(q, k, v, causal=True, **chunks)
+    else:
+        att = gqa_attention(q, k, v, causal=causal, **chunks)
+    att = att.transpose(1, 2).reshape(b, s, hq * hd)
+    return x + att @ a["wo"], cache
+
+
+def _mlp_apply(layer, x, cfg: ModelConfig):
+    """Post-mixer dense MLP (gated SwiGLU or tanh-approximate GELU)."""
+    if "mlp" not in layer:
+        return x
+    h = rms_norm(x, layer["norm2"], cfg.norm_eps)
+    mlp = layer["mlp"]
+    if cfg.mlp_gated:
+        return x + swiglu_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"])
+    u = F.gelu((h @ mlp["wi"]).float(), approximate="tanh").to(h.dtype)
+    return x + u @ mlp["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding / rope helpers
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    if cfg.input_mode == "tokens":
+        return params["embed"][batch["tokens"]]
+    return batch["embeds"].to(model_dtype(cfg))
+
+
+def _rope_tables(cfg: ModelConfig, positions, batch):
+    if cfg.mrope:
+        pos3 = batch.get("positions3")
+        if pos3 is None:
+            pos3 = positions[None].expand((3,) + tuple(positions.shape))
+        return mrope_cos_sin(pos3, cfg.head_dim_, cfg.rope_theta,
+                             cfg.mrope_sections)
+    return rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+
+
+def _unembed(cfg: ModelConfig, params, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init, prefill, decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> Dict[str, Any]:
+    """Zeroed k/v buffers (B, Hkv, max_seq, hd) for every layer, ``pos``
+    0. ``device`` defaults to the card."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim_)
+    dtype = model_dtype(cfg)
+    return dict(pos=0, layers=[
+        dict(k=torch.zeros(shape, dtype=dtype, device=dev),
+             v=torch.zeros(shape, dtype=dtype, device=dev))
+        for _ in range(cfg.num_layers)])
+
+
+def _apply_layer_serve(layer, lcache, x, cos, sin, pos: int,
+                       cfg: ModelConfig):
+    """One layer of ``_apply_group_serve``: attention on the layer's cache,
+    then the MLP."""
+    x, _ = _attn_apply(layer, x, cos, sin, cfg, cache=lcache, pos=pos)
+    return _mlp_apply(layer, x, cfg)
+
+
+def prefill(cfg: ModelConfig, params, batch, max_seq: int):
+    """Returns (last-token logits (B, V) float32, cache). batch: ``tokens``
+    (B, S) or ``embeds`` (B, S, D), and for M-RoPE optionally
+    ``positions3`` (3, B, S)."""
+    x = _embed_inputs(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos, sin = _rope_tables(cfg, positions, batch)
+    cache = init_cache(cfg, b, max_seq, device=x.device)
+    for layer, lcache in zip(params["layers"], cache["layers"]):
+        x = _apply_layer_serve(layer, lcache, x, cos, sin, 0, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _unembed(cfg, params, x[:, -1:])[:, 0].float()
+    cache["pos"] = s
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens_or_embeds):
+    """One decode step. tokens: (B, 1) integers (or embeds (B, 1, D)).
+    Writes into ``cache`` in place and returns (logits (B, V) float32,
+    cache) with ``pos`` advanced by one."""
+    batch = ({"tokens": tokens_or_embeds} if cfg.input_mode == "tokens"
+             else {"embeds": tokens_or_embeds})
+    x = _embed_inputs(cfg, params, batch)
+    b = x.shape[0]
+    pos = cache["pos"]
+    positions = torch.full((b, 1), pos, device=x.device)
+    cos, sin = _rope_tables(cfg, positions, batch)
+    for layer, lcache in zip(params["layers"], cache["layers"]):
+        x = _apply_layer_serve(layer, lcache, x, cos, sin, pos, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _unembed(cfg, params, x)[:, 0].float()
+    cache["pos"] = pos + 1
+    return logits, cache

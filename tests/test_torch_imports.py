@@ -100,3 +100,45 @@ def test_wrappers_refuse_devices_other_than_cpu():
                               device="meta"),
                   torch.zeros((1, 1), dtype=torch.int32),
                   torch.zeros(8, dtype=torch.float64))
+
+
+def test_scans_cover_the_lm_modules():
+    """The subprocess import and the static scan above reach the LM
+    serving modules: models, configs, the launcher and the attention
+    kernel's wrapper."""
+    mods = _port_modules()
+    for m in ("repro_torch.models.transformer", "repro_torch.models.layers",
+              "repro_torch.configs", "repro_torch.configs.qwen3_1_7b",
+              "repro_torch.launch.serve", "repro_torch.kernels.flash_attention"):
+        assert m in mods, m
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"models/transformer.py", "configs/jamba_v0_1_52b.py",
+            "launch/serve.py", "convert.py"} <= scanned
+
+
+def test_flash_attention_refuses_devices_other_than_cpu():
+    """The attention wrapper, its entry point and the model's chunked
+    branch launch the kernel for a tensor off the CPU or raise: they never
+    run the plain version there (here: the meta device, a mix, and the
+    default device without a card)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import gqa_attention
+
+    meta = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(meta, torch.empty((1, 2, 8, 16)), meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        gqa_attention(meta, meta, meta, causal=True, q_chunk=4, kv_chunk=4,
+                      impl="chunked")
+    if not torch.cuda.is_available():
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import serve
+        from repro_torch.models import init_cache
+
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--smoke"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_cache(get_smoke_config("qwen3-1.7b"), 1, 8)
