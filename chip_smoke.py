@@ -49,7 +49,9 @@ Then it holds each kernel against its plain PyTorch version (the solve
 kernels at shapes from the 32³ schedule, the tile kernels on the first panel
 of that schedule's peak (root) front and of a leaf front, the ``csr_stats`` kernels
 on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
-attention shapes, at a ragged length and in float32) and times kernel,
+attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
+float32; first it prints the bf16 kernel's registers, shared memory and
+spills) and times kernel,
 plain version and, where one exists, the PyTorch library call computing
 the same function; it profiles the pipelined and the per-front solve, one
 selection, and one prefill and 16 decode steps of the served model. It
@@ -58,6 +60,9 @@ limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a CUDA
 device. Imports nothing of JAX and nothing of the JAX package ``repro``.
+
+``python3 chip_smoke.py --attention`` runs only the lm_serve path and the
+flash_attention checks (a few minutes less), with the same last line.
 """
 from __future__ import annotations
 
@@ -146,7 +151,7 @@ SOURCE = {
     "chol_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "tri_inv_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "matmul_nt": "src/repro_torch/kernels/csrc/tile_kernels.cu",
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
 }
 #: the kernels each path must launch
 SOLVE_KERNELS = ("frontal_factor_batch", "extend_add_batch",
@@ -896,10 +901,11 @@ def attention_checks(dev, out: dict) -> None:
     attention shapes (qwen3-1.7b: B 4, Hq 16, Hkv 8, S 4,096, D 128, bf16,
     causal — the headline; llama3.2-1b: Hq 32, D 64), at a ragged S = 4,097
     without the causal mask, at S = 65 without it (63 of the last key
-    tile's 64 slots past the keys) and with a kv_len of 70 of 256 keys,
-    where a key mask that failed would move every output, and in float32, on
-    seeded random inputs, with times; SDPA (on k/v repeated to the query
-    heads beforehand) is the library yardstick."""
+    tile's 128 slots past the keys) and with a kv_len of 70 of 256 keys,
+    where a key mask that failed would move every output, with Hq = Hkv
+    (rep 1, the edge of the head mapping), at D = 32 (the mma.sync kernel)
+    and in float32, on seeded random inputs, with times; SDPA (on k/v
+    repeated to the query heads beforehand) is the library yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -908,14 +914,16 @@ def attention_checks(dev, out: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = (("qwen3-1.7b", 16, 128, 4096, True, None, bf16),
-             ("llama3.2-1b", 32, 64, 4096, True, None, bf16),
-             ("qwen3-1.7b ragged", 16, 128, 4097, False, None, bf16),
-             ("qwen3-1.7b ragged short", 16, 128, 65, False, None, bf16),
-             ("qwen3-1.7b kv_len", 16, 128, 256, False, 70, bf16),
-             ("qwen3-1.7b f32", 16, 128, 4096, True, None, f32))
-    for tag, hq, d, s, causal, kv_len, dtype in cases:
-        b, hkv = LM_BATCH, 8
+    cases = (("qwen3-1.7b", 16, 8, 128, 4096, True, None, bf16),
+             ("llama3.2-1b", 32, 8, 64, 4096, True, None, bf16),
+             ("qwen3-1.7b ragged", 16, 8, 128, 4097, False, None, bf16),
+             ("qwen3-1.7b ragged short", 16, 8, 128, 65, False, None, bf16),
+             ("qwen3-1.7b kv_len", 16, 8, 128, 256, False, 70, bf16),
+             ("rep 1", 16, 16, 128, 4096, True, None, bf16),
+             ("D 32", 16, 8, 32, 4096, True, None, bf16),
+             ("qwen3-1.7b f32", 16, 8, 128, 4096, True, None, f32))
+    for tag, hq, hkv, d, s, causal, kv_len, dtype in cases:
+        b = LM_BATCH
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
                                ).to(dtype) for h in (hq, hkv, hkv))
         kw = dict(causal=causal, kv_len=kv_len)
@@ -1084,6 +1092,21 @@ def lm_serve_phase(dev) -> dict:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens (seq 0) "
         f"{r['tokens'][0].tolist()}")
 
+    # serve()'s prefill above follows empty_cache(), so it also pays for
+    # fresh device allocations; these run with the allocator's cache warm
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(cfg, params, batch, max_seq)
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        warm.append((t_host, time.perf_counter() - t0))
+        del out
+    log(f"lm_serve prefill {LM_BATCH}x{LM_PROMPT} with the allocator warm, "
+        f"3 runs: host enqueue "
+        f"{', '.join(f'{h:.4f}' for h, _ in warm)} s; synced "
+        f"{', '.join(f'{t:.4f}' for _, t in warm)} s")
     profile_call(f"lm_serve prefill {LM_BATCH}x{LM_PROMPT}",
                  lambda: prefill(cfg, params, batch, max_seq))
     _, cache = prefill(cfg, params, batch, max_seq)
@@ -1121,23 +1144,66 @@ def _leaves(tree):
     return [tree]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--attention", action="store_true",
+                    help="only the lm_serve path and the flash_attention "
+                         "checks (the kernels line then lists that kernel)")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.core.plan import execute_plan
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels._build import load_kernels
-    from repro_torch.sparse.dataset import generate_suite, grid3d
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    load_kernels()
+    ops = load_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(REPLACES)} CUDA "
         f"kernels, sm_90a)")
+    for d in (128, 64):
+        regs, smem, local, stages = ops.flash_attention_info(d)
+        log(f"flash_attention bf16 D={d} (TMA + wgmma kernel): {regs} "
+            f"registers a thread as compiled (before setmaxnreg), {smem} "
+            f"bytes of shared memory a block, {local} bytes of local memory "
+            f"(spills) a thread, {stages} stages")
+
+    names = ("flash_attention",) if args.attention else tuple(REPLACES)
+    if args.attention:
+        counts = {"flash_attention":
+                  lm_serve_phase(dev)["flash_attention"]}
+        records = {}
+        attention_checks(dev, records)
+    else:
+        counts, records = all_paths(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{key: dict(records[name], launches=counts[name])[key]
+                for key in keys} for name in names]
+    log(f"total: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def all_paths(dev) -> tuple:
+    """Every path, each kernel's checks and the profiles; returns the
+    launch counts of the paths and the kernel records."""
+    from repro_torch.core.plan import execute_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sparse.dataset import generate_suite, grid3d
 
     g20 = grid3d(20, 20, 20, "grid3d_20")
     g32 = grid3d(32, 32, 32, "grid3d_32")
@@ -1167,21 +1233,7 @@ def main() -> int:
                                       device=dev))
     profile_call("select_batch (16 served matrices)",
                  lambda: engine.select_batch(served))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{key: dict(records[name], launches=counts[name])[key]
-                for key in keys} for name in REPLACES]
-    log(f"total: {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": kernels}))
-    log(smi)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return counts, records
 
 
 if __name__ == "__main__":

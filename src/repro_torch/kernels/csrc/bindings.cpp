@@ -12,6 +12,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <vector>
 
 #include "kernels.h"
 
@@ -295,19 +296,16 @@ void matmul_nt(const at::Tensor& a, const at::Tensor& b, const at::Tensor& c,
 }
 
 // A (B, H, S, D) operand of flash_attention: on `like`'s device with its
-// dtype, unit stride along D, and (for the kernel's 16-byte loads) strides
-// that are multiples of 8 elements on 16-byte aligned storage.
+// dtype and a unit stride along D. The rest of the layout rule (16-byte
+// strides and storage) is the wrapper's (`operand_error` in
+// flash_attention.py); on the bf16 path TMA's tensor-map encode enforces it
+// too and the launch raises.
 void check_attention_operand(const at::Tensor& t, const at::Tensor& like,
                              const char* name) {
   check_cuda(t, like.scalar_type(), name);
   TORCH_CHECK(t.dim() == 4, name, " must be (B, H, S, D)");
   TORCH_CHECK(t.device() == like.device(), name, " is on another device");
   TORCH_CHECK(t.stride(3) == 1, name, " must have unit stride along D");
-  TORCH_CHECK(t.stride(0) % 8 == 0 && t.stride(1) % 8 == 0 &&
-                  t.stride(2) % 8 == 0 &&
-                  reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0,
-              name, " must have strides that are multiples of 8 on 16-byte "
-              "aligned storage");
 }
 
 void flash_attention(const at::Tensor& q, const at::Tensor& k,
@@ -353,9 +351,19 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k,
   strides(v, p.v_sb, p.v_sh, p.v_ss);
   strides(o, p.o_sb, p.o_sh, p.o_ss);
   const c10::cuda::CUDAGuard guard(q.device());
-  launch_flash_attention(p, type == at::kBFloat16,
-                         c10::cuda::getCurrentCUDAStream());
+  const char* err = launch_flash_attention(
+      p, type == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == nullptr, err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Registers per thread, dynamic shared memory per block, local memory per
+// thread (spills) and ring stages of the bf16 wgmma kernel at head dim d.
+std::vector<int64_t> flash_attention_info(int64_t d) {
+  TORCH_CHECK(d == 64 || d == 128, "the wgmma kernel takes D = 64 or 128");
+  int info[4];
+  flash_wgmma_info(static_cast<int>(d), info);
+  return {info[0], info[1], info[2], info[3]};
 }
 
 }  // namespace
@@ -386,6 +394,7 @@ TORCH_LIBRARY(repro_torch, m) {
       "flash_attention(Tensor q, Tensor k, Tensor v, Tensor(a!) o, "
       "bool causal, float sm_scale, int kv_len) -> ()",
       &flash_attention);
+  m.def("flash_attention_info(int d) -> int[]", &flash_attention_info);
   m.def(
       "row_stats(Tensor row_nnz, Tensor row_valid, Tensor mean, int chunk, "
       "Tensor(a!) mx_part, Tensor(b!) mn_part, Tensor(c!) sq_part, "

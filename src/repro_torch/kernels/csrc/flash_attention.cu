@@ -22,10 +22,13 @@
 // layer, 0.28 ms at the bf16 tensor-core peak (4.1 ms at the CUDA cores'
 // fp32 peak).
 //
-// Two designs, one block per (tile of 64 queries, q head, batch), walking
-// the key/value tiles of 64 in order (up to the diagonal when causal); query
-// tiles are issued last-first, so the long causal rows start first:
-//   * bfloat16 (the model's dtype): four warps, 16 query rows each, on the
+// Three kernels:
+//   * bfloat16 at D = 64 and 128 (the served models' head dims):
+//     flash_attention_sm90.cu, TMA ring + wgmma + warp specialization.
+//   * bfloat16 at D = 16 and 32, this file: one block per (tile of 64
+//     queries, q head, batch) walking the key/value tiles of 64 in order (up
+//     to the diagonal when causal), query tiles issued last-first, so the
+//     long causal rows start first; four warps of 16 query rows on the
 //     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). Q stays
 //     in registers as A fragments; the K and V tiles are staged in shared
 //     memory (rows padded by 16 bytes, so fragment loads hit distinct
@@ -34,22 +37,23 @@
 //     registers. P is not rounded to bf16 as a whole: it enters the tensor
 //     cores as a bf16 high part plus a bf16 remainder (two products), so it
 //     keeps 16 significant bits, within 2^-17 of the float32 P that the
-//     Pallas kernel multiplies.
+//     Pallas kernel multiplies. Synchronous single-buffered loads: these
+//     head dims serve no model of the repo.
 //   * float32: CUDA cores only (no TF32), 256 threads; Q, K, V and P tiles
 //     in shared memory as float32; each thread computes a 4 x 4 block of
 //     scores and a 4 x D/16 block of the output, with float4 loads.
-// Simple and right first: no cp.async/TMA pipelining and no wgmma yet.
 #include <cuda_bf16.h>
 
 #include <cstdint>
-#include <cstring>
 
+#include "flash_common.cuh"
 #include "kernels.h"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr float kMinL = 1e-30f;    // floor of the softmax sum
+using flash::kMinL;
+using flash::kNegInf;
+using flash::split_bf16;
 constexpr int kBQ = 64;            // queries a block
 constexpr int kBK = 64;            // keys a tile
 
@@ -231,22 +235,6 @@ flash_simt_kernel(FlashParams p) {
 // ---- bfloat16, tensor cores -------------------------------------------------
 
 constexpr int kMmaThreads = 128;  // four warps of 16 query rows
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  uint32_t u;
-  memcpy(&u, &v, sizeof(u));
-  return u;
-}
-
-// (x0, x1) as a bf16 pair (x0 in the low half, the lower index) and the
-// bf16 pair of what that rounding left over.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
 
 // c += a b for one m16n8k16 tile: a the 16 x 16 row-major A fragment, (b0,
 // b1) the 16 x 8 column-major B fragment, c the 16 x 8 float32 accumulator.
@@ -449,14 +437,16 @@ void run_mma(const FlashParams& p, dim3 grid, cudaStream_t stream) {
 
 }  // namespace
 
-void launch_flash_attention(const FlashParams& p, bool bf16,
-                            cudaStream_t stream) {
+const char* launch_flash_attention(const FlashParams& p, bool bf16,
+                                   cudaStream_t stream) {
+  if (bf16 && p.D >= 64) return launch_flash_wgmma(p, stream);
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, p.B);
   switch (p.D) {
     case 16: bf16 ? run_mma<16>(p, grid, stream) : run_simt<16>(p, grid, stream); break;
     case 32: bf16 ? run_mma<32>(p, grid, stream) : run_simt<32>(p, grid, stream); break;
-    case 64: bf16 ? run_mma<64>(p, grid, stream) : run_simt<64>(p, grid, stream); break;
-    case 128: bf16 ? run_mma<128>(p, grid, stream) : run_simt<128>(p, grid, stream); break;
+    case 64: run_simt<64>(p, grid, stream); break;
+    case 128: run_simt<128>(p, grid, stream); break;
     default: break;  // the binding accepts 16, 32, 64 and 128 only
   }
+  return nullptr;
 }

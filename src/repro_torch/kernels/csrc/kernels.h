@@ -64,9 +64,11 @@ void launch_matmul_nt(const float* a, int lda, const float* b, int ldb,
 
 // flash_attention.cu: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) and o (B, Hq,
 // Sq, D), all float32 or all bfloat16, each with a unit stride along D and
-// the given element strides of its batch, head and sequence dims (for
-// bfloat16: multiples of 8, on 16-byte aligned storage). Keys at or past
-// kv_end (<= Skv) are masked; causal masks keys past the query's index.
+// the given element strides of its batch, head and sequence dims (batch,
+// head and sequence strides multiples of 16 bytes on 16-byte aligned
+// storage: the wrapper's rule, `operand_error` in flash_attention.py). Keys
+// at or past kv_end (<= Skv) are masked; causal masks keys past the query's
+// index.
 struct FlashParams {
   const void* q;
   const void* k;
@@ -79,5 +81,15 @@ struct FlashParams {
       o_ss;
 };
 
-void launch_flash_attention(const FlashParams& p, bool bf16,
-                            cudaStream_t stream);
+// Returns nullptr, or the reason it launched nothing (a tensor map that
+// TMA refuses); a refused launch is left for the caller's check.
+const char* launch_flash_attention(const FlashParams& p, bool bf16,
+                                   cudaStream_t stream);
+
+// flash_attention_sm90.cu: the bfloat16 kernel at D = 64 and 128.
+const char* launch_flash_wgmma(const FlashParams& p, cudaStream_t stream);
+
+// That kernel's registers per thread (as compiled, before setmaxnreg),
+// dynamic shared memory per block (bytes), local memory per thread (bytes:
+// spills) and ring stages, for D = 64 or 128.
+void flash_wgmma_info(int D, int out[4]);

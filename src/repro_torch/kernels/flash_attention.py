@@ -1,7 +1,10 @@
 """Port of ``repro/kernels/flash_attention.py`` (``flash_attention``,
-``pallas_call`` at :91) as a hand-written CUDA kernel
-(``csrc/flash_attention.cu``), with its plain PyTorch version beside it: the
-reference's oracle ``repro/kernels/ref.py::attention_ref`` (:11-28).
+``pallas_call`` at :91) as hand-written CUDA kernels, with their plain
+PyTorch version beside them: the reference's oracle
+``repro/kernels/ref.py::attention_ref`` (:11-28). bfloat16 at D = 64 and
+128 (the served models' head dims) runs the Hopper kernel of
+``csrc/flash_attention_sm90.cu`` (TMA ring, wgmma, warp specialization);
+bfloat16 at D = 16 and 32 and float32 run ``csrc/flash_attention.cu``.
 
 Both take the grouped-query layout of the model: q (B, Hq, Sq, D) and k/v
 (B, Hkv, Skv, D) with Hq a multiple of Hkv; query head h reads key/value
@@ -20,7 +23,9 @@ head dim D is 16, 32, 64 or 128.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises, and counts its launches in
-``flash_attention.launches``.
+``flash_attention.launches``. The kernels read their operands in place, so
+each must have a layout they can address: :func:`operand_error` is that
+rule.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import torch
 from ..device import on_cuda
 from ._build import load_kernels
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_plain", "operand_error",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -50,6 +56,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             and q.dtype in (torch.float32, torch.bfloat16)):
         raise TypeError(f"q, k, v must share dtype float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def operand_error(t: torch.Tensor) -> Optional[str]:
+    """Why the CUDA kernels cannot read the (B, H, S, D) tensor ``t`` in
+    place, or None if they can. The rule is TMA's, through which the bf16
+    kernel loads: a unit stride along D; batch, head and sequence strides
+    that are multiples of 16 bytes (a dim of extent 1 never moves, so its
+    stride does not count); storage that starts on a 16-byte boundary. Any
+    contiguous tensor and the model's head-transposed views pass."""
+    if t.dim() != 4:
+        return f"want (B, H, S, D), got shape {tuple(t.shape)}"
+    if t.stride(3) != 1:
+        return f"stride {t.stride(3)} along D, want 1"
+    size = t.element_size()
+    for dim, name in ((2, "sequence"), (1, "head"), (0, "batch")):
+        if t.shape[dim] > 1 and t.stride(dim) * size % 16:
+            return (f"{name} stride of {t.stride(dim) * size} bytes, want a "
+                    f"multiple of 16")
+    if t.data_ptr() % 16:
+        return (f"storage starts {t.data_ptr() % 16} bytes past a 16-byte "
+                f"boundary")
+    return None
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,16 +112,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hq a multiple of Hkv; Sq and Skv any lengths. ``kv_len`` masks keys at
     or past it. Returns (B, Hq, Sq, D) in q's dtype; on the card that tensor
     is a view whose ``transpose(1, 2)`` is contiguous, so the model's
-    (B, Sq, Hq·D) reshape costs no copy. The kernel reads its operands in
-    place: each needs a unit stride along D and batch, head and sequence
-    strides that are multiples of 8 elements (any contiguous tensor, or the
-    model's head-transposed views), or the launch raises."""
+    (B, Sq, Hq·D) reshape costs no copy. The kernels read their operands in
+    place: on the card, an operand that :func:`operand_error` refuses raises
+    ``ValueError`` before any launch."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale,
                                      kv_len=kv_len)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        err = operand_error(t)
+        if err is not None:
+            raise ValueError(f"flash_attention: {name}: {err}")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     load_kernels().flash_attention(q, k, v, out, bool(causal), scale,

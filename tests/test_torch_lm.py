@@ -66,6 +66,8 @@ def _close(got, want, rtol):
 
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
     (1, 2, 2, 32, 16), (2, 4, 2, 64, 32), (1, 8, 1, 96, 64), (2, 2, 2, 33, 32),
+    # rep 1 and rep 4 at D = 64, the Hopper kernel's head dim on the card
+    (1, 4, 4, 80, 64), (2, 8, 2, 72, 64),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -98,6 +100,71 @@ def test_flash_attention_masks_like_the_oracle(causal):
                                      causal=causal, kv_len=41)
     got = flash_attention(_t(q), _t(k), _t(v), causal=causal, kv_len=41)
     _close(_np(got), np.asarray(want).reshape(b, hq, sq, d), 2e-5)
+
+
+def _layouts(dtype):
+    """(B, H, S, D) operands in the layouts the wrapper meets: a contiguous
+    tensor, the model's head-transposed view, a view one element into its
+    storage, and rows padded to a stride that is not a multiple of 8."""
+    b, h, s, d = 2, 4, 5, 64
+    flat = torch.zeros(b * h * s * d + 1, dtype=dtype)
+    return {
+        "contiguous": torch.zeros((b, h, s, d), dtype=dtype),
+        "head_transposed": torch.zeros((b, s, h, d), dtype=dtype
+                                       ).transpose(1, 2),
+        "odd_offset": flat[1:].view(b, h, s, d),
+        "stride_not_8": torch.zeros((b, h, s, d + 1), dtype=dtype)[..., :d],
+    }
+
+
+@pytest.mark.parametrize("layout,refused", [
+    ("contiguous", None), ("head_transposed", None),
+    ("odd_offset", "16-byte boundary"), ("stride_not_8", "multiple of 16")])
+def test_operand_error_takes_what_tma_takes(layout, refused):
+    """The rule for what the CUDA kernels read in place (TMA's: 16-byte
+    strides and storage, unit stride along D), held on CPU tensors."""
+    from repro_torch.kernels.flash_attention import operand_error
+    t = _layouts(torch.bfloat16)[layout]
+    err = operand_error(t)
+    if refused is None:
+        assert err is None
+    else:
+        assert refused in err
+    # a dim of extent 1 never moves, so its stride does not count
+    assert operand_error(t[:1]) == (None if refused is None else err)
+    assert "along D" in operand_error(t.transpose(2, 3))
+
+
+def test_flash_attention_refuses_a_layout_before_any_launch(monkeypatch):
+    """On the card the wrapper raises on an operand the kernels cannot read
+    in place, before it builds or launches anything."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(fa, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(fa, "load_kernels", lambda: pytest.fail("launched"))
+    ok = _layouts(torch.bfloat16)["contiguous"]
+    bad = _layouts(torch.bfloat16)["stride_not_8"]
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="k: sequence stride of 130 bytes"):
+        fa.flash_attention(ok, bad, ok)
+    assert fa.flash_attention.launches == before
+
+
+def test_the_bf16_kernel_is_the_hopper_design():
+    """bf16 at D = 64 and 128 dispatches to the Hopper kernel, whose loads go
+    through TMA onto mbarriers and whose products are wgmma, with a producer
+    and consumer warpgroups; the dispatcher has no other route for it."""
+    from repro_torch.kernels import _build
+    sm90 = (_build._CSRC / "flash_attention_sm90.cu").read_text()
+    for ptx in ("cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                "mbarrier.arrive.expect_tx", "wgmma.mma_async",
+                "setmaxnreg.dec", "setmaxnreg.inc",
+                "CU_TENSOR_MAP_SWIZZLE_128B", "__grid_constant__"):
+        assert ptx in sm90, ptx
+    dispatch = (_build._CSRC / "flash_attention.cu").read_text()
+    assert ("if (bf16 && p.D >= 64) return launch_flash_wgmma(p, stream);"
+            in dispatch)
+    assert "flash_attention_sm90.cu" in _build.SOURCES
 
 
 # -- (b) the layers at f32 -------------------------------------------------------
@@ -357,6 +424,23 @@ def test_chunked_branch_off_the_cpu_calls_only_the_kernel_entry(monkeypatch):
     logits, _ = prefill(cfg, params, batch, 2050)
     assert calls == {"kernel": cfg.num_layers, "twin": 0}
     assert bool(torch.isfinite(logits).all())
+
+
+def test_decode_past_the_end_of_the_cache_raises():
+    """A decode step with the cache full raises ``ValueError`` in the port.
+    This is a deliberate divergence: the reference's
+    ``dynamic_update_slice_in_dim`` clamps the start instead and silently
+    overwrites the last slot (``src/repro/models/transformer.py:180-183``)."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = serve.make_batch(cfg, 2, 6, "cpu")
+    logits, cache = prefill(cfg, params, batch, max_seq=7)
+    tok = logits.argmax(-1)[:, None]
+    logits, cache = decode_step(cfg, params, cache, tok)  # fills slot 6
+    assert cache["pos"] == 7 and bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="the cache holds 7 positions"):
+        decode_step(cfg, params, cache, logits.argmax(-1)[:, None])
 
 
 # -- (f) what is not ported, and the launcher --------------------------------------
