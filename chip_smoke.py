@@ -46,14 +46,20 @@ it and read just after it:
   runs and the kernel launches 0 times.
 
 Then it holds each kernel against its plain PyTorch version (the solve
-kernels at shapes from the 32³ schedule, the tile kernels on the first panel
+kernels at shapes from the 32³ schedule; ``tri_solve_batch`` on the
+populated and the largest bucket and on the most populated bucket of every
+other pivot width, P = 8 … 256, at one RHS and eight, both sweeps, and at
+two layouts the path never produces, P = 512 and P = 1,792, after a line of
+registers, shared memory and spills for each of its kernels at these
+shapes; the tile kernels on the first panel
 of that schedule's peak (root) front and of a leaf front, the ``csr_stats`` kernels
 on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
 spills) and times kernel,
 plain version and, where one exists, the PyTorch library call computing
-the same function; it profiles the pipelined and the per-front solve, one
+the same function; it profiles the pipelined solve (with the summed device
+time of the tri-solve kernels) and the per-front solve, one
 selection, and one prefill and 16 decode steps of the served model. It
 prints the stage times, a ``kernels`` JSON line, the card's name and power
 limit, and as its last line
@@ -283,11 +289,12 @@ def main_path(cases, dev) -> list:
     return plans
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn) -> list:
     """Device busy share of one warm call of ``fn``: the union of the CUDA
     kernel and copy intervals that ``torch.profiler`` records (device
     activity only), over the host wall time of the profiled call, which
-    includes the profiler's own overhead."""
+    includes the profiler's own overhead. Returns the (start, end, name)
+    intervals in µs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -313,6 +320,20 @@ def profile_call(label: str, fn) -> None:
         f"busy {busy / 1e6:.4f} s ({busy / 1e6 / wall:.4f} of wall), "
         f"{len(spans)} device events; top (s): "
         + json.dumps({n: round(t / 1e6, 6) for n, t in top}))
+    return spans
+
+
+def tri_solve_device_s(spans) -> dict:
+    """Summed device seconds of the tri-solve kernels among profiler
+    intervals, by kernel (template arguments kept), and their total."""
+    import re
+
+    by: dict = {}
+    for s0, s1, name in spans:
+        m = re.search(r"tri_solve\w*(<[^>]*>)?", name)
+        if m:
+            by[m.group(0)] = by.get(m.group(0), 0.0) + (s1 - s0) / 1e6
+    return dict(sorted(by.items()), total=sum(by.values()))
 
 
 def record(out: dict, name, shape, err, ms, plain_ms, lib_ms, flops, nbytes,
@@ -460,36 +481,51 @@ def kernel_checks(a, plan, dev) -> dict:
                f"{tag} B={B} P={P} M={M} bs={bs}", err, ms, pms, None, flops,
                2 * w0.numel() * 4, PEAK_FP32, tag == "largest")
 
-    # tri_solve_batch on the factored L11 of each bucket, lower and upper
-    for tag in ("populated", "largest"):
-        li, bj = picks[tag]
+    # tri_solve_batch on the factored L11 of the populated and the largest
+    # bucket and of the most populated bucket of every other pivot width,
+    # lower and upper, at one RHS and at eight
+    keys = [(li, bj) for li in range(sched.nlevels)
+            for bj in range(len(sched.buckets[li]))]
+    size = lambda k: len(sched.buckets[k[0]][k[1]].members)  # noqa: E731
+    widths: dict = {}
+    for key in keys:
+        widths.setdefault(sched.buckets[key[0]][key[1]].P, []).append(key)
+    log("tri_solve_batch buckets by pivot width (buckets, fronts): "
+        + json.dumps({p: [len(ks), sum(map(size, ks))]
+                      for p, ks in sorted(widths.items())})
+        + f"; {sum(size(k) == 1 for k in keys)} of {len(keys)} buckets hold "
+        f"one front")
+    cases = [("populated", picks["populated"]), ("largest", picks["largest"])]
+    for p, ks in sorted(widths.items()):
+        key = max(ks, key=size)
+        if key not in dict(cases).values():
+            cases.append(("by width", key))
+    for tag, (li, bj) in cases:
         bk = sched.buckets[li][bj]
         B, P = len(bk.members), bk.P
         L = f.device_stacks[(li, bj)][:, :P, :P]
-        Lt = torch.tril(L).contiguous()
         bs = ops.pick_block_size(P)
         for k in (1, 8):
             x0 = torch.as_tensor(rng.standard_normal((B, P, k)),
                                  dtype=torch.float32, device=dev)
             for lower in (True, False):
-                xk, xp = x0.clone(), x0.clone()
-                fc.tri_solve_batch(L, xk, bs=bs, kt=k, lower=lower)
-                fc.tri_solve_batch_plain(L, xp, bs, lower)
-                err = compare("tri_solve_batch", xk, xp)
-                ms = device_ms(lambda: fc.tri_solve_batch(
-                    L, xk, bs=bs, kt=k, lower=lower),
-                    setup=lambda: xk.copy_(x0))
-                pms = stream_ms(lambda: fc.tri_solve_batch_plain(
-                    L, xp, bs, lower), setup=lambda: xp.copy_(x0))
-                lms = device_ms(lambda: torch.linalg.solve_triangular(
-                    Lt if lower else Lt.transpose(1, 2), x0, upper=not lower))
-                flops = B * P * P * k
-                nbytes = B * (P * (P + 1) // 2 * 4 + 2 * P * k * 4)
-                record(out, "tri_solve_batch",
-                       f"{tag} B={B} P={P} k={k} bs={bs} "
-                       f"{'lower' if lower else 'upper'}",
-                       err, ms, pms, lms, flops, nbytes, PEAK_FP32,
-                       tag == "largest" and k == 1 and lower)
+                tri_solve_check(out, f"{tag} B={B} P={P} M={bk.M}", L, x0,
+                                bs, k, lower,
+                                tag == "largest" and k == 1 and lower)
+    # two layouts the solve path never produces: P = 512 with a ragged
+    # second RHS tile and an odd row stride (4-byte copies), and P = 1,792,
+    # whose slab and inverses outgrow shared memory
+    for P, M, K in ((512, 515, 40), (1792, 1792, 32)):
+        g = torch.randn((P, P), generator=torch.Generator(device=dev)
+                        .manual_seed(P), device=dev, dtype=torch.float64)
+        W = torch.zeros((1, M, M), device=dev)
+        W[0, :P, :P] = torch.linalg.cholesky(g @ g.T / P + 2 * torch.eye(
+            P, device=dev, dtype=torch.float64)).float()
+        x0 = torch.as_tensor(rng.standard_normal((1, P, K)),
+                             dtype=torch.float32, device=dev)
+        for lower in (True, False):
+            tri_solve_check(out, f"layout B=1 P={P} ldl={M}", W[:, :P, :P],
+                            x0, 32, 32, lower, False)
 
     # the tile kernels on the first panel of a front as the per-front path
     # builds it: the peak front (the root's, m = 1,208) and a leaf front
@@ -534,6 +570,56 @@ def kernel_checks(a, plan, dev) -> dict:
                err, ms, pms, lms, 2 * blocks.size * k, nbytes, PEAK_FP64,
                k == 1)
     return out
+
+
+def tri_solve_check(out: dict, shape: str, L, x0, bs: int, kt: int,
+                    lower: bool, headline: bool) -> dict:
+    """tri_solve_batch against its plain version on (L, x0) at panel bs and
+    RHS tile kt, timed beside the plain version and
+    ``torch.linalg.solve_triangular`` on tril(L); returns the times."""
+    import torch
+
+    from repro_torch.kernels import frontal_cholesky as fc
+
+    B, P, k = x0.shape
+    xk, xp = x0.clone(), x0.clone()
+    fc.tri_solve_batch(L, xk, bs=bs, kt=kt, lower=lower)
+    fc.tri_solve_batch_plain(L, xp, bs, lower)
+    err = compare("tri_solve_batch", xk, xp)
+    ms = device_ms(lambda: fc.tri_solve_batch(L, xk, bs=bs, kt=kt,
+                                              lower=lower),
+                   setup=lambda: xk.copy_(x0))
+    pms = stream_ms(lambda: fc.tri_solve_batch_plain(L, xp, bs, lower),
+                    setup=lambda: xp.copy_(x0))
+    Lt = torch.tril(L).contiguous()
+    lms = device_ms(lambda: torch.linalg.solve_triangular(
+        Lt if lower else Lt.transpose(1, 2), x0, upper=not lower))
+    # the triangle of L read once, x read and written once
+    nbytes = B * (P * (P + 1) // 2 * 4 + 2 * P * k * 4)
+    record(out, "tri_solve_batch", f"{shape} k={k} kt={kt} bs={bs} "
+           f"{'lower' if lower else 'upper'}", err, ms, pms, lms,
+           B * P * P * k, nbytes, PEAK_FP32, headline)
+    return dict(ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=err)
+
+
+def tri_solve_resources(ops) -> None:
+    """The tri_solve kernel picked at each shape the checks run, with its
+    registers, shared memory, spills and (block variant) layout."""
+    for P, kt in ((8, 1), (16, 1), (32, 8), (64, 1), (128, 8), (256, 1),
+                  (256, 8), (512, 32), (1792, 32)):
+        for lower in (True, False):
+            v, regs, smem, local, inv_all, nst, ch, slab = ops.tri_solve_info(
+                P, kt, min(P, 32), lower)
+            how = ("a segment of lanes per (front, column)" if v == 0 else
+                   f"a block per (front, RHS tile); inverses "
+                   f"{'all ahead of the chain' if inv_all else 'one a step'}"
+                   f", ring of {nst} stages of {ch} strip "
+                   f"{'rows' if lower else 'columns'}, slab in "
+                   f"{'shared' if slab else 'device'} memory")
+            log(f"tri_solve_batch P={P} kt={kt} {'lower' if lower else 'upper'}"
+                f" ({how}): {regs} registers a thread, {smem} bytes of shared "
+                f"memory a block, {local} bytes of local memory (spills) a "
+                f"thread")
 
 
 def tile_checks(tag: str, sched, bucket, w, k: int, out: dict) -> None:
@@ -1166,6 +1252,7 @@ def main(argv=None) -> int:
     ops = load_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(REPLACES)} CUDA "
         f"kernels, sm_90a)")
+    tri_solve_resources(ops)
     for d in (128, 64):
         regs, smem, local, stages = ops.flash_attention_info(d)
         log(f"flash_attention bf16 D={d} (TMA + wgmma kernel): {regs} "
@@ -1226,8 +1313,10 @@ def all_paths(dev) -> tuple:
     csr_stats_checks(served, dev, records)
     attention_checks(dev, records)
     b = np.random.default_rng(2).standard_normal(a.n)
-    profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
-                 lambda: execute_plan(a, plan, b, device=dev))
+    spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
+                         lambda: execute_plan(a, plan, b, device=dev))
+    log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, tri_solve "
+        f"kernels (s): " + json.dumps(tri_solve_device_s(spans)))
     profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",
                  lambda: execute_plan(a, plan, b, backend="pallas",
                                       device=dev))

@@ -112,6 +112,21 @@ void tri_solve(const at::Tensor& l, at::Tensor& x, int64_t bs, int64_t kt,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The tri_solve kernel picked for (P, kt, bs, lower) and its resources, as
+// tri_solve_kernel_info (kernels.h) lists them.
+std::vector<int64_t> tri_solve_info(int64_t P, int64_t kt, int64_t bs,
+                                    bool lower) {
+  TORCH_CHECK(bs >= 1 && bs <= kMaxPanel && P >= bs && P % bs == 0,
+              "bs must divide P and lie in [1, ", kMaxPanel, "]");
+  TORCH_CHECK(kt >= 1 && kt <= 32, "kt must lie in [1, 32], got ", kt);
+  TORCH_CHECK(P * kt * sizeof(float) <= 227 * 1024,
+              "P x kt slab does not fit in shared memory");
+  int info[8];
+  tri_solve_kernel_info(static_cast<int>(P), static_cast<int>(kt),
+                        static_cast<int>(bs), lower, info);
+  return std::vector<int64_t>(info, info + 8);
+}
+
 void bell_spmv(const at::Tensor& blocks, const at::Tensor& idx,
                const at::Tensor& x, at::Tensor& y) {
   const auto type = blocks.scalar_type();
@@ -383,6 +398,8 @@ TORCH_LIBRARY(repro_torch, m) {
       &extend_add);
   m.def("tri_solve(Tensor l, Tensor(a!) x, int bs, int kt, bool lower) -> ()",
         &tri_solve);
+  m.def("tri_solve_info(int P, int kt, int bs, bool lower) -> int[]",
+        &tri_solve_info);
   m.def("bell_spmv(Tensor blocks, Tensor idx, Tensor x, Tensor(a!) y) -> ()",
         &bell_spmv);
   m.def(

@@ -28,6 +28,15 @@ void launch_tri_solve(const float* l, long long l_bstride, int ldl, float* x,
                       int B, int P, int K, int kt, int bs, bool lower,
                       cudaStream_t stream);
 
+// The tri_solve kernel that launch_tri_solve picks for (P, kt, bs, lower)
+// (tri_solve.cu): variant (0: a segment of lanes per front and column, for
+// P <= 32; 1: a block per front and RHS tile), registers per thread, shared
+// memory per block (bytes), local memory per thread (bytes: spills), then
+// for variant 1 whether every diagonal inverse is made ahead of the chain,
+// the ring's stages, its chunk (strip rows or columns) and whether the slab
+// sits in shared memory.
+void tri_solve_kernel_info(int P, int kt, int bs, bool lower, int out[8]);
+
 void launch_bell_spmv_f64(const double* blocks, const int* idx,
                           const double* x, double* y, int nrb, int max_k,
                           int bs, int kk, cudaStream_t stream);

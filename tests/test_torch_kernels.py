@@ -102,11 +102,20 @@ def test_extend_add_rejects_unsorted_destinations():
                             np.zeros((2, 4), np.int32))
 
 
+# (P, bs, K): the first two at P = 32, bs = 8; then every pivot width the
+# CUDA kernel's two variants meet on the solve path at its panel width
+# (ops.pick_block_size) and RHS counts of 1, 8 and 33 (a ragged 32 + 1 tile)
+TRI_SOLVE_SHAPES = [(32, 8, 1), (32, 8, 5)] + [
+    (P, ops.pick_block_size(P), K) for P in (8, 32, 64) for K in (1, 8, 33)]
+
+
 @pytest.mark.parametrize("lower", [True, False])
-@pytest.mark.parametrize("K", [1, 5])
-def test_tri_solve_plain_matches_pallas(lower, K):
+@pytest.mark.parametrize(
+    "P,bs,K", TRI_SOLVE_SHAPES,
+    ids=["1", "5"] + [f"P{P}-bs{bs}-K{K}" for P, bs, K in TRI_SOLVE_SHAPES[2:]])
+def test_tri_solve_plain_matches_pallas(lower, P, bs, K):
     rng = np.random.default_rng(K)
-    B, P, bs = 3, 32, 8
+    B = 3
     l = np.tril(rng.standard_normal((B, P, P))).astype(np.float32)
     l += 4 * np.eye(P, dtype=np.float32)
     x = rng.standard_normal((B, P, K)).astype(np.float32)
@@ -117,6 +126,26 @@ def test_tri_solve_plain_matches_pallas(lower, K):
     got = fc.tri_solve_batch(torch.from_numpy(noisy),
                              torch.from_numpy(x.copy()), bs=bs, lower=lower)
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_tri_solve_plain_matches_scipy_at_the_root_width(lower):
+    """P = 256 in panels of 32 (the 32³ schedule's root bucket), held
+    against a float64 triangular solve on tril(l) rather than the Pallas
+    kernel in interpret mode, which is slow at this size."""
+    scipy_linalg = pytest.importorskip("scipy.linalg")
+    rng = np.random.default_rng(256)
+    P, K = 256, 3
+    g = rng.standard_normal((P, P)) / np.sqrt(P)
+    l = np.linalg.cholesky(g @ g.T + 2 * np.eye(P))[None]
+    x = rng.standard_normal((1, P, K))
+    want = scipy_linalg.solve_triangular(l[0], x[0], lower=True,
+                                         trans=0 if lower else 1)
+    noisy = (l + np.triu(rng.standard_normal((1, P, P)), 1)).astype(np.float32)
+    got = fc.tri_solve_batch(torch.from_numpy(noisy),
+                             torch.from_numpy(x.astype(np.float32)),
+                             bs=ops.pick_block_size(P), lower=lower)
+    _close(got[0].numpy(), want)
 
 
 def test_ops_tri_solve_leaves_input_and_matches_reference_policy():
