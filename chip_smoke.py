@@ -51,7 +51,13 @@ populated and the largest bucket and on the most populated bucket of every
 other pivot width, P = 8 … 256, at one RHS and eight, both sweeps, and at
 two layouts the path never produces, P = 512 and P = 1,792, after a line of
 registers, shared memory and spills for each of its kernels at these
-shapes; the tile kernels on the first panel
+shapes; ``bell_spmv`` on the permuted 32³ matrix's fp64 blocks at the block
+size the solve path picks (``pick_spmv_bs``: 1), at 8 (the reference's
+layout), 4, 2 and 3 (the generic kernel), and on the served ``circuit_9``
+(a row of 414 entries), at one RHS and eight, each against the plain
+version and the matrix's own product and timed beside ``torch.sparse.mm``,
+then in float32, after a line of registers, shared memory and spills for
+each of its kernels; the tile kernels on the first panel
 of that schedule's peak (root) front and of a leaf front, the ``csr_stats`` kernels
 on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
@@ -59,7 +65,8 @@ float32; first it prints the bf16 kernel's registers, shared memory and
 spills) and times kernel,
 plain version and, where one exists, the PyTorch library call computing
 the same function; it profiles the pipelined solve (with the summed device
-time of the tri-solve kernels) and the per-front solve, one
+time of the tri-solve and the ``bell_spmv`` kernels) and the per-front
+solve, one
 selection, and one prefill and 16 decode steps of the served model. It
 prints the stage times, a ``kernels`` JSON line, the card's name and power
 limit, and as its last line
@@ -104,6 +111,9 @@ TOL = {"frontal_factor_batch": 1e-4, "extend_add_batch": 1e-5,
 #: profile and squared deviations are float32 sums in the plain version
 #: (fp64 / int64 in the kernels), held per matrix at this relative tolerance
 CSR_STATS_RTOL = 1e-5
+#: bell_spmv in float32 against its plain version (both sum a row's
+#: products in float32, in other orders), relative to the largest output
+BELL_F32_RTOL = 1e-5
 
 #: a device feature within this relative distance of the host's float64
 #: value differs from it by float32 rounding only (a few ulps of 2^-24)
@@ -323,14 +333,15 @@ def profile_call(label: str, fn) -> list:
     return spans
 
 
-def tri_solve_device_s(spans) -> dict:
-    """Summed device seconds of the tri-solve kernels among profiler
-    intervals, by kernel (template arguments kept), and their total."""
+def kernel_device_s(spans, stem: str) -> dict:
+    """Summed device seconds of the kernels whose name starts with ``stem``
+    among profiler intervals, by kernel (template arguments kept), and
+    their total."""
     import re
 
     by: dict = {}
     for s0, s1, name in spans:
-        m = re.search(r"tri_solve\w*(<[^>]*>)?", name)
+        m = re.search(stem + r"\w*(<[^>]*>)?", name)
         if m:
             by[m.group(0)] = by.get(m.group(0), 0.0) + (s1 - s0) / 1e6
     return dict(sorted(by.items()), total=sum(by.values()))
@@ -371,15 +382,11 @@ def kernel_checks(a, plan, dev) -> dict:
     on the inputs the main path gives it, with times and bounds. Returns
     {kernel: record}; the record kept for the ``kernels`` line is the one of
     the largest bucket (one RHS, lower sweep)."""
-    import warnings
-
     import torch
 
     from repro_torch.device import to_device
     from repro_torch.kernels import frontal_cholesky as fc
     from repro_torch.kernels import ops
-    from repro_torch.kernels.spmv_bell import (bell_spmv, bell_spmv_plain,
-                                               csr_to_bell)
     from repro_torch.sparse.csr import permute_symmetric
     from repro_torch.sparse.multifrontal import (_assemble_bucket,
                                                  _route_contributions,
@@ -542,34 +549,98 @@ def kernel_checks(a, plan, dev) -> dict:
             fc.extend_add_batch(w0, u, dst, rows, src=src, off=off)
         tile_checks(tag, sched, bk, w0[bi], bk.members[bi], out)
 
-    # bell_spmv over the permuted matrix's fp64 blocks (the residual's)
-    blocks, idxa, npad = csr_to_bell(pa.indptr, pa.indices, pa.data, pa.n, 8)
-    blocks_d, idx_d = to_device(blocks, dev), to_device(idxa, dev)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # "beta" CSR notice
-        A_csr = torch.sparse_csr_tensor(
-            torch.as_tensor(pa.indptr, dtype=torch.int64),
-            torch.as_tensor(pa.indices, dtype=torch.int64),
-            torch.as_tensor(pa.data, dtype=torch.float64),
-            size=pa.shape, check_invariants=True).to(dev)
-    for k in (1, 8):
-        x = torch.zeros((npad, k), dtype=torch.float64, device=dev)
-        x[:pa.n] = torch.as_tensor(rng.standard_normal((pa.n, k)), device=dev)
-        yk = bell_spmv(blocks_d, idx_d, x)
-        err = compare("bell_spmv", yk, bell_spmv_plain(blocks_d, idx_d, x))
-        ref = torch.as_tensor(pa.matvec(x[:pa.n].cpu().numpy()), device=dev)
-        compare("bell_spmv", yk[:pa.n], ref)
-        xs = x[:pa.n].contiguous()
-        ms = device_ms(lambda: bell_spmv(blocks_d, idx_d, x))
-        pms = stream_ms(lambda: bell_spmv_plain(blocks_d, idx_d, x))
-        lms = device_ms(lambda: torch.sparse.mm(A_csr, xs))
-        # every stored block (ELL padding included), the indices, x and y
-        nbytes = blocks.nbytes + idxa.nbytes + 2 * x.numel() * 8
-        record(out, "bell_spmv",
-               f"nrb={blocks.shape[0]} max_k={blocks.shape[1]} bs=8 k={k}",
-               err, ms, pms, lms, 2 * blocks.size * k, nbytes, PEAK_FP64,
-               k == 1)
+    bell_spmv_checks(pa, dev, rng, out)
     return out
+
+
+def bell_spmv_checks(pa, dev, rng, out: dict) -> None:
+    """bell_spmv against its plain version and ``pa.matvec`` on fp64 blocks
+    (the residual's) at one RHS and eight: on the permuted 32³ matrix at the
+    block size the solve path picks (the ``kernels`` line's record at one
+    RHS), at bs = 8 (the reference's layout), 4, 2 and 3 (the generic
+    kernel), and on the served ``circuit_9`` (a row of 414 entries) at its
+    picked bs; each timed beside ``torch.sparse.mm`` on the same CSR, its
+    bound from the bytes that case stores. Then float32 at the picked bs
+    and at 8, held against the plain version only."""
+    import warnings
+
+    import torch
+
+    from repro_torch.device import to_device
+    from repro_torch.kernels.spmv_bell import (bell_spmv, bell_spmv_plain,
+                                               csr_to_bell, pick_spmv_bs)
+    from repro_torch.sparse.dataset import generate_suite
+
+    picked = pick_spmv_bs(pa.indptr, pa.indices, pa.n)
+    c9 = next(m for m in generate_suite(16, seed=1, size_scale=4)
+              if m.name == "circuit_9")
+    cases = [(pa, picked, "(picked)")] + [
+        (pa, bs, "") for bs in (8, 4, 2, 3) if bs != picked] + [
+        (c9, pick_spmv_bs(c9.indptr, c9.indices, c9.n), "(picked)")]
+    for m, bs, how in cases:
+        blocks, idxa, npad = csr_to_bell(m.indptr, m.indices, m.data, m.n, bs)
+        blocks_d, idx_d = to_device(blocks, dev), to_device(idxa, dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # "beta" CSR notice
+            A_csr = torch.sparse_csr_tensor(
+                torch.as_tensor(m.indptr, dtype=torch.int64),
+                torch.as_tensor(m.indices, dtype=torch.int64),
+                torch.as_tensor(m.data, dtype=torch.float64),
+                size=m.shape, check_invariants=True).to(dev)
+        for k in (1, 8):
+            x = torch.zeros((npad, k), dtype=torch.float64, device=dev)
+            x[:m.n] = torch.as_tensor(rng.standard_normal((m.n, k)),
+                                      device=dev)
+            yk = bell_spmv(blocks_d, idx_d, x)
+            err = compare("bell_spmv", yk, bell_spmv_plain(blocks_d, idx_d, x))
+            ref = torch.as_tensor(m.matvec(x[:m.n].cpu().numpy()), device=dev)
+            err = max(err, compare("bell_spmv", yk[:m.n], ref))
+            xs = x[:m.n].contiguous()
+            ms = device_ms(lambda: bell_spmv(blocks_d, idx_d, x))
+            pms = stream_ms(lambda: bell_spmv_plain(blocks_d, idx_d, x))
+            lms = device_ms(lambda: torch.sparse.mm(A_csr, xs))
+            # every stored block (ELL padding included), the indices, x and y
+            nbytes = blocks.nbytes + idxa.nbytes + 2 * x.numel() * 8
+            record(out, "bell_spmv",
+                   f"{m.name} n={m.n} nnz={m.nnz} bs={bs} {how} "
+                   f"nrb={blocks.shape[0]} max_k={blocks.shape[1]} k={k} "
+                   f"stored {blocks.nbytes + idxa.nbytes} bytes",
+                   err, ms, pms, lms, 2 * blocks.size * k, nbytes, PEAK_FP64,
+                   m is pa and bs == picked and k == 1)
+        if m is pa and bs in (picked, 8):
+            for k in (1, 8):
+                x = torch.as_tensor(rng.standard_normal((npad, k)),
+                                    dtype=torch.float32, device=dev)
+                b32 = blocks_d.float()
+                got = bell_spmv(b32, idx_d, x)
+                torch.cuda.synchronize()
+                want = bell_spmv_plain(b32, idx_d, x)
+                rel = float((got - want).abs().max() / want.abs().max())
+                log(f"kernel bell_spmv float32 {m.name} bs={bs} k={k}: max "
+                    f"rel err {rel:.3e} (limit {BELL_F32_RTOL})")
+                if not rel <= BELL_F32_RTOL:
+                    raise AssertionError(f"bell_spmv float32 bs={bs} k={k}: "
+                                         f"{rel:.3e} relative")
+
+
+def bell_spmv_resources(ops) -> None:
+    """Registers, shared memory and spills of every bell_spmv kernel: the
+    segment kernel at bs 1, 2, 4 and 8 and the generic one (bs 3), at one
+    RHS and a tile of eight, fp64 and fp32 (lanes a block-row at the 32³
+    matrix's max_k of that bs)."""
+    for fp64 in (True, False):
+        for bs, max_k in ((1, 7), (2, 13), (4, 22), (8, 31), (3, 17)):
+            for k in (1, 8):
+                seg, lanes, regs, smem, local = ops.bell_spmv_info(
+                    bs, k, fp64, max_k)
+                how = (f"segment kernel, {lanes} lanes a block-row at max_k "
+                       f"{max_k}" if seg else
+                       f"generic kernel, a block of {lanes} threads a "
+                       f"block-row")
+                log(f"bell_spmv {'fp64' if fp64 else 'fp32'} bs={bs} k={k} "
+                    f"({how}): {regs} registers a thread, {smem} bytes of "
+                    f"shared memory a block, {local} bytes of local memory "
+                    f"(spills) a thread")
 
 
 def tri_solve_check(out: dict, shape: str, L, x0, bs: int, kt: int,
@@ -1253,6 +1324,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(REPLACES)} CUDA "
         f"kernels, sm_90a)")
     tri_solve_resources(ops)
+    bell_spmv_resources(ops)
     for d in (128, 64):
         regs, smem, local, stages = ops.flash_attention_info(d)
         log(f"flash_attention bf16 D={d} (TMA + wgmma kernel): {regs} "
@@ -1315,8 +1387,9 @@ def all_paths(dev) -> tuple:
     b = np.random.default_rng(2).standard_normal(a.n)
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                          lambda: execute_plan(a, plan, b, device=dev))
-    log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, tri_solve "
-        f"kernels (s): " + json.dumps(tri_solve_device_s(spans)))
+    for stem in ("tri_solve", "bell_"):
+        log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, {stem} "
+            f"kernels (s): " + json.dumps(kernel_device_s(spans, stem)))
     profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",
                  lambda: execute_plan(a, plan, b, backend="pallas",
                                       device=dev))

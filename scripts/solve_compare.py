@@ -1,22 +1,25 @@
-"""Time one source tree's ``tri_solve_batch`` on the card, so that two trees
-can be compared in one machine session.
+"""Time one source tree's solve kernels and solve set-up on the card, so
+that two trees can be compared in one machine session.
 
 Run from the root of the repository, on a machine with one CUDA device:
 
-    python3 scripts/tri_solve_compare.py [--src DIR]
+    python3 scripts/solve_compare.py [--src DIR]
 
 ``DIR`` (default: this checkout's ``src``) goes first on ``sys.path``, so
 the port of an older commit unpacked under ``build/`` is timed by the same
 code; its kernels build into that tree's own ``build/torch_kernels``. On
 grid3d(32,32,32) under ``nd`` (the solve path of ``chip_smoke.py``) it runs
 ``execute_plan`` (pipelined, device sweeps, fp32 factors with fp64
-refinement, one RHS) once to warm up and ``RUNS`` more times, keeping each
-``solve.sweep`` span; profiles one more run and sums the device time of the
-tri-solve kernels by name; then runs ``chip_smoke.tri_solve_check`` (the
-kernel held against its plain version, timed beside it and
-``solve_triangular``) on the factored L11 of the populated and the largest
-bucket, at one RHS and eight, both sweeps. Prints one JSON line; exits 2
-without a CUDA device.
+refinement, one RHS) once to warm up and ``RUNS`` more times, keeping the
+``solve.setup``, ``solve.sweep`` and ``solve.refine`` spans and the
+``bell_spmv`` launches of each; profiles one more run and sums the device
+time of the tri-solve and the ``bell_spmv`` kernels by name; runs
+``chip_smoke.tri_solve_check`` (the kernel held against its plain version,
+timed beside it and ``solve_triangular``) on the factored L11 of the
+populated and the largest bucket, at one RHS and eight, both sweeps; and
+times the tree's ``bell_spmv`` on the permuted matrix's fp64 blocks at
+bs = 1 and 8, one RHS and eight (``chip_smoke.device_ms``). Prints one JSON
+line; exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -40,13 +43,14 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("tri_solve_compare: no CUDA device", file=sys.stderr)
+        print("solve_compare: no CUDA device", file=sys.stderr)
         return 2
     src = os.path.abspath(args.src)
     sys.path[:0] = [src, ROOT]
     import chip_smoke as cs
     from repro_torch.core.plan import PlanBuilder, execute_plan
-    from repro_torch.kernels import ops
+    from repro_torch.device import to_device
+    from repro_torch.kernels import ops, spmv_bell
     from repro_torch.kernels._build import load_kernels
     from repro_torch.sparse.csr import permute_symmetric
     from repro_torch.sparse.dataset import grid3d
@@ -64,14 +68,22 @@ def main(argv=None) -> int:
                             solve_dtype="fp32_refine", device=dev)
 
     solve()
-    sweeps = [solve()["spans"]["solve.sweep"] for _ in range(RUNS)]
-    tri = cs.tri_solve_device_s(cs.profile_call("execute_plan", solve))
+    runs = []
+    for _ in range(RUNS):
+        before = spmv_bell.bell_spmv.launches
+        sp = solve()["spans"]
+        runs.append({k: sp[k] for k in ("solve.setup", "solve.sweep",
+                                         "solve.refine")})
+        runs[-1]["bell_spmv launches"] = spmv_bell.bell_spmv.launches - before
+    spans = cs.profile_call("execute_plan", solve)
+    device_s = {stem: cs.kernel_device_s(spans, stem)
+                for stem in ("tri_solve", "bell_")}
 
-    f = multifrontal_cholesky(permute_symmetric(a, plan.perm), sym=plan.sym,
-                              device=dev)
+    pa = permute_symmetric(a, plan.perm)
+    f = multifrontal_cholesky(pa, sym=plan.sym, device=dev)
     picks = cs.pick_buckets(f.schedule, _route_contributions(f.schedule))
     rng = np.random.default_rng(1)
-    kernel = {}
+    tri = {}
     for tag in ("populated", "largest"):
         li, bj = picks[tag]
         B, P = len(f.schedule.buckets[li][bj].members), \
@@ -83,12 +95,21 @@ def main(argv=None) -> int:
                                  dtype=torch.float32, device=dev)
             for lower in (True, False):
                 shape = f"{tag} B={B} P={P}"
-                kernel[f"{shape} k={k} {'lower' if lower else 'upper'}"] = \
+                tri[f"{shape} k={k} {'lower' if lower else 'upper'}"] = \
                     cs.tri_solve_check({}, shape, L, x0, bs, k, lower, False)
+    bell = {}
+    for bs in (1, 8):
+        blocks, idx, npad = spmv_bell.csr_to_bell(pa.indptr, pa.indices,
+                                                  pa.data, pa.n, bs)
+        blocks_d, idx_d = to_device(blocks, dev), to_device(idx, dev)
+        for k in (1, 8):
+            x = torch.as_tensor(rng.standard_normal((npad, k)), device=dev)
+            bell[f"bs={bs} k={k}"] = cs.device_ms(
+                lambda: spmv_bell.bell_spmv(blocks_d, idx_d, x))
     print(json.dumps({"src": os.path.relpath(src, ROOT),
                       "device": torch.cuda.get_device_name(0),
-                      "solve.sweep": sweeps, "tri_solve_device_s": tri,
-                      "kernel": kernel}), flush=True)
+                      "runs": runs, "device_s": device_s,
+                      "tri_solve": tri, "bell_spmv_ms": bell}), flush=True)
     return 0
 
 

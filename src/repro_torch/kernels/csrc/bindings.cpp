@@ -162,6 +162,17 @@ void bell_spmv(const at::Tensor& blocks, const at::Tensor& idx,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The bell_spmv kernel picked for (bs, k, dtype) and its resources, as
+// bell_spmv_kernel_info (kernels.h) lists them.
+std::vector<int64_t> bell_spmv_info(int64_t bs, int64_t k, bool fp64,
+                                    int64_t max_k) {
+  TORCH_CHECK(bs >= 1 && k >= 1, "bs and k must be positive");
+  int info[5];
+  bell_spmv_kernel_info(as_int(bs, "bs"), as_int(k, "k"), fp64,
+                        as_int(max_k, "max_k"), info);
+  return std::vector<int64_t>(info, info + 5);
+}
+
 void check_batch(const at::Tensor& t, at::ScalarType type,
                  const at::Tensor& like, const char* name) {
   check_cuda(t, type, name);
@@ -402,6 +413,8 @@ TORCH_LIBRARY(repro_torch, m) {
         &tri_solve_info);
   m.def("bell_spmv(Tensor blocks, Tensor idx, Tensor x, Tensor(a!) y) -> ()",
         &bell_spmv);
+  m.def("bell_spmv_info(int bs, int k, bool fp64, int max_k) -> int[]",
+        &bell_spmv_info);
   m.def(
       "entry_stats(Tensor rows, Tensor cols, Tensor valid, Tensor first, "
       "int chunk, Tensor(a!) bw_part, Tensor(b!) prof_part, Tensor(c!) out) "

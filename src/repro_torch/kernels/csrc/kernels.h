@@ -45,6 +45,14 @@ void launch_bell_spmv_f32(const float* blocks, const int* idx, const float* x,
                           float* y, int nrb, int max_k, int bs, int kk,
                           cudaStream_t stream);
 
+// The bell_spmv kernel that the launchers pick for (bs, kk) in fp64 or fp32
+// (spmv_bell.cu): whether it is the segment kernel of bs in {1, 2, 4, 8}
+// (1) or the generic one (0), threads a block-row (the segment's lanes G
+// at this max_k, or the generic kernel's warp), registers per thread,
+// static shared memory per block (bytes), local memory per thread (bytes:
+// spills).
+void bell_spmv_kernel_info(int bs, int kk, bool fp64, int max_k, int out[5]);
+
 // csr_stats.cu: partial buffers are (B, ceil(len / chunk)); out is (B, 2)
 // for entry_stats and (B, 3) for row_stats.
 void launch_entry_stats(const int* rows, const int* cols, const int* valid,

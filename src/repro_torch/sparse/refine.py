@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
-from ..kernels.spmv_bell import bell_spmv, csr_to_bell
+from ..kernels.spmv_bell import bell_spmv, csr_to_bell, pick_spmv_bs
 from .multifrontal import _device_sweep_passes, sweep_device
 
 __all__ = ["RefineInfo", "refine_solve", "refine_solve_device",
@@ -112,7 +112,8 @@ def refine_solve_device(a, f, b: np.ndarray, *,
                         tol: float = DEFAULT_TOL, max_iter: int = 10,
                         sweep_bs: Optional[int] = None,
                         rt: Optional[int] = None,
-                        spmv_bs: int = 8) -> tuple[np.ndarray, RefineInfo]:
+                        spmv_bs: Optional[int] = None
+                        ) -> tuple[np.ndarray, RefineInfo]:
     """Device-resident refinement for the ``sweep="device"`` solve path.
 
     ``a`` is the (permuted) fp64 :class:`repro_torch.sparse.csr.CSRMatrix`,
@@ -123,6 +124,13 @@ def refine_solve_device(a, f, b: np.ndarray, *,
     per-iteration host↔device transfer is the residual-norm scalar — the
     ``float()`` that is also the sync point for the queued sweep.
     ``b``: ``(n,)`` or ``(n, k)``; returns ``(x fp64 host, RefineInfo)``.
+
+    ``spmv_bs`` is the block size of that layout; ``None`` picks the one
+    that stores the fewest bytes (:func:`pick_spmv_bs`). The reference
+    fixes 8, which suits the TPU's (8, 128) tiling. On the card the kernel
+    is bound by the bytes it reads, ELL padding included, and bs = 8 pads
+    a 3-D mesh 24× over its CSR (bs = 1 stores about CSR's bytes), so the
+    default differs; ``spmv_bs=8`` gives the reference's layout.
     """
     pc = time.perf_counter
     b = np.asarray(b, dtype=np.float64)
@@ -134,6 +142,8 @@ def refine_solve_device(a, f, b: np.ndarray, *,
         return np.zeros_like(b), RefineInfo(0, [0.0], True)
     device = sweep_device(f)
     t0 = pc()
+    if spmv_bs is None:
+        spmv_bs = pick_spmv_bs(a.indptr, a.indices, n)
     blocks, idx, npad = csr_to_bell(a.indptr, a.indices, a.data, n,
                                     bs=spmv_bs)
     blocks_d = to_device(blocks, device)                 # fp64 ELL blocks

@@ -168,21 +168,47 @@ def _random_csr(rng, n, density):
     return a, indptr, indices, a[a != 0]
 
 
-def test_csr_to_bell_matches_reference():
-    rng = np.random.default_rng(5)
-    _, indptr, indices, data = _random_csr(rng, 37, 0.1)
-    got = csr_to_bell(indptr, indices, data, 37, 8)
-    want = ref_csr_to_bell(indptr, indices, data, 37, 8)
-    for g, w in zip(got, want):
+def _bell_case(name, rng, n=37):
+    """A seeded CSR matrix: random, with an empty row, with a long row, or
+    with an entry stored twice (a row's last entry again at its end)."""
+    a, _, _, _ = _random_csr(rng, n, 0.1)
+    if name == "empty_row":
+        a[n // 3] = 0.0
+    elif name == "long_row":
+        a[n // 2] = rng.standard_normal(n)
+    indptr = np.r_[0, np.cumsum((a != 0).sum(1))].astype(np.int32)
+    indices = np.nonzero(a)[1].astype(np.int32)
+    data = a[a != 0]
+    if name == "duplicate":
+        end = indptr[5]
+        indices = np.insert(indices, end, indices[end - 1])
+        data = np.insert(data, end, 7.0)
+        indptr = indptr + (np.arange(n + 1) >= 5)
+    return a, indptr, indices, data
+
+
+@pytest.mark.parametrize("bs", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("case", ["random", "empty_row", "long_row",
+                                  "duplicate"])
+def test_csr_to_bell_matches_reference(case, bs):
+    _, indptr, indices, data = _bell_case(case, np.random.default_rng(5))
+    got = csr_to_bell(indptr, indices, data, 37, bs)
+    want = ref_csr_to_bell(indptr, indices, data, 37, bs)
+    assert got[2] == want[2]
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("k", [None, 4])
-def test_bell_spmv_plain_matches_pallas_f32(k):
+@pytest.mark.parametrize("k,bs", [
+    pytest.param(None, 8, id="None"), pytest.param(4, 8, id="4"),
+    *(pytest.param(k, bs, id=f"{k}-bs{bs}")
+      for bs in (1, 2, 4) for k in (None, 4))])
+def test_bell_spmv_plain_matches_pallas_f32(k, bs):
     rng = np.random.default_rng(6)
     n = 37
     _, indptr, indices, data = _random_csr(rng, n, 0.1)
-    blocks, idx, npad = csr_to_bell(indptr, indices, data, n, 8)
+    blocks, idx, npad = csr_to_bell(indptr, indices, data, n, bs)
     x = rng.standard_normal(npad if k is None else (npad, k)).astype(np.float32)
     want = np.asarray(ref_bell_spmv(blocks.astype(np.float32), idx, x,
                                     interpret=True))
@@ -190,6 +216,39 @@ def test_bell_spmv_plain_matches_pallas_f32(k):
                     torch.from_numpy(idx), torch.from_numpy(x))
     assert got.shape == x.shape
     _close(got.numpy(), want)
+
+
+def _stored_bytes(indptr, indices, n, bs):
+    blocks, idx, _ = csr_to_bell(indptr, indices,
+                                 np.ones(indices.size), n, bs)
+    return blocks.nbytes + idx.nbytes
+
+
+@pytest.mark.parametrize("name", ["grid3d", "band", "random", "long_row"])
+def test_pick_spmv_bs_stores_the_fewest_bytes(name):
+    from repro.sparse.dataset import grid3d
+
+    from repro_torch.kernels.spmv_bell import SPMV_BLOCK_SIZES, pick_spmv_bs
+
+    rng = np.random.default_rng(9)
+    if name == "grid3d":
+        g = grid3d(6, 6, 6, "g")
+        indptr, indices, n = g.indptr, g.indices, g.n
+    else:
+        n = 64
+        if name == "band":   # a full band of half-width 6: 2x2 blocks fill
+            a = (np.abs(np.subtract.outer(np.arange(n), np.arange(n))) <= 6
+                 ).astype(float)
+        else:
+            a, _, _, _ = _bell_case(name, rng, n)
+        indptr = np.r_[0, np.cumsum((a != 0).sum(1))].astype(np.int32)
+        indices = np.nonzero(a)[1].astype(np.int32)
+    sizes = {bs: _stored_bytes(indptr, indices, n, bs)
+             for bs in SPMV_BLOCK_SIZES}
+    bs = pick_spmv_bs(indptr, indices, n)
+    assert sizes[bs] == min(sizes.values())
+    assert bs == min(b for b, v in sizes.items() if v == sizes[bs])
+    assert bs == {"grid3d": 1, "band": 2}.get(name, bs)
 
 
 @pytest.mark.parametrize("k", [None, 3])

@@ -121,15 +121,21 @@ def test_unported_modes_raise(factors, spd_grid):
                                  device="cpu")
 
 
-@pytest.mark.parametrize("k", [None, 2])
-def test_refine_solve_device_matches_host_refinement(factors, spd_grid, k):
+@pytest.mark.parametrize("k,spmv_bs", [
+    pytest.param(None, None, id="None"), pytest.param(2, None, id="2"),
+    pytest.param(None, 8, id="None-bs8"), pytest.param(2, 8, id="2-bs8")])
+def test_refine_solve_device_matches_host_refinement(factors, spd_grid, k,
+                                                     spmv_bs):
+    """The picked residual layout (``spmv_bs=None``) and the reference's
+    (bs = 8) both reach the host refinement."""
     ref, port = factors
     rng = np.random.default_rng(5)
     b = rng.standard_normal(spd_grid.n if k is None else (spd_grid.n, k))
     want, _ = ref_refine_solve(
         spd_grid.matvec,
         lambda r: ref_mf.multifrontal_solve(ref, r, mode="level"), b)
-    got, info = refine_solve_device(_port(spd_grid), port, b)
+    got, info = refine_solve_device(_port(spd_grid), port, b,
+                                    spmv_bs=spmv_bs)
     assert info.converged and info.final_residual <= 1e-12
     assert info.iterations >= 1 and len(info.residuals) == info.iterations + 1
     _close(got, want, 1e-8)
