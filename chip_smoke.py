@@ -58,7 +58,11 @@ layout), 4, 2 and 3 (the generic kernel), and on the served ``circuit_9``
 version and the matrix's own product and timed beside ``torch.sparse.mm``,
 then in float32, after a line of registers, shared memory and spills for
 each of its kernels; the tile kernels on the first panel
-of that schedule's peak (root) front and of a leaf front, the ``csr_stats`` kernels
+of that schedule's peak (root) front and of a leaf front, with
+``matmul_nt`` at every (rows, N, K) that the per-front path launches (the
+launch plan of each and its count of launches printed) and
+``tri_inv_tile`` at bs 128, 100 and 33, after a line of registers, shared
+memory and spills for each tile-kernel instantiation; the ``csr_stats`` kernels
 on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
@@ -66,7 +70,7 @@ spills) and times kernel,
 plain version and, where one exists, the PyTorch library call computing
 the same function; it profiles the pipelined solve (with the summed device
 time of the tri-solve and the ``bell_spmv`` kernels) and the per-front
-solve, one
+solve (with the summed device time of each tile kernel), one
 selection, and one prefill and 16 decode steps of the served model. It
 prints the stage times, a ``kernels`` JSON line, the card's name and power
 limit, and as its last line
@@ -174,6 +178,8 @@ SOLVE_KERNELS = ("frontal_factor_batch", "extend_add_batch",
                  "tri_solve_batch", "bell_spmv")
 SERVED_KERNELS = SOLVE_KERNELS + ("entry_stats", "row_stats")
 TILE_KERNELS = ("chol_tile", "tri_inv_tile", "matmul_nt")
+#: the tile kernels' names as the profiler reports them
+TILE_STEMS = ("chol_tile", "tri_inv", "matmul_nt")
 
 
 def log(*args) -> None:
@@ -377,6 +383,69 @@ def pick_buckets(schedule, routes) -> dict:
             "largest_fed": max(fed, key=width)}
 
 
+def bucket_inputs(pa, f, routes, key, dev) -> tuple:
+    """Bucket ``key``'s assembled workspaces on ``dev``, and its extend-add
+    groups (source stack, offset, src, dst, rows) from the factored stacks
+    of the pipelined factorization ``f`` of ``pa``."""
+    from repro_torch.device import to_device
+    from repro_torch.sparse.multifrontal import _assemble_bucket
+
+    sched = f.schedule
+    bk = sched.buckets[key[0]][key[1]]
+    w0 = to_device(_assemble_bucket(pa, sched, bk), dev)
+    groups = []
+    for skey, contribs in sorted(routes.get(key, {}).items()):
+        contribs.sort(key=lambda c: c[1])
+        groups.append((f.device_stacks[skey],
+                       sched.buckets[skey[0]][skey[1]].P,
+                       np.array([c[0] for c in contribs], np.int32),
+                       np.array([c[1] for c in contribs], np.int32),
+                       np.stack([c[2] for c in contribs])))
+    return bk, w0, groups
+
+
+def tile_fronts(pa, f, routes, dev) -> dict:
+    """{tag: (bucket, workspace, front)} of the fronts the tile checks run
+    on: the peak front (the root's, m = 1,208 on 32³/nd) and the first of
+    the most populated bucket (a leaf), each assembled as the factor
+    assembles it (A's entries and the children's Schur blocks)."""
+    from repro_torch.kernels import frontal_cholesky as fc
+
+    sched = f.schedule
+    picks = pick_buckets(sched, routes)
+    peak = max(sched.fronts, key=lambda fp: fp.m).k
+    slot = {"populated": (picks["populated"], 0)}
+    for li in range(sched.nlevels):
+        for bj, bk in enumerate(sched.buckets[li]):
+            if peak in bk.members:
+                slot["peak"] = ((li, bj), bk.members.index(peak))
+    fronts = {}
+    for tag in ("peak", "populated"):
+        key, bi = slot[tag]
+        bk, w0, groups = bucket_inputs(pa, f, routes, key, dev)
+        for u, off, src, dst, rows in groups:
+            fc.extend_add_batch(w0, u, dst, rows, src=src, off=off)
+        fronts[tag] = (bk, w0[bi], bk.members[bi])
+    return fronts
+
+
+def per_front_products(sched, bs: int = 128) -> dict:
+    """{(rows, N, K): launches} of matmul_nt on the per-front path:
+    ``ops.frontal_factor`` pads each front to P + R in multiples of bs and,
+    per panel but the last of a front with no update rows, launches the
+    panel product (M - hi, bs, bs) and the trailing one (M - hi, M - hi,
+    bs)."""
+    shapes: dict = {}
+    for fp in sched.fronts:
+        P = -(-fp.npiv // bs) * bs
+        M = P + -(-fp.nrest // bs) * bs
+        for hi in range(bs, P + 1, bs):
+            if hi < M:
+                for key in ((M - hi, bs, bs), (M - hi, M - hi, bs)):
+                    shapes[key] = shapes.get(key, 0) + 1
+    return dict(sorted(shapes.items()))
+
+
 def kernel_checks(a, plan, dev) -> dict:
     """Each kernel against its plain version at the 32³ schedule's shapes,
     on the inputs the main path gives it, with times and bounds. Returns
@@ -387,9 +456,9 @@ def kernel_checks(a, plan, dev) -> dict:
     from repro_torch.device import to_device
     from repro_torch.kernels import frontal_cholesky as fc
     from repro_torch.kernels import ops
+    from repro_torch.kernels._build import load_kernels
     from repro_torch.sparse.csr import permute_symmetric
-    from repro_torch.sparse.multifrontal import (_assemble_bucket,
-                                                 _route_contributions,
+    from repro_torch.sparse.multifrontal import (_route_contributions,
                                                  multifrontal_cholesky)
 
     pa = permute_symmetric(a, plan.perm)
@@ -405,25 +474,10 @@ def kernel_checks(a, plan, dev) -> dict:
     rng = np.random.default_rng(1)
     out: dict = {}
 
-    def bucket_inputs(key):
-        """The bucket's assembled workspaces, and its extend-add groups
-        (source stack, offset, src, dst, rows) from the factored stacks."""
-        bk = sched.buckets[key[0]][key[1]]
-        w0 = to_device(_assemble_bucket(pa, sched, bk), dev)
-        groups = []
-        for skey, contribs in sorted(routes.get(key, {}).items()):
-            contribs.sort(key=lambda c: c[1])
-            groups.append((f.device_stacks[skey],
-                           sched.buckets[skey[0]][skey[1]].P,
-                           np.array([c[0] for c in contribs], np.int32),
-                           np.array([c[1] for c in contribs], np.int32),
-                           np.stack([c[2] for c in contribs])))
-        return bk, w0, groups
-
     # extend_add_batch: a bucket's real contributions, read from the
     # factored stacks of the factorization above
     for tag in ("populated_fed", "largest_fed"):
-        bk, w0, groups = bucket_inputs(picks[tag])
+        bk, w0, groups = bucket_inputs(pa, f, routes, picks[tag], dev)
         wk, wp, wl = w0.clone(), w0.clone(), w0.clone()
 
         def run_kernel():
@@ -469,7 +523,7 @@ def kernel_checks(a, plan, dev) -> dict:
     # frontal_factor_batch on the workspaces the main path factors: A's
     # entries plus the children's Schur blocks
     for tag in ("populated", "largest"):
-        bk, w0, groups = bucket_inputs(picks[tag])
+        bk, w0, groups = bucket_inputs(pa, f, routes, picks[tag], dev)
         for u, off, src, dst, rows in groups:
             fc.extend_add_batch(w0, u, dst, rows, src=src, off=off)
         B, P, M = len(bk.members), bk.P, bk.M
@@ -535,19 +589,23 @@ def kernel_checks(a, plan, dev) -> dict:
                             x0, 32, 32, lower, False)
 
     # the tile kernels on the first panel of a front as the per-front path
-    # builds it: the peak front (the root's, m = 1,208) and a leaf front
-    peak = max(sched.fronts, key=lambda fp: fp.m).k
-    slot = {"populated": (picks["populated"], 0)}
-    for li in range(sched.nlevels):
-        for bj, bk in enumerate(sched.buckets[li]):
-            if peak in bk.members:
-                slot["peak"] = ((li, bj), bk.members.index(peak))
-    for tag in ("peak", "populated"):
-        key, bi = slot[tag]
-        bk, w0, groups = bucket_inputs(key)
-        for u, off, src, dst, rows in groups:
-            fc.extend_add_batch(w0, u, dst, rows, src=src, off=off)
-        tile_checks(tag, sched, bk, w0[bi], bk.members[bi], out)
+    # builds it: the peak front, with matmul_nt at every (M, N, K) the
+    # per-front path launches, and a leaf front
+    shapes = per_front_products(sched)
+    log("per_front matmul_nt shapes (rows, N, K): launches "
+        + json.dumps({str(k): v for k, v in shapes.items()}))
+    ops = load_kernels()
+    for rows, n, _ in shapes:
+        bm, bn, tiles_m, tiles_n = ops.matmul_nt_plan(rows, n)
+        log(f"matmul_nt plan ({rows}, {n}): {bm} x {bn} output tiles, "
+            f"{tiles_m} x {tiles_n} blocks")
+        if not (bm * tiles_m >= rows > bm * (tiles_m - 1)
+                and bn * tiles_n >= n > bn * (tiles_n - 1)):
+            raise AssertionError(f"matmul_nt plan at ({rows}, {n}) does not "
+                                 f"cover the output once")
+    for tag, (bk, w, k) in tile_fronts(pa, f, routes, dev).items():
+        tile_checks(tag, sched, bk, w, k, out,
+                    shapes if tag == "peak" else None)
 
     bell_spmv_checks(pa, dev, rng, out)
     return out
@@ -673,6 +731,25 @@ def tri_solve_check(out: dict, shape: str, L, x0, bs: int, kt: int,
     return dict(ms=ms, plain_ms=pms, library_ms=lms, max_abs_err=err)
 
 
+def tile_resources(ops) -> None:
+    """Registers, shared memory and spills of every tile-kernel
+    instantiation (``tile_kernels_info``): chol_tile, tri_inv_tile at 1, 2
+    and 4 diagonal blocks, matmul_nt at each output tile with 16- and
+    4-byte copies."""
+    i = 0
+    while info := ops.tile_kernels_info(i):
+        kind, p0, p1, p2, threads, regs, smem, local = info
+        what = (f"chol_tile bs<={p0}" if kind == 0 else
+                f"tri_inv_tile {p0} diagonal block{'s' if p0 > 1 else ''}"
+                if kind == 1 else
+                f"matmul_nt {p0} x {p1} output tile, "
+                f"{16 if p2 else 4}-byte copies")
+        log(f"tile_kernels {what}: {threads} threads, {regs} registers a "
+            f"thread, {smem} bytes of shared memory a block, {local} bytes "
+            f"of local memory (spills) a thread")
+        i += 1
+
+
 def tri_solve_resources(ops) -> None:
     """The tri_solve kernel picked at each shape the checks run, with its
     registers, shared memory, spills and (block variant) layout."""
@@ -693,11 +770,17 @@ def tri_solve_resources(ops) -> None:
                 f"thread")
 
 
-def tile_checks(tag: str, sched, bucket, w, k: int, out: dict) -> None:
+def tile_checks(tag: str, sched, bucket, w, k: int, out: dict,
+                shapes=None) -> dict:
     """chol_tile, tri_inv_tile and matmul_nt against their plain versions
     on the first panel of ``ops.frontal_factor`` for front ``k`` of
     ``bucket``, whose assembled workspace (A's entries and the children's
-    Schur blocks) is ``w`` in the bucket's padded layout."""
+    Schur blocks) is ``w`` in the bucket's padded layout, each timed beside
+    its plain version and one library call. With ``shapes`` (the
+    ``per_front_products`` of the path), matmul_nt also runs at every row
+    count the path launches (the first rows of this panel's products) and
+    tri_inv_tile at the ragged widths 100 and 33 (leading blocks of the
+    factor). Returns {case: kernel ms}."""
     import torch
 
     from repro_torch.kernels import frontal_cholesky as fc
@@ -712,49 +795,68 @@ def tile_checks(tag: str, sched, bucket, w, k: int, out: dict) -> None:
     M = W.shape[0]
     shape = f"{tag} front m={fp.m} npiv={fp.npiv} M={M}"
     headline = tag == "peak"
-    tri_bytes = (bs * (bs + 1) // 2 + bs * bs) * 4  # lower read, tile out
+    times = {}
+
+    def tri_bytes(n):  # the lower triangle read, the tile written
+        return (n * (n + 1) // 2 + n * n) * 4
 
     a = W[:bs, :bs]
     sym = (torch.tril(a) + torch.tril(a, -1).T).contiguous()
     L = fc.chol_tile(a)
     err = compare("chol_tile", L, fc.chol_tile_plain(a))
-    record(out, "chol_tile", f"{shape} bs={bs}", err,
-           device_ms(lambda: fc.chol_tile(a)),
+    times[f"chol_tile bs={bs}"] = ms = device_ms(lambda: fc.chol_tile(a))
+    record(out, "chol_tile", f"{shape} bs={bs}", err, ms,
            stream_ms(lambda: fc.chol_tile_plain(a)),
            device_ms(lambda: torch.linalg.cholesky(sym)), bs ** 3 / 3,
-           tri_bytes, PEAK_FP32, headline)
+           tri_bytes(bs), PEAK_FP32, headline)
 
-    eye = torch.eye(bs, device=W.device)
+    # the path's tile, then leading blocks of it: strided views of L
+    for n in (bs, 100, 33) if shapes else (bs,):
+        Ln = L[:n, :n]
+        eye, Lc = torch.eye(n, device=W.device), Ln.contiguous()
+        err = compare("tri_inv_tile", fc.tri_inv_tile(Ln),
+                      fc.tri_inv_tile_plain(Ln))
+        times[f"tri_inv_tile bs={n}"] = ms = device_ms(
+            lambda: fc.tri_inv_tile(Ln))
+        record(out, "tri_inv_tile", f"{shape} bs={n}", err, ms,
+               stream_ms(lambda: fc.tri_inv_tile_plain(Ln)),
+               device_ms(lambda: torch.linalg.solve_triangular(
+                   Lc, eye, upper=False)),
+               n ** 3 / 3, tri_bytes(n), PEAK_FP32, headline and n == bs)
     inv = fc.tri_inv_tile(L)
-    err = compare("tri_inv_tile", inv, fc.tri_inv_tile_plain(L))
-    record(out, "tri_inv_tile", f"{shape} bs={bs}", err,
-           device_ms(lambda: fc.tri_inv_tile(L)),
-           stream_ms(lambda: fc.tri_inv_tile_plain(L)),
-           device_ms(lambda: torch.linalg.solve_triangular(L, eye,
-                                                           upper=False)),
-           bs ** 3 / 3, tri_bytes, PEAK_FP32, headline)
 
     panel = W[bs:, :bs]
     lpanel = fc.matmul_nt(panel, inv, torch.zeros_like(panel), alpha=1.0,
                           beta=0.0)
     trail = W[bs:, bs:]
-    for what, (x, y, c, alpha, beta) in (
-            ("panel", (panel, inv, torch.zeros_like(panel), 1.0, 0.0)),
-            ("trailing", (lpanel, lpanel, trail, -1.0, 1.0))):
-        m_, k_, n_ = x.shape[0], x.shape[1], y.shape[0]
-        got = fc.matmul_nt(x, y, c, alpha=alpha, beta=beta)
-        err = compare("matmul_nt", got,
-                      fc.matmul_nt_plain(x, y, c, alpha, beta))
-        xc, yc, cc = x.contiguous(), y.contiguous(), c.contiguous()
-        record(out, "matmul_nt", f"{shape} {what} ({m_} x {k_}) "
-               f"({n_} x {k_})^T", err,
-               device_ms(lambda: fc.matmul_nt(x, y, c, alpha=alpha,
-                                              beta=beta)),
-               stream_ms(lambda: fc.matmul_nt_plain(x, y, c, alpha, beta)),
-               device_ms(lambda: torch.addmm(cc, xc, yc.T, beta=beta,
-                                             alpha=alpha)),
-               2 * m_ * n_ * k_, 4 * (m_ * k_ + n_ * k_ + 2 * m_ * n_),
-               PEAK_FP32, headline and what == "trailing")
+    rows_all = sorted({r for r, _, _ in shapes if r <= M - bs},
+                      reverse=True) if shapes else [M - bs]
+    for rows in rows_all:
+        for what, (x, y, c, alpha, beta) in (
+                ("panel", (panel[:rows], inv,
+                           torch.zeros_like(panel[:rows]), 1.0, 0.0)),
+                ("trailing", (lpanel[:rows], lpanel[:rows],
+                              trail[:rows, :rows], -1.0, 1.0))):
+            m_, k_, n_ = x.shape[0], x.shape[1], y.shape[0]
+            got = fc.matmul_nt(x, y, c, alpha=alpha, beta=beta)
+            err = compare("matmul_nt", got,
+                          fc.matmul_nt_plain(x, y, c, alpha, beta))
+            xc, yc, cc = x.contiguous(), y.contiguous(), c.contiguous()
+            times[f"matmul_nt {what} rows={rows}"] = ms = device_ms(
+                lambda: fc.matmul_nt(x, y, c, alpha=alpha, beta=beta))
+            n_launch = (shapes or {}).get((m_, n_, k_))
+            record(out, "matmul_nt", f"{shape} {what} ({m_} x {k_}) "
+                   f"({n_} x {k_})^T"
+                   + (f", {n_launch} launches of the shape a per-front "
+                      f"solve" if n_launch else ""), err, ms,
+                   stream_ms(lambda: fc.matmul_nt_plain(x, y, c, alpha,
+                                                        beta)),
+                   device_ms(lambda: torch.addmm(cc, xc, yc.T, beta=beta,
+                                                 alpha=alpha)),
+                   2 * m_ * n_ * k_, 4 * (m_ * k_ + n_ * k_ + 2 * m_ * n_),
+                   PEAK_FP32,
+                   headline and what == "trailing" and rows == M - bs)
+    return times
 
 
 def launched(phase: str, counts: dict, names) -> None:
@@ -950,8 +1052,9 @@ def per_front_phase(plans, engine, dev) -> dict:
     b = rng.standard_normal(a.n)
     # where the per-front factorization's time goes: host assembly, uploads
     # and launches, and the blocking copies back of each front
-    st = multifrontal_cholesky(permute_symmetric(a, plan.perm), sym=plan.sym,
-                               backend="pallas", device=dev).stats
+    mf = multifrontal_cholesky(permute_symmetric(a, plan.perm), sym=plan.sym,
+                               backend="pallas", device=dev)
+    st = mf.stats
     log(f"per_front factor {a.name} {plan.algorithm}: {st['nsup']} fronts; "
         f"s: schedule {st['t_factor_schedule']:.4f}, assemble "
         f"{st['t_factor_assemble']:.4f}, dispatch {st['t_factor_dispatch']:.4f}"
@@ -964,6 +1067,10 @@ def per_front_phase(plans, engine, dev) -> dict:
     if not r["refine_converged"]:
         raise AssertionError("per_front: refinement did not converge")
     launched("per_front", counts, TILE_KERNELS)
+    shapes = per_front_products(mf.schedule)
+    log(f"per_front matmul_nt: {sum(shapes.values())} launches over "
+        f"{len(shapes)} distinct (rows, N, K) by the schedule, "
+        f"{counts['matmul_nt']} counted")
     if min(counts[k] for k in TILE_KERNELS) < 2:
         raise AssertionError(f"per_front: a tile kernel launched once only: "
                              f"{counts}")
@@ -1325,6 +1432,7 @@ def main(argv=None) -> int:
         f"kernels, sm_90a)")
     tri_solve_resources(ops)
     bell_spmv_resources(ops)
+    tile_resources(ops)
     for d in (128, 64):
         regs, smem, local, stages = ops.flash_attention_info(d)
         log(f"flash_attention bf16 D={d} (TMA + wgmma kernel): {regs} "
@@ -1390,9 +1498,12 @@ def all_paths(dev) -> tuple:
     for stem in ("tri_solve", "bell_"):
         log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, {stem} "
             f"kernels (s): " + json.dumps(kernel_device_s(spans, stem)))
-    profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",
-                 lambda: execute_plan(a, plan, b, backend="pallas",
-                                      device=dev))
+    spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",
+                         lambda: execute_plan(a, plan, b, backend="pallas",
+                                              device=dev))
+    log(f"profile {a.name} {plan.algorithm} k=1 execute_plan pallas, tile "
+        f"kernels (s): " + json.dumps({stem: kernel_device_s(spans, stem)
+                                       for stem in TILE_STEMS}))
     profile_call("select_batch (16 served matrices)",
                  lambda: engine.select_batch(served))
     return counts, records

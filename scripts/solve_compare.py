@@ -18,8 +18,16 @@ time of the tri-solve and the ``bell_spmv`` kernels by name; runs
 timed beside it and ``solve_triangular``) on the factored L11 of the
 populated and the largest bucket, at one RHS and eight, both sweeps; and
 times the tree's ``bell_spmv`` on the permuted matrix's fp64 blocks at
-bs = 1 and 8, one RHS and eight (``chip_smoke.device_ms``). Prints one JSON
-line; exits 2 without a CUDA device.
+bs = 1 and 8, one RHS and eight (``chip_smoke.device_ms``). On the per-front
+``pallas`` backend it factors the same matrix ``PF_RUNS`` times, keeping
+``t_factor_dispatch``, ``t_factor_sync`` and the tile kernels' launches of
+each; runs ``execute_plan`` with it once through the fp64 residual gate
+(``chip_smoke.gate``); profiles one more run and sums the tile kernels'
+device time by name; and runs ``chip_smoke.tile_checks`` on the peak front
+(``chip_smoke.tile_fronts``), which holds each tile kernel against its
+plain version and times ``matmul_nt`` at every (rows, N, K) of the
+per-front path and ``tri_inv_tile`` at bs = 128, 100 and 33. Prints one
+JSON line; exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = 5
+PF_RUNS = 3
 
 
 def main(argv=None) -> int:
@@ -50,7 +59,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.core.plan import PlanBuilder, execute_plan
     from repro_torch.device import to_device
-    from repro_torch.kernels import ops, spmv_bell
+    from repro_torch.kernels import launch_counts, ops, spmv_bell
     from repro_torch.kernels._build import load_kernels
     from repro_torch.sparse.csr import permute_symmetric
     from repro_torch.sparse.dataset import grid3d
@@ -81,7 +90,8 @@ def main(argv=None) -> int:
 
     pa = permute_symmetric(a, plan.perm)
     f = multifrontal_cholesky(pa, sym=plan.sym, device=dev)
-    picks = cs.pick_buckets(f.schedule, _route_contributions(f.schedule))
+    routes = _route_contributions(f.schedule)
+    picks = cs.pick_buckets(f.schedule, routes)
     rng = np.random.default_rng(1)
     tri = {}
     for tag in ("populated", "largest"):
@@ -106,10 +116,35 @@ def main(argv=None) -> int:
             x = torch.as_tensor(rng.standard_normal((npad, k)), device=dev)
             bell[f"bs={bs} k={k}"] = cs.device_ms(
                 lambda: spmv_bell.bell_spmv(blocks_d, idx_d, x))
+
+    # the per-front (pallas) backend: its factor's host split and launches,
+    # the gated solve, the tile kernels' device time and kernel ms
+    per_front = []
+    for _ in range(PF_RUNS):
+        before = launch_counts()
+        st = multifrontal_cholesky(pa, sym=plan.sym, backend="pallas",
+                                   device=dev).stats
+        after = launch_counts()
+        per_front.append({k: st[k] for k in ("t_factor_dispatch",
+                                             "t_factor_sync")})
+        per_front[-1]["launches"] = {k: after[k] - before[k]
+                                     for k in cs.TILE_KERNELS}
+    cs.gate("per_front execute_plan pallas", a,
+            execute_plan(a, plan, b, backend="pallas", sweep="device",
+                         solve_dtype="fp32_refine", device=dev), b)
+    spans = cs.profile_call("execute_plan pallas", lambda: execute_plan(
+        a, plan, b, backend="pallas", device=dev))
+    device_s["tile"] = {stem: cs.kernel_device_s(spans, stem)
+                        for stem in cs.TILE_STEMS}
+    bk, w, k = cs.tile_fronts(pa, f, routes, dev)["peak"]
+    tile_ms = cs.tile_checks("peak", f.schedule, bk, w, k, {},
+                             cs.per_front_products(f.schedule))
     print(json.dumps({"src": os.path.relpath(src, ROOT),
                       "device": torch.cuda.get_device_name(0),
                       "runs": runs, "device_s": device_s,
-                      "tri_solve": tri, "bell_spmv_ms": bell}), flush=True)
+                      "tri_solve": tri, "bell_spmv_ms": bell,
+                      "per_front": per_front, "tile_ms": tile_ms}),
+          flush=True)
     return 0
 
 

@@ -310,15 +310,35 @@ void matmul_nt(const at::Tensor& a, const at::Tensor& b, const at::Tensor& c,
   TORCH_CHECK(b.size(1) == K, "a is ", a.sizes(), " but b is ", b.sizes());
   TORCH_CHECK(c.size(0) == M && c.size(1) == N && out.sizes() == c.sizes(),
               "c and out must be (", M, ", ", N, ")");
-  TORCH_CHECK(M <= 65535LL * 64, "too many rows: ", M);
+  TORCH_CHECK(((M + 15) / 16) * ((N + 15) / 16) <= INT32_MAX,
+              "too many output tiles: (", M, ", ", N, ")");
   if (M == 0 || N == 0) return;
   const c10::cuda::CUDAGuard guard(a.device());
   launch_matmul_nt(a.data_ptr<float>(), lda, b.data_ptr<float>(), ldb,
                    c.data_ptr<float>(), ldc, out.data_ptr<float>(), ldo,
-                   static_cast<int>(M), as_int(N, "N"), as_int(K, "K"),
+                   as_int(M, "M"), as_int(N, "N"), as_int(K, "K"),
                    static_cast<float>(alpha), static_cast<float>(beta),
                    c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The tile kernels' instantiation i and its resources, as tile_kernel_info
+// (kernels.h) lists them; an empty list past the last.
+std::vector<int64_t> tile_kernels_info(int64_t i) {
+  int info[8];
+  if (i < 0 || i > INT32_MAX || !tile_kernel_info(static_cast<int>(i), info))
+    return {};
+  return std::vector<int64_t>(info, info + 8);
+}
+
+// matmul_nt's output tile and tile counts at (M, N), as matmul_nt_plan
+// (kernels.h) gives them.
+std::vector<int64_t> matmul_nt_plan_info(int64_t M, int64_t N) {
+  TORCH_CHECK(M >= 1 && N >= 1 && M <= INT32_MAX && N <= INT32_MAX,
+              "M and N must lie in [1, 2^31), got ", M, ", ", N);
+  int plan[4];
+  matmul_nt_plan(static_cast<int>(M), static_cast<int>(N), plan);
+  return std::vector<int64_t>(plan, plan + 4);
 }
 
 // A (B, H, S, D) operand of flash_attention: on `like`'s device with its
@@ -401,6 +421,8 @@ TORCH_LIBRARY(repro_torch, m) {
       "matmul_nt(Tensor a, Tensor b, Tensor c, Tensor(a!) out, float alpha, "
       "float beta) -> ()",
       &matmul_nt);
+  m.def("tile_kernels_info(int i) -> int[]", &tile_kernels_info);
+  m.def("matmul_nt_plan(int M, int N) -> int[]", &matmul_nt_plan_info);
   m.def("frontal_factor(Tensor(a!) w, int npiv, int bs) -> ()",
         &frontal_factor);
   m.def(

@@ -79,6 +79,19 @@ void launch_matmul_nt(const float* a, int lda, const float* b, int ldb,
                       int N, int K, float alpha, float beta,
                       cudaStream_t stream);
 
+// Instantiation i of the tile kernels (tile_kernels.cu), while i is below
+// their count (returns 0 past it): kind (0 chol_tile, 1 tri_inv_tile,
+// 2 matmul_nt), three parameters (chol_tile: the widest tile; tri_inv_tile:
+// diagonal blocks of 32; matmul_nt: the output tile's rows and columns and
+// whether its copies are 16-byte), threads a block, registers per thread,
+// shared memory per block at the widest tile (bytes), local memory per
+// thread (bytes: spills).
+int tile_kernel_info(int i, int out[8]);
+
+// matmul_nt's launch at (M, N): the output tile's rows and columns, then
+// the tiles down M and across N (the blocks are their product).
+void matmul_nt_plan(int M, int N, int out[4]);
+
 // flash_attention.cu: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) and o (B, Hq,
 // Sq, D), all float32 or all bfloat16, each with a unit stride along D and
 // the given element strides of its batch, head and sequence dims (batch,

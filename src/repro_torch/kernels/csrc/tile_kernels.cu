@@ -9,38 +9,55 @@
 // ops.frontal_factor (repro_torch/kernels/ops.py) calls them once per panel
 // of bs = 128 columns: the Cholesky of the diagonal tile, the inverse of its
 // factor, then two products, the panel L21 = W21 L11^-T and the trailing
-// update S -= L21 L21^T.
+// update S -= L21 L21^T. On grid3d(32,32,32)/nd almost every front is one
+// identity-padded 128 x 128 tile, so most products are 128^3; the root's
+// run to (1,152 x 128)(1,152 x 128)^T.
 //
-// What bounds them: chol_tile and tri_inv_tile are chains of bs dependent
+// What bounds them: chol_tile and tri_inv_tile are chains of dependent
 // steps on one 128 x 128 tile (0.7 MFLOP each, 33 KB read, 64 KB written),
-// so their time is the chain's latency, not bytes or flops; on the path they
-// are also far below the launch and host round trip of each front.
-// matmul_nt is fp32 FMA work: K = 128 gives 32 flops per byte of A and B,
-// above the line between memory and the CUDA cores' fp32 rate, so its bound
-// is operations.
+// so their time is the chain's latency, not bytes or flops. matmul_nt is
+// fp32 FMA work on the CUDA cores (TF32 stays off, so no tensor cores):
+// K = 128 gives 32 flops per byte of A and B, so its bound is operations;
+// at 128^3 it is latency. What limits the FMA loops of both redesigned
+// kernels on the card is shared memory: a warp's 16-byte read takes four
+// of its cycles whether it is a broadcast or not, so a thread with TM x TN
+// outputs spends 4 (TM + TN) cycles of reads on 4 TM TN FMAs a 4-deep k step.
 //
-// What the designs do about it (one block of 1,024 threads per tile, the
-// tile in shared memory):
-//   * chol_tile: blocked in panels of 32 columns, so the dependent chain is
-//     four 32-step factorizations of diagonal blocks, each in one warp's
-//     registers with shuffles; the rows below each block and the trailing
-//     update spread over all threads, with a block barrier between the three
-//     parts of a panel.
-//   * tri_inv_tile: the columns of Y = L^-1 are independent forward
-//     substitutions (y_r[c] = (e_r[c] - L[r, :r] Y[:r, c]) / L[r, r]), so a
-//     column needs no other column; eight threads of a warp share each
-//     column's sums and walk its rows in order with warp shuffles, with no
-//     block barrier (L and Y take 129 KB of shared memory at bs = 128).
-//   * matmul_nt: a shared-memory-tiled SGEMM, 64 x 64 outputs a block,
-//     4 x 4 a thread, K in steps of 16, plain FP32 FMAs (no TF32, no wgmma).
-// Simple and right first; the tensor cores and cp.async are later work.
+// What the designs do about it (the tiles in shared memory):
+//   * chol_tile (one block of 1,024 threads): blocked in panels of 32
+//     columns, so the dependent chain is four 32-step factorizations of
+//     diagonal blocks, each in one warp's registers with shuffles; the rows
+//     below each block and the trailing update spread over all threads,
+//     with a block barrier between the three parts of a panel.
+//   * tri_inv_tile (one block of 512 threads): a blocked inverse. The tile
+//     arrives by cp.async, every copy in flight at once. Its ceil(bs / 32)
+//     diagonal 32 x 32 blocks, padded with identity to 1, 2 or 4 blocks, are
+//     inverted at once, a warp each, in registers (tile::invert_tile, shared
+//     with tri_solve.cu). The off-diagonal blocks follow by recursive
+//     doubling, Y21 = -Y22 (L21 Y11) at 32 -> 64 -> 128: two rounds of two
+//     shared-memory products over all the warps, each skipping the zero
+//     triangle of its lower-triangular operand. The dependent chain is 32
+//     register steps and two product rounds where a row-by-row substitution
+//     has bs steps.
+//   * matmul_nt: an SGEMM on the CUDA cores. The launch picks one of four
+//     output tiles (64 x 64 down to 16 x 16, 4 x 4 to 2 x 2 outputs a
+//     thread) from (M, N): the one whose busiest SM makes the fewest
+//     shared-memory reads, which weighs the SMs' coverage against the
+//     larger tiles' fewer reads an FMA. K moves in slabs of 32 through a
+//     4-stage cp.async ring (16-byte copies where the rows are 16-byte
+//     aligned, 4-byte ones where not), so K = 128 is in flight at once and
+//     later slabs land while this one computes; a thread with at most 16
+//     outputs loads its c before the K loop. Each output is one thread's
+//     sum over k in order: no atomics, the same bits every run.
 #include "kernels.h"
+#include "tile_invert.cuh"
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kTileThreads = 1024;
 constexpr int kPanel = 32;  // the column panel of chol_tile, one warp wide
-constexpr int kParts = 8;   // threads sharing one column of tri_inv_tile
 
 // Cholesky of one (bs, bs) tile, blocked in panels of 32 columns. Reads the
 // lower triangle of `a` (row stride lda) only; writes L with zeros above the
@@ -140,131 +157,417 @@ chol_tile_kernel(const float* __restrict__ a, int lda, float* __restrict__ l,
   }
 }
 
-// Inverse of a lower-triangular (bs, bs) tile (row stride ldl; the lower
-// triangle is read), written to the contiguous `y`. The columns of Y are
-// independent forward substitutions, y_r[c] = (e_r[c] - L[r, :r] Y[:r, c])
-// / L[r, r], with Y[k, c] = 0 for k < c. Eight threads of one warp share a
-// column: each sums every eighth term of row r, three shuffles add the eight
-// partial sums, and one thread writes y_r[c]; a warp holds four columns and
-// walks their rows in step (lanes before their column's first row add
-// nothing), so no block barrier is needed after the loads.
-__global__ void __launch_bounds__(kTileThreads)
-tri_inv_tile_kernel(const float* __restrict__ l, int ldl,
-                    float* __restrict__ y, int bs) {
-  extern __shared__ float smem[];
-  const int ldy = bs + 1;
-  float* L = smem;                 // bs x bs, zeros above the diagonal
-  float* Y = smem + bs * bs;       // bs x (bs + 1)
-  float* dinv = Y + bs * ldy;      // 1 / L[r, r]
-  const int tid = threadIdx.x;
-  const int c = tid / kParts, t = tid % kParts;
-  const int c_first = (tid / 32) * (32 / kParts);  // the warp's first column
 
-  for (int e = tid; e < bs * bs; e += kTileThreads) {
-    const int i = e / bs, k = e - i * bs;
-    L[e] = k <= i ? l[(size_t)i * ldl + k] : 0.f;
-    Y[i * ldy + k] = 0.f;
-  }
-  for (int r = tid; r < bs; r += kTileThreads)
-    dinv[r] = 1.f / l[(size_t)r * ldl + r];
-  __syncthreads();
+// ---- cp.async (sm_80+) --------------------------------------------------------
 
-  if (c_first < bs) {
-    for (int r = c_first; r < bs; ++r) {
-      float s = 0.f;
-      if (c < bs && r >= c) {
-        // four partial sums over k = c + t, c + t + 8, ... break the chain
-        const float* Lr = L + r * bs;
-        float s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        int k = c + t;
-        for (; k + 3 * kParts < r; k += 4 * kParts) {
-          s += Lr[k] * Y[k * ldy + c];
-          s1 += Lr[k + kParts] * Y[(k + kParts) * ldy + c];
-          s2 += Lr[k + 2 * kParts] * Y[(k + 2 * kParts) * ldy + c];
-          s3 += Lr[k + 3 * kParts] * Y[(k + 3 * kParts) * ldy + c];
-        }
-        for (; k < r; k += kParts) s += Lr[k] * Y[k * ldy + c];
-        s = (s + s1) + (s2 + s3);
+// A 16- or 4-byte copy of which the first `bytes` come from `src` and the
+// rest are zero.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Component u (0..3, known at compile time once unrolled) of v.
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// ---- tri_inv_tile -----------------------------------------------------------
+
+constexpr int kInvThreads = 512;
+// Row strides (floats) of the tile and of the product scratch in shared
+// memory: 16-byte rows, and neighbouring rows 16 bytes apart modulo the 128
+// bytes of the banks, so the products' 16-byte reads of 4 or 8 neighbouring
+// rows by a warp are free of conflicts.
+constexpr int kInvLd = 132;
+constexpr int kTLd = 68;
+
+constexpr size_t inv_smem(int nb) {
+  return ((size_t)32 * nb * kInvLd + (nb > 1 ? 64 * kTLd : 0)) * sizeof(float);
+}
+
+// out = sign * A B for n x n blocks in shared memory (n = GI NR), summing
+// k over [k_lo, k_hi) (multiples of 4) in order. The thread owns rows
+// ti + GI r (r < NR) and columns 4 tj .. 4 tj + 3: it reads NR rows of A
+// and one row of B a step as 16-byte loads.
+template <int GI, int NR>
+__device__ __forceinline__ void block_product(float* out, int ldo,
+                                              const float* A, int lda,
+                                              const float* B, int ldb, int ti,
+                                              int tj, int k_lo, int k_hi,
+                                              float sign) {
+  float acc[NR][4] = {};
+#pragma unroll 2
+  for (int k = k_lo; k < k_hi; k += 4) {
+    float4 av[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      av[r] = *reinterpret_cast<const float4*>(A + (ti + GI * r) * lda + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(B + (k + u) * ldb + 4 * tj);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float x = comp(av[r], u);
+        acc[r][0] = fmaf(x, bv.x, acc[r][0]);
+        acc[r][1] = fmaf(x, bv.y, acc[r][1]);
+        acc[r][2] = fmaf(x, bv.z, acc[r][2]);
+        acc[r][3] = fmaf(x, bv.w, acc[r][3]);
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      if (t == 0 && c < bs && r >= c)
-        Y[r * ldy + c] = ((r == c ? 1.f : 0.f) - s) * dinv[r];
-      __syncwarp();
     }
   }
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    *reinterpret_cast<float4*>(out + (ti + GI * r) * ldo + 4 * tj) =
+        make_float4(sign * acc[r][0], sign * acc[r][1], sign * acc[r][2],
+                    sign * acc[r][3]);
+}
+
+// One doubling step on the 2H x 2H diagonal block at D (row stride
+// kInvLd) whose halves Y11, Y22 are inverted and whose lower-left holds
+// L21: T = L21 Y11 into the scratch T (k from the column: Y11 is lower),
+// then Y21 = -Y22 T over L21 (k up to the row: Y22 is lower). Thread g of
+// the NTG in a group (working where `on`) owns NR rows and 4 columns of
+// each H x H product. The first product gives a warp one column of
+// threads and the second two or four rows, so a warp's k range is nearly
+// uniform.
+template <int NTG, int H>
+__device__ __forceinline__ void double_step(float* D, float* T, int g,
+                                            bool on) {
+  constexpr int GI = 4 * NTG / H, NR = H / GI;
+  float* const L21 = D + H * kInvLd;
+  if (on)
+    block_product<GI, NR>(T, kTLd, L21, kInvLd, D, kInvLd, g % GI, g / GI,
+                          4 * (g / GI), H, 1.f);
   __syncthreads();
-  for (int e = tid; e < bs * bs; e += kTileThreads) {
-    const int i = e / bs, k = e - i * bs;
-    y[e] = Y[i * ldy + k];
+  const int ti = g / (H / 4), tj = g % (H / 4);
+  if (on)
+    block_product<GI, NR>(L21, kInvLd, L21 + H, kInvLd, T, kTLd, ti, tj, 0,
+                          ((ti + GI * (NR - 1)) & ~3) + 4, -1.f);
+  __syncthreads();
+}
+
+// Inverse of a lower-triangular (bs, bs) tile (row stride ldl; only entries
+// on or below the diagonal are read), written with zeros above the diagonal
+// to the contiguous `y`. NB = 1, 2 or 4 diagonal blocks of 32 after padding
+// with identity: [L 0; 0 I]^-1 = [L^-1 0; 0 I], so the pad changes nothing
+// in the bs x bs corner. The tile S is inverted in place: warp w inverts
+// diagonal block w; then per doubling level, for each pair of neighbouring
+// w x w diagonal blocks, T = L21 Y11 into the scratch, and Y21 = -Y22 T
+// over L21.
+template <int NB>
+__global__ void __launch_bounds__(kInvThreads)
+tri_inv_tile_kernel(const float* __restrict__ l, int ldl,
+                    float* __restrict__ y, int bs) {
+  constexpr int n = 32 * NB, NT = kInvThreads, kWarps = NT / 32;
+  extern __shared__ float4 inv_smem4[];
+  float* const S = reinterpret_cast<float*>(inv_smem4);  // n x kInvLd
+  float* const T = S + n * kInvLd;                        // 64 x kTLd
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // stage tril(L) with the identity pad, every copy in flight at once: a
+  // warp a row, a lane 4 columns; one 16-byte cp.async where the 4 lie on
+  // or below the diagonal and the rows are 16-byte aligned, 4-byte ones
+  // that zero-fill past the diagonal where not; nothing above is read
+  const bool wide =
+      ((reinterpret_cast<uintptr_t>(l) | (uintptr_t)ldl * 4) & 15) == 0;
+  for (int i = warp; i < n; i += kWarps)
+    for (int k = 4 * lane; k < n; k += 128) {
+      float* d = S + i * kInvLd + k;
+      if (i < bs && k <= i) {
+        const float* row = l + (size_t)i * ldl + k;
+        if (wide && k + 3 <= i) {
+          cp_async16(d, row, 16);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            cp_async4(d + u, k + u <= i ? row + u : l, k + u <= i ? 4 : 0);
+        }
+      } else {
+        *reinterpret_cast<float4*>(d) =
+            make_float4(k == i ? 1.f : 0.f, k + 1 == i ? 1.f : 0.f,
+                        k + 2 == i ? 1.f : 0.f, k + 3 == i ? 1.f : 0.f);
+      }
+    }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp < NB)
+    tile::invert_tile<false, 32>(S + warp * 32 * (kInvLd + 1), kInvLd, 32,
+                                 lane);
+  __syncthreads();
+  if (NB >= 2) {  // 32 -> 64: half the threads a pair
+    const int p = tid / (NT / 2);
+    double_step<NT / 2, 32>(S + 64 * p * (kInvLd + 1), T + 32 * p,
+                            tid % (NT / 2), p < NB / 2);
+  }
+  if (NB == 4)  // 64 -> 128: every thread
+    double_step<NT, 64>(S, T, tid, true);
+
+  const bool wide_out =
+      ((reinterpret_cast<uintptr_t>(y) | (uintptr_t)bs * 4) & 15) == 0;
+  for (int i = warp; i < bs; i += kWarps) {
+    const float* src = S + i * kInvLd;
+    float* dst = y + (size_t)i * bs;
+    if (wide_out)
+      for (int k = 4 * lane; k < bs; k += 128)
+        *reinterpret_cast<float4*>(dst + k) =
+            *reinterpret_cast<const float4*>(src + k);
+    else
+      for (int k = lane; k < bs; k += 32) dst[k] = src[k];
   }
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kMMThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+// ---- matmul_nt --------------------------------------------------------------
+
+constexpr int kBK = 32;        // the K slab
+constexpr int kLdk = kBK + 4;  // a slab row (floats): 16-byte rows, as kInvLd
+constexpr int kStages = 4;     // slabs in flight: three ahead of the one in use
+
+// A launch configuration: thread tile TM x TN, thread grid TY x TX (TY a
+// multiple of 4, TX of 8: a warp is 4 x 8 threads of it); the block's
+// output tile is TY TM x TX TN.
+struct MMConfig {
+  int tm, tn, ty, tx;
+};
+constexpr MMConfig kConfigs[] = {
+    {4, 4, 16, 16}, {4, 4, 8, 16}, {4, 2, 8, 16}, {2, 2, 8, 8}};
+constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
+
+constexpr size_t matmul_smem(const MMConfig& g) {
+  return (size_t)kStages * (g.ty * g.tm + g.tx * g.tn) * kLdk * sizeof(float);
+}
+
+// Copies rows [r0, r0 + R) x columns [k0, k0 + kBK) of a K-contiguous
+// operand (row stride ld, nrows rows, K columns) into a slab stage,
+// zero-filling past nrows and K: a thread a 16-byte chunk, a warp four rows.
+// WIDE (the operand's rows 16-byte aligned): one 16-byte copy a chunk, the
+// K edge through its source size; else four 4-byte copies.
+template <int R, int NT, bool WIDE>
+__device__ __forceinline__ void load_slab(float* dst, const float* src,
+                                          int ld, int r0, int nrows, int k0,
+                                          int K, int tid) {
+  constexpr int kChunks = R * (kBK / 4);
+#pragma unroll
+  for (int e0 = 0; e0 < kChunks; e0 += NT) {
+    const int e = e0 + tid;
+    if (kChunks % NT == 0 || e < kChunks) {
+      const int r = e / (kBK / 4), q = e % (kBK / 4);
+      const int k = k0 + 4 * q;
+      const int left = r0 + r < nrows ? K - k : 0;  // floats left in the row
+      const float* s = left > 0 ? src + (size_t)(r0 + r) * ld + k : src;
+      float* d = dst + r * kLdk + 4 * q;
+      if (WIDE) {
+        cp_async16(d, s, left >= 4 ? 16 : left > 0 ? 4 * left : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          cp_async4(d + u, left > u ? s + u : src, left > u ? 4 : 0);
+      }
+    }
+  }
+}
 
 // out = beta * c + alpha * a b^T for a (M, K), b (N, K), c and out (M, N),
 // each with its own row stride and unit column stride. `out` may be `c`
 // itself (each element is read and written by one thread), but must not
 // overlap a or b. beta * c is always formed, so beta = 0 still gives 0 * c.
-__global__ void __launch_bounds__(kMMThreads)
+// A block owns a BM x BN output tile (blockIdx.x runs over the tiles, row
+// tile major); thread (ty, tx) owns rows ty + TY i and columns tx + TX j,
+// and a warp is 4 x 8 threads, so a 16-byte slab read is a broadcast to 8
+// (A) or 4 (B) lanes over 4 or 8 neighbouring rows. A thread loads its c
+// before the K loop, so the read overlaps the work.
+template <int TM, int TN, int TY, int TX, bool WIDE>
+__global__ void __launch_bounds__(TY * TX)
 matmul_nt_kernel(const float* __restrict__ a, int lda,
                  const float* __restrict__ b, int ldb, const float* c,
                  int ldc, float* out, int ldo, int M, int N, int K,
-                 float alpha, float beta) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN;
-  float acc[4][4] = {};
+                 float alpha, float beta, int tiles_n) {
+  constexpr int NT = TY * TX, BM = TY * TM, BN = TX * TN, WX = TX / 8;
+  extern __shared__ float4 mm_smem4[];
+  float* const As = reinterpret_cast<float*>(mm_smem4);  // stages x BM x kLdk
+  float* const Bs = As + kStages * BM * kLdk;              // stages x BN x kLdk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ty = (warp / WX) * 4 + lane / 8, tx = (warp % WX) * 8 + lane % 8;
+  const int tm = blockIdx.x / tiles_n;
+  const int r0 = tm * BM, c0 = (blockIdx.x - tm * tiles_n) * BN;
+  const int nk = (K + kBK - 1) / kBK;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // both operands are K-contiguous: 16 neighbouring threads read 16
-    // neighbouring floats of one row
-    for (int e = tid; e < kBM * kBK; e += kMMThreads) {
-      const int m = e / kBK, kk = e - m * kBK;
-      const int r = r0 + m, k = k0 + kk;
-      As[kk][m] = (r < M && k < K) ? a[(size_t)r * lda + k] : 0.f;
-      const int n = c0 + m;
-      Bs[kk][m] = (n < N && k < K) ? b[(size_t)n * ldb + k] : 0.f;
-    }
-    __syncthreads();
+  auto load = [&](int stage, int kt) {
+    load_slab<BM, NT, WIDE>(As + stage * BM * kLdk, a, lda, r0, M, kt * kBK,
+                            K, tid);
+    load_slab<BN, NT, WIDE>(Bs + stage * BN * kLdk, b, ldb, c0, N, kt * kBK,
+                            K, tid);
+  };
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) av[p] = As[kk][ty + 16 * p];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = Bs[kk][tx + 16 * q];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] += av[p] * bv[q];
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
   }
+
+  float cv[TM][TN];
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int r = r0 + ty + 16 * p;
-    if (r >= M) continue;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = c0 + tx + 16 * q;
-      if (col < N)
-        out[(size_t)r * ldo + col] =
-            beta * c[(size_t)r * ldc + col] + alpha * acc[p][q];
+    for (int j = 0; j < TN; ++j) {
+      const int r = r0 + ty + TY * i, col = c0 + tx + TX * j;
+      cv[i][j] = r < M && col < N ? c[(size_t)r * ldc + col] : 0.f;
+    }
+
+  float acc[TM][TN] = {};
+  int stage = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();  // slab kt has landed (this thread's part)
+    __syncthreads();  // every part has; every thread is done with slab kt - 1
+    const int next = kt + kStages - 1;  // into slab kt - 1's stage
+    if (next < nk) load(next % kStages, next);
+    cp_async_commit();
+    const float* A = As + stage * BM * kLdk + ty * kLdk;
+    const float* B = Bs + stage * BN * kLdk + tx * kLdk;
+#pragma unroll
+    for (int k = 0; k < kBK; k += 4) {
+      float4 av[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        av[i] = *reinterpret_cast<const float4*>(A + TY * i * kLdk + k);
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(B + TX * j * kLdk + k);
+      // an outer product per k, written out: nvcc schedules the same FMAs
+      // slower on the card when a loop index picks the component
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+    }
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + ty + TY * i;
+    if (r < M) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = c0 + tx + TX * j;
+        if (col < N)
+          out[(size_t)r * ldo + col] = beta * cv[i][j] + alpha * acc[i][j];
+      }
     }
   }
 }
 
+// The configuration for (M, N), an index into kConfigs: the one whose
+// busiest SM makes the fewest shared-memory reads, which bound the kernel
+// (a warp's 16-byte read takes four cycles of the SM's shared memory,
+// broadcast or not): ceil(blocks / SMs) blocks (they go round the SMs)
+// of TY TX threads, each making TM + TN reads a 4-deep k step. The larger
+// tile wins a tie.
+int matmul_config(int M, int N) {
+  static const int sms = [] {
+    int d = 0, n = 132;
+    cudaGetDevice(&d);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+    return n;
+  }();
+  int best = 0;
+  long long best_load = -1;
+  for (int i = 0; i < kNumConfigs; ++i) {
+    const long long bm = kConfigs[i].ty * kConfigs[i].tm,
+                    bn = kConfigs[i].tx * kConfigs[i].tn;
+    const long long blocks = ((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+    const long long load = (blocks + sms - 1) / sms * kConfigs[i].ty *
+                           kConfigs[i].tx * (kConfigs[i].tm + kConfigs[i].tn);
+    if (best_load < 0 || load < best_load) {
+      best = i;
+      best_load = load;
+    }
+  }
+  return best;
+}
+
+template <int TM, int TN, int TY, int TX>
+const void* mm_kernel(bool wide) {
+  return wide ? reinterpret_cast<const void*>(
+                    matmul_nt_kernel<TM, TN, TY, TX, true>)
+              : reinterpret_cast<const void*>(
+                    matmul_nt_kernel<TM, TN, TY, TX, false>);
+}
+
+const void* matmul_kernel(int cfg, bool wide) {
+  switch (cfg) {
+    case 0: return mm_kernel<4, 4, 16, 16>(wide);
+    case 1: return mm_kernel<4, 4, 8, 16>(wide);
+    case 2: return mm_kernel<4, 2, 8, 16>(wide);
+    default: return mm_kernel<2, 2, 8, 8>(wide);
+  }
+}
+
+const void* inv_kernel(int nb) {
+  return nb == 1   ? reinterpret_cast<const void*>(tri_inv_tile_kernel<1>)
+         : nb == 2 ? reinterpret_cast<const void*>(tri_inv_tile_kernel<2>)
+                   : reinterpret_cast<const void*>(tri_inv_tile_kernel<4>);
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where needed.
-template <typename Kernel>
-bool set_smem(Kernel kernel, size_t smem) {
+bool set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return true;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   return cudaPeekAtLastError() == cudaSuccess;
+}
+
+void fill_info(const void* kernel, int kind, int p0, int p1, int p2,
+               int threads, size_t smem, int out[8]) {
+  cudaFuncAttributes attr{};
+  cudaFuncGetAttributes(&attr, kernel);
+  out[0] = kind;
+  out[1] = p0;
+  out[2] = p1;
+  out[3] = p2;
+  out[4] = threads;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(smem + attr.sharedSizeBytes);
+  out[7] = static_cast<int>(attr.localSizeBytes);
 }
 
 }  // namespace
@@ -272,23 +575,70 @@ bool set_smem(Kernel kernel, size_t smem) {
 void launch_chol_tile(const float* a, int lda, float* l, int bs,
                       cudaStream_t stream) {
   const size_t smem = ((size_t)bs * (bs + 1) + kPanel) * sizeof(float);
-  if (!set_smem(chol_tile_kernel, smem)) return;
+  if (!set_smem(reinterpret_cast<const void*>(chol_tile_kernel), smem)) return;
   chol_tile_kernel<<<1, kTileThreads, smem, stream>>>(a, lda, l, bs);
 }
 
 void launch_tri_inv_tile(const float* l, int ldl, float* y, int bs,
                          cudaStream_t stream) {
-  const size_t smem = ((size_t)bs * bs + (size_t)bs * (bs + 1) + bs) *
-                      sizeof(float);
-  if (!set_smem(tri_inv_tile_kernel, smem)) return;
-  tri_inv_tile_kernel<<<1, kTileThreads, smem, stream>>>(l, ldl, y, bs);
+  const int nb = bs <= 32 ? 1 : bs <= 64 ? 2 : 4;
+  const size_t smem = inv_smem(nb);
+  if (!set_smem(inv_kernel(nb), smem)) return;
+  if (nb == 1)
+    tri_inv_tile_kernel<1><<<1, kInvThreads, smem, stream>>>(l, ldl, y, bs);
+  else if (nb == 2)
+    tri_inv_tile_kernel<2><<<1, kInvThreads, smem, stream>>>(l, ldl, y, bs);
+  else
+    tri_inv_tile_kernel<4><<<1, kInvThreads, smem, stream>>>(l, ldl, y, bs);
 }
 
 void launch_matmul_nt(const float* a, int lda, const float* b, int ldb,
                       const float* c, int ldc, float* out, int ldo, int M,
                       int N, int K, float alpha, float beta,
                       cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  matmul_nt_kernel<<<grid, kMMThreads, 0, stream>>>(
-      a, lda, b, ldb, c, ldc, out, ldo, M, N, K, alpha, beta);
+  const int cfg = matmul_config(M, N);
+  const MMConfig& g = kConfigs[cfg];
+  const int bm = g.ty * g.tm, bn = g.tx * g.tn;
+  const bool wide = ((reinterpret_cast<uintptr_t>(a) |
+                      reinterpret_cast<uintptr_t>(b) | (uintptr_t)lda * 4 |
+                      (uintptr_t)ldb * 4) & 15) == 0;
+  const size_t smem = matmul_smem(g);
+  const void* kernel = matmul_kernel(cfg, wide);
+  if (!set_smem(kernel, smem)) return;
+  int tiles_n = (N + bn - 1) / bn;
+  const unsigned blocks =
+      static_cast<unsigned>((long long)((M + bm - 1) / bm) * tiles_n);
+  void* args[] = {&a,   &lda, &b, &ldb, &c, &ldc,   &out,
+                  &ldo, &M,   &N, &K,   &alpha, &beta, &tiles_n};
+  cudaLaunchKernel(kernel, dim3(blocks), dim3(g.ty * g.tx), args, smem,
+                   stream);
+}
+
+int tile_kernel_info(int i, int out[8]) {
+  if (i == 0) {
+    fill_info(reinterpret_cast<const void*>(chol_tile_kernel), 0, kMaxTile, 0,
+              0, kTileThreads,
+              ((size_t)kMaxTile * (kMaxTile + 1) + kPanel) * sizeof(float), out);
+    return 1;
+  }
+  if (i <= 3) {
+    const int nb = 1 << (i - 1);
+    fill_info(inv_kernel(nb), 1, nb, 0, 0, kInvThreads, inv_smem(nb), out);
+    return 1;
+  }
+  const int cfg = (i - 4) / 2;
+  if (cfg >= kNumConfigs) return 0;
+  const bool wide = (i - 4) % 2 == 0;
+  const MMConfig& g = kConfigs[cfg];
+  fill_info(matmul_kernel(cfg, wide), 2, g.ty * g.tm, g.tx * g.tn, wide,
+            g.ty * g.tx, matmul_smem(g), out);
+  return 1;
+}
+
+void matmul_nt_plan(int M, int N, int out[4]) {
+  const MMConfig& g = kConfigs[matmul_config(M, N)];
+  out[0] = g.ty * g.tm;
+  out[1] = g.tx * g.tn;
+  out[2] = (M + out[0] - 1) / out[0];
+  out[3] = (N + out[1] - 1) / out[1];
 }

@@ -43,6 +43,7 @@
 //   leaves no room for an inverse tile and the ring, so narrowing the RHS
 //   tile cannot bring such a slab into shared memory.
 #include "kernels.h"
+#include "tile_invert.cuh"
 
 #include <cstdint>
 
@@ -51,6 +52,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+using tile::invert_tile;
 constexpr size_t kSmemMax = 227 * 1024;  // a block's opt-in maximum (sm_90)
 
 // ---- P <= 32: a segment of G lanes per (front, RHS column) ----------------
@@ -128,56 +130,6 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   else
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// One warp inverts the diagonal tile T staged row-major in C
-// (row stride cs), in place. Lane c solves T y = e_c left-looking in
-// registers: y_i = (e_c[i] - T[i, :i] y[:i]) / T[i, i], with row i of T read
-// as broadcast 16-byte loads, four partial sums, and 1 / T[i, i] made by
-// lane i ahead of the chain and shuffled in. It then writes its column of
-// Inv = T^-1 where the xp step reads it: C[i * cs + j] = Inv[j, i] for the
-// lower sweep, Inv[i, j] for the upper. Entries above T's diagonal are
-// never used. BS = 32 fixes the width at compile time (every panel of a
-// front wider than 32); BS = 0 takes it from `bs`.
-template <bool LOWER, int BS>
-__device__ void invert_tile(float* C, int cs, int bs_arg, int lane) {
-  const int bs = BS ? BS : bs_arg;
-  const float rd = lane < bs ? 1.f / C[lane * cs + lane] : 0.f;
-  float v[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float ri = __shfl_sync(kFull, rd, i);
-    v[i] = 0.f;
-    if (i < bs) {
-      const float* row = C + i * cs;
-      float s[4] = {i == lane ? 1.f : 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int q = 0; 4 * q < i; ++q) {
-        const float4 t = *reinterpret_cast<const float4*>(row + 4 * q);
-        const float tv[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (4 * q + u < i) s[u] = fmaf(-tv[u], v[4 * q + u], s[u]);
-      }
-      v[i] = ((s[0] + s[1]) + (s[2] + s[3])) * ri;
-    }
-  }
-  __syncwarp();
-  if (lane < bs) {
-    if (LOWER) {
-      float4* out = reinterpret_cast<float4*>(C + lane * cs);
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (4 * q < bs)
-          out[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                               v[4 * q + 3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (i < bs) C[i * cs + lane] = v[i];
-    }
-  }
-  __syncwarp();
 }
 
 template <bool LOWER>

@@ -78,6 +78,58 @@ def test_tri_inv_tile_matches_pallas(bs):
     _close(got.numpy() @ np.tril(junk), np.eye(bs), 1e-5)
 
 
+@pytest.mark.parametrize("bs", [1, 33, 100, 128])
+def test_tri_inv_tile_at_ragged_and_full_widths_matches_pallas(bs):
+    """The CUDA kernel pads bs to 1, 2 or 4 diagonal blocks of 32: one
+    block (1), a ragged second (33), a ragged fourth (100) and the path's
+    full 128, each with garbage above the diagonal that must not be read."""
+    rng = np.random.default_rng(400 + bs)
+    low = np.linalg.cholesky(_spd(rng, bs).astype(np.float64))
+    junk = (low + np.triu(rng.standard_normal((bs, bs)) * 1e3, 1)).astype(
+        np.float32)
+    want = np.asarray(ref_fc.tri_inv_tile(junk, interpret=True))
+    got = fc.tri_inv_tile(torch.from_numpy(junk.copy()))
+    _close(got, want)
+    assert not np.triu(got.numpy(), 1).any()
+    _close(got.numpy() @ np.tril(junk), np.eye(bs), 1e-5)
+
+
+@pytest.mark.parametrize("m,n,k,alpha,beta", [
+    (1152, 128, 128, 1.0, 0.0),    # the root's panel L21 = W21 L11^-T
+    (1152, 1152, 128, -1.0, 1.0),  # the root's trailing update
+    (128, 128, 128, -1.0, 1.0),    # a leaf front's trailing update
+    (200, 136, 72, 0.5, 2.0),      # ragged in M, N and K
+])
+def test_matmul_nt_path_shapes_match_padded_reference(m, n, k, alpha, beta):
+    rng = np.random.default_rng(m + 7 * n + 13 * k)
+    a, b, c = (rng.standard_normal(s).astype(np.float32)
+               for s in ((m, k), (n, k), (m, n)))
+    want = np.asarray(ref_ops.matmul_nt_padded(a, b, c, alpha=alpha,
+                                               beta=beta))
+    got = fc.matmul_nt(*(torch.from_numpy(t) for t in (a, b, c)),
+                       alpha=alpha, beta=beta)
+    _close(got, want)
+
+
+def test_matmul_nt_unaligned_views_in_place_match_padded_reference():
+    """Row strides and offsets that are not 16-byte multiples (the kernel's
+    4-byte copy path), written in place into a view of c's workspace."""
+    rng = np.random.default_rng(11)
+    m, n, k = 200, 136, 72
+    A = torch.from_numpy(rng.standard_normal((m, k + 3)).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal((n, k + 5)).astype(np.float32))
+    C = torch.from_numpy(rng.standard_normal((m, n + 2)).astype(np.float32))
+    a, b, c = A[:, 1 : 1 + k], B[:, 2 : 2 + k], C[:, 1 : 1 + n]
+    want = np.asarray(ref_ops.matmul_nt_padded(a.numpy(), b.numpy(),
+                                               c.numpy(), alpha=-1.0,
+                                               beta=1.0))
+    before = C.clone()
+    fc.matmul_nt(a, b, c, alpha=-1.0, beta=1.0, out=c)
+    _close(C[:, 1 : 1 + n], want)
+    assert torch.equal(C[:, 0], before[:, 0])
+    assert torch.equal(C[:, 1 + n :], before[:, 1 + n :])
+
+
 @pytest.mark.parametrize("bs", [8, 16, 32])
 @pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (-1.0, 1.0), (0.5, 2.0)])
 def test_matmul_nt_matches_pallas(bs, alpha, beta):
@@ -184,3 +236,56 @@ def test_build_compiles_every_source_and_binds_the_tile_ops():
     for op in ("chol_tile", "tri_inv_tile", "matmul_nt"):
         assert f'm.def("{op}(' in binding or f'"{op}(' in binding, op
         assert f"launch_{op}(" in header, op
+
+
+def test_chip_smoke_sweep_lists_every_per_front_product(monkeypatch):
+    """``chip_smoke.per_front_products``, which sets the card's matmul_nt
+    sweep, gives exactly the (rows, N, K) that ``ops.frontal_factor``
+    launches and how often, on fronts with one and two pivot panels, a
+    ragged update block and none."""
+    import importlib.util
+    import pathlib
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    seen = {}
+    real = fc.matmul_nt
+
+    def spy(a, b, c, **kw):
+        key = (a.shape[0], b.shape[0], a.shape[1])
+        seen[key] = seen.get(key, 0) + 1
+        return real(a, b, c, **kw)
+
+    monkeypatch.setattr(fc, "matmul_nt", spy)
+    fronts = [(200, 150), (140, 20), (64, 64), (129, 128)]
+    rng = np.random.default_rng(12)
+    for m, npiv in fronts:
+        ops.frontal_factor(torch.from_numpy(_spd(rng, m)), npiv)
+    sched = types.SimpleNamespace(fronts=[
+        types.SimpleNamespace(npiv=p, nrest=m - p) for m, p in fronts])
+    assert chip_smoke.per_front_products(sched) == seen
+    # the first front: a 256-row panel step, then a 128-row one; the next
+    # two 128-row steps; the third has no update block, so no product
+    assert seen == {(128, 128, 128): 6, (256, 128, 128): 1,
+                    (256, 256, 128): 1}
+
+
+def test_tile_kernels_info_and_matmul_plan_are_bound():
+    """The resource and launch-plan ops that chip_smoke.py logs are bound,
+    and both kernel files share one diagonal-tile inverse."""
+    from repro_torch.kernels import _build
+
+    csrc = _build._CSRC
+    binding = (csrc / "bindings.cpp").read_text()
+    header = (csrc / "kernels.h").read_text()
+    assert '"tile_kernels_info(int i) -> int[]"' in binding
+    assert '"matmul_nt_plan(int M, int N) -> int[]"' in binding
+    assert "int tile_kernel_info(int i, int out[8]);" in header
+    assert "void matmul_nt_plan(int M, int N, int out[4]);" in header
+    for src in ("tile_kernels.cu", "tri_solve.cu"):
+        assert '#include "tile_invert.cuh"' in (csrc / src).read_text(), src
+    assert "void invert_tile(" in (csrc / "tile_invert.cuh").read_text()
