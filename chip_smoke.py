@@ -46,9 +46,13 @@ it and read just after it:
   runs and the kernel launches 0 times.
 
 Then it holds each kernel against its plain PyTorch version (the solve
-kernels at shapes from the 32³ schedule; ``tri_solve_batch`` on the
+kernels at shapes from the 32³ schedule; ``frontal_factor_batch`` on the
 populated and the largest bucket and on the most populated bucket of every
-other pivot width, P = 8 … 256, at one RHS and eight, both sweeps, and at
+other pivot width, and on seeded stacks at (B, M, npiv, bs) = (2, 56, 40,
+20), (3, 5, 3, 3) and (1, 64, 64, 32), each run twice with the same bits,
+after a line of registers, shared memory and spills for each of its
+kernels; ``tri_solve_batch`` on the same buckets, at one RHS and eight,
+both sweeps, and at
 two layouts the path never produces, P = 512 and P = 1,792, after a line of
 registers, shared memory and spills for each of its kernels at these
 shapes; ``bell_spmv`` on the permuted 32³ matrix's fp64 blocks at the block
@@ -60,16 +64,20 @@ then in float32, after a line of registers, shared memory and spills for
 each of its kernels; the tile kernels on the first panel
 of that schedule's peak (root) front and of a leaf front, with
 ``matmul_nt`` at every (rows, N, K) that the per-front path launches (the
-launch plan of each and its count of launches printed) and
-``tri_inv_tile`` at bs 128, 100 and 33, after a line of registers, shared
-memory and spills for each tile-kernel instantiation; the ``csr_stats`` kernels
+launch plan of each and its count of launches printed), ``chol_tile`` at
+bs 128, 100 and 33 and on an odd row stride (each run twice with the same
+bits) and ``tri_inv_tile`` at bs 128, 100 and 33, then ``matmul_nt`` at
+(200, 136, 72) and on odd row strides and ``tri_inv_tile`` on an odd row
+stride, after a line of registers, shared memory and spills for each
+tile-kernel instantiation; the ``csr_stats`` kernels
 on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
 spills) and times kernel,
 plain version and, where one exists, the PyTorch library call computing
 the same function; it profiles the pipelined solve (with the summed device
-time of the tri-solve and the ``bell_spmv`` kernels) and the per-front
+time of the tri-solve, the ``bell_spmv`` and the factor kernels) and the
+per-front
 solve (with the summed device time of each tile kernel), one
 selection, and one prefill and 16 decode steps of the served model. It
 prints the stage times, a ``kernels`` JSON line, the card's name and power
@@ -180,6 +188,11 @@ SERVED_KERNELS = SOLVE_KERNELS + ("entry_stats", "row_stats")
 TILE_KERNELS = ("chol_tile", "tri_inv_tile", "matmul_nt")
 #: the tile kernels' names as the profiler reports them
 TILE_STEMS = ("chol_tile", "tri_inv", "matmul_nt")
+#: frontal_factor_batch's kernels as the profiler reports them: the
+#: whole-front kernel of M <= 32 and the diagonal, panel and Schur steps
+#: (the first design had a panel and a Schur kernel of the same names)
+FACTOR_STEMS = ("small_kernel", "diag_kernel", "panel_kernel",
+                "schur_kernel")
 
 
 def log(*args) -> None:
@@ -446,6 +459,75 @@ def per_front_products(sched, bs: int = 128) -> dict:
     return dict(sorted(shapes.items()))
 
 
+def spd_stack(B: int, M: int, dev, seed: int = 0):
+    """The lower triangles of B seeded SPD (M, M) float32 fronts on dev."""
+    import torch
+
+    g = torch.randn((B, M, M), generator=torch.Generator(device=dev)
+                    .manual_seed(seed), device=dev, dtype=torch.float64)
+    eye = torch.eye(M, device=dev, dtype=torch.float64)
+    return torch.tril(g @ g.transpose(1, 2) / M + 2 * eye).float()
+
+
+def same_bits(name: str, shape: str, x, y) -> None:
+    """Raise unless x and y hold the same bits (two runs of a kernel)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(x.contiguous().view(torch.int32),
+                       y.contiguous().view(torch.int32)):
+        raise AssertionError(f"{name} {shape}: two runs differ")
+
+
+def frontal_check(out: dict, shape: str, w0, P: int, bs: int,
+                  headline: bool) -> dict:
+    """frontal_factor_batch on a copy of the (B, M, M) stack w0 against its
+    plain version (lower triangles), run twice with the same bits both
+    times, timed beside the plain version; returns the times."""
+    import torch
+
+    from repro_torch.kernels import frontal_cholesky as fc
+
+    B, M, _ = w0.shape
+    wk, wp, again = w0.clone(), w0.clone(), w0.clone()
+    fc.frontal_factor_batch(wk, P, bs=bs)
+    fc.frontal_factor_batch_plain(wp, P, bs)
+    err = compare("frontal_factor_batch", torch.tril(wk), torch.tril(wp))
+    fc.frontal_factor_batch(again, P, bs=bs)
+    same_bits("frontal_factor_batch", shape, again, wk)
+    ms = device_ms(lambda: fc.frontal_factor_batch(wk, P, bs=bs),
+                   setup=lambda: wk.copy_(w0))
+    pms = stream_ms(lambda: fc.frontal_factor_batch_plain(wp, P, bs),
+                    setup=lambda: wp.copy_(w0))
+    R = M - P
+    record(out, "frontal_factor_batch", f"{shape} B={B} P={P} M={M} bs={bs}",
+           err, ms, pms, None, B * (P ** 3 / 3 + P * P * R + P * R * R),
+           2 * w0.numel() * 4, PEAK_FP32, headline)
+    return dict(ms=ms, plain_ms=pms, max_abs_err=err)
+
+
+def width_cases(sched, picks) -> list:
+    """(tag, key) of the populated and the largest bucket, then the most
+    populated bucket of every other pivot width; logs the widths."""
+    keys = [(li, bj) for li in range(sched.nlevels)
+            for bj in range(len(sched.buckets[li]))]
+    size = lambda k: len(sched.buckets[k[0]][k[1]].members)  # noqa: E731
+    widths: dict = {}
+    for key in keys:
+        widths.setdefault(sched.buckets[key[0]][key[1]].P, []).append(key)
+    log("buckets by pivot width (buckets, fronts): "
+        + json.dumps({p: [len(ks), sum(map(size, ks))]
+                      for p, ks in sorted(widths.items())})
+        + f"; {sum(size(k) == 1 for k in keys)} of {len(keys)} buckets hold "
+        f"one front")
+    cases = [("populated", picks["populated"]), ("largest", picks["largest"])]
+    for p, ks in sorted(widths.items()):
+        key = max(ks, key=size)
+        if key not in dict(cases).values():
+            cases.append(("by width", key))
+    return cases
+
+
 def kernel_checks(a, plan, dev) -> dict:
     """Each kernel against its plain version at the 32³ schedule's shapes,
     on the inputs the main path gives it, with times and bounds. Returns
@@ -520,47 +602,24 @@ def kernel_checks(a, plan, dev) -> dict:
                err, ms, pms, lms, n_u, nbytes, PEAK_FP32,
                tag == "largest_fed")
 
-    # frontal_factor_batch on the workspaces the main path factors: A's
-    # entries plus the children's Schur blocks
-    for tag in ("populated", "largest"):
-        bk, w0, groups = bucket_inputs(pa, f, routes, picks[tag], dev)
+    # frontal_factor_batch on the workspaces the main path factors (A's
+    # entries plus the children's Schur blocks) at the populated and the
+    # largest bucket and the most populated bucket of every other pivot
+    # width; then seeded stacks at bs = 20 (mult8), bs = 3 (npiv < 8) and
+    # P = M (no trailing block)
+    cases = width_cases(sched, picks)
+    for tag, key in cases:
+        bk, w0, groups = bucket_inputs(pa, f, routes, key, dev)
         for u, off, src, dst, rows in groups:
             fc.extend_add_batch(w0, u, dst, rows, src=src, off=off)
-        B, P, M = len(bk.members), bk.P, bk.M
-        bs = ops.pick_block_size(P)
-        wk, wp = w0.clone(), w0.clone()
-        fc.frontal_factor_batch(wk, P, bs=bs)
-        fc.frontal_factor_batch_plain(wp, P, bs)
-        err = compare("frontal_factor_batch", torch.tril(wk), torch.tril(wp))
-        ms = device_ms(lambda: fc.frontal_factor_batch(wk, P, bs=bs),
-                       setup=lambda: wk.copy_(w0))
-        pms = stream_ms(lambda: fc.frontal_factor_batch_plain(wp, P, bs),
-                        setup=lambda: wp.copy_(w0))
-        R = M - P
-        flops = B * (P ** 3 / 3 + P * P * R + P * R * R)
-        record(out, "frontal_factor_batch",
-               f"{tag} B={B} P={P} M={M} bs={bs}", err, ms, pms, None, flops,
-               2 * w0.numel() * 4, PEAK_FP32, tag == "largest")
+        frontal_check(out, tag, w0, bk.P, ops.pick_block_size(bk.P),
+                      tag == "largest")
+    for B, M, P, bs in ((2, 56, 40, 20), (3, 5, 3, 3), (1, 64, 64, 32)):
+        frontal_check(out, "seeded", spd_stack(B, M, dev, seed=M), P, bs,
+                      False)
 
-    # tri_solve_batch on the factored L11 of the populated and the largest
-    # bucket and of the most populated bucket of every other pivot width,
-    # lower and upper, at one RHS and at eight
-    keys = [(li, bj) for li in range(sched.nlevels)
-            for bj in range(len(sched.buckets[li]))]
-    size = lambda k: len(sched.buckets[k[0]][k[1]].members)  # noqa: E731
-    widths: dict = {}
-    for key in keys:
-        widths.setdefault(sched.buckets[key[0]][key[1]].P, []).append(key)
-    log("tri_solve_batch buckets by pivot width (buckets, fronts): "
-        + json.dumps({p: [len(ks), sum(map(size, ks))]
-                      for p, ks in sorted(widths.items())})
-        + f"; {sum(size(k) == 1 for k in keys)} of {len(keys)} buckets hold "
-        f"one front")
-    cases = [("populated", picks["populated"]), ("largest", picks["largest"])]
-    for p, ks in sorted(widths.items()):
-        key = max(ks, key=size)
-        if key not in dict(cases).values():
-            cases.append(("by width", key))
+    # tri_solve_batch on the factored L11 of the same buckets, lower and
+    # upper, at one RHS and at eight
     for tag, (li, bj) in cases:
         bk = sched.buckets[li][bj]
         B, P = len(bk.members), bk.P
@@ -606,6 +665,7 @@ def kernel_checks(a, plan, dev) -> dict:
     for tag, (bk, w, k) in tile_fronts(pa, f, routes, dev).items():
         tile_checks(tag, sched, bk, w, k, out,
                     shapes if tag == "peak" else None)
+    ragged_tile_checks(dev, out)
 
     bell_spmv_checks(pa, dev, rng, out)
     return out
@@ -750,6 +810,27 @@ def tile_resources(ops) -> None:
         i += 1
 
 
+def frontal_resources(ops) -> None:
+    """Registers, shared memory and spills of every frontal_factor_batch
+    kernel instantiation (``frontal_factor_info``): the whole-front kernel
+    of M <= 16 and M <= 32, the diagonal step at blocks 8, 16 and 32 wide,
+    the panel step and the Schur step at
+    each output tile, with 16- and 4-byte copies."""
+    i = 0
+    while info := ops.frontal_factor_info(i):
+        kind, p0, p1, p2, threads, regs, smem, local = info
+        what = (f"whole front of M <= {p0}, a warp a front" if kind == 3
+                else f"diagonal step, {p0}-wide blocks, {p1} warp"
+                f"{'s' if p1 > 1 else ''} a front" if kind == 0 else
+                f"panel step, {16 if p2 else 4}-byte copies" if kind == 1
+                else f"Schur step, {p0} x {p0} output tile, {p1} x {p1} a "
+                     f"thread, {16 if p2 else 4}-byte copies")
+        log(f"frontal_factor {what}: {threads} threads, {regs} registers a "
+            f"thread, {smem} bytes of shared memory a block, {local} bytes "
+            f"of local memory (spills) a thread")
+        i += 1
+
+
 def tri_solve_resources(ops) -> None:
     """The tri_solve kernel picked at each shape the checks run, with its
     registers, shared memory, spills and (block variant) layout."""
@@ -800,15 +881,26 @@ def tile_checks(tag: str, sched, bucket, w, k: int, out: dict,
     def tri_bytes(n):  # the lower triangle read, the tile written
         return (n * (n + 1) // 2 + n * n) * 4
 
+    # the path's tile (a strided view of the workspace), then leading
+    # blocks of it and the tile on an odd row stride (4-byte copies)
     a = W[:bs, :bs]
-    sym = (torch.tril(a) + torch.tril(a, -1).T).contiguous()
+    odd = torch.zeros((bs, bs + 3), device=W.device)
+    odd[:, :bs] = a
+    for case, x in ((f"bs={bs}", a), ("bs=100", a[:100, :100]),
+                    ("bs=33", a[:33, :33]),
+                    (f"bs={bs} lda={bs + 3}", odd[:, :bs])) if shapes else (
+                        (f"bs={bs}", a),):
+        n = x.shape[0]
+        sym = (torch.tril(x) + torch.tril(x, -1).T).contiguous()
+        got = fc.chol_tile(x)
+        err = compare("chol_tile", got, fc.chol_tile_plain(x))
+        same_bits("chol_tile", case, got, fc.chol_tile(x))
+        times[f"chol_tile {case}"] = ms = device_ms(lambda: fc.chol_tile(x))
+        record(out, "chol_tile", f"{shape} {case}", err, ms,
+               stream_ms(lambda: fc.chol_tile_plain(x)),
+               device_ms(lambda: torch.linalg.cholesky(sym)), n ** 3 / 3,
+               tri_bytes(n), PEAK_FP32, headline and case == f"bs={bs}")
     L = fc.chol_tile(a)
-    err = compare("chol_tile", L, fc.chol_tile_plain(a))
-    times[f"chol_tile bs={bs}"] = ms = device_ms(lambda: fc.chol_tile(a))
-    record(out, "chol_tile", f"{shape} bs={bs}", err, ms,
-           stream_ms(lambda: fc.chol_tile_plain(a)),
-           device_ms(lambda: torch.linalg.cholesky(sym)), bs ** 3 / 3,
-           tri_bytes(bs), PEAK_FP32, headline)
 
     # the path's tile, then leading blocks of it: strided views of L
     for n in (bs, 100, 33) if shapes else (bs,):
@@ -857,6 +949,53 @@ def tile_checks(tag: str, sched, bucket, w, k: int, out: dict,
                    PEAK_FP32,
                    headline and what == "trailing" and rows == M - bs)
     return times
+
+
+def ragged_tile_checks(dev, out: dict) -> None:
+    """The tile kernels at a shape and on layouts the per-front path never
+    gives them, which run matmul_nt's ragged tiles and its 4-byte copies
+    and tri_inv_tile's 4-byte staging: matmul_nt at (M, N, K) =
+    (200, 136, 72), then with every operand on an odd row stride, and
+    tri_inv_tile on an odd row stride; seeded, each against its plain
+    version at TOL, twice with the same bits, timed beside the library."""
+    import torch
+
+    from repro_torch.kernels import frontal_cholesky as fc
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def odd(x):  # x on a row stride of its (even) width + 3
+        buf = torch.zeros((x.shape[0], x.shape[1] + 3), device=dev)
+        buf[:, : x.shape[1]] = x
+        return buf[:, : x.shape[1]]
+
+    a, b, c = (torch.randn(s, generator=gen, device=dev)
+               for s in ((200, 72), (136, 72), (200, 136)))
+    for case, (x, y, z) in (("(200 x 72)(136 x 72)^T", (a, b, c)),
+                            ("odd strides", (odd(a), odd(b), odd(c)))):
+        got = fc.matmul_nt(x, y, z, alpha=-1.0, beta=1.0)
+        err = compare("matmul_nt", got, fc.matmul_nt_plain(x, y, z, -1.0, 1.0))
+        same_bits("matmul_nt", case, got,
+                  fc.matmul_nt(x, y, z, alpha=-1.0, beta=1.0))
+        record(out, "matmul_nt", f"ragged {case} lda={x.stride(0)}", err,
+               device_ms(lambda: fc.matmul_nt(x, y, z, alpha=-1.0, beta=1.0)),
+               stream_ms(lambda: fc.matmul_nt_plain(x, y, z, -1.0, 1.0)),
+               device_ms(lambda: torch.addmm(c, a, b.T, beta=1.0, alpha=-1.0)),
+               2 * 200 * 136 * 72, 4 * (200 * 72 + 136 * 72 + 2 * 200 * 136),
+               PEAK_FP32, False)
+    n = 128
+    t = spd_stack(1, n, dev, seed=n)[0]
+    L = odd(torch.linalg.cholesky(t + torch.tril(t, -1).T))
+    got = fc.tri_inv_tile(L)
+    err = compare("tri_inv_tile", got, fc.tri_inv_tile_plain(L))
+    same_bits("tri_inv_tile", "odd stride", got, fc.tri_inv_tile(L))
+    Lc, eye = L.contiguous(), torch.eye(n, device=dev)
+    record(out, "tri_inv_tile", f"ragged bs={n} ldl={L.stride(0)}", err,
+           device_ms(lambda: fc.tri_inv_tile(L)),
+           stream_ms(lambda: fc.tri_inv_tile_plain(L)),
+           device_ms(lambda: torch.linalg.solve_triangular(Lc, eye,
+                                                           upper=False)),
+           n ** 3 / 3, (n * (n + 1) // 2 + n * n) * 4, PEAK_FP32, False)
 
 
 def launched(phase: str, counts: dict, names) -> None:
@@ -1433,6 +1572,7 @@ def main(argv=None) -> int:
     tri_solve_resources(ops)
     bell_spmv_resources(ops)
     tile_resources(ops)
+    frontal_resources(ops)
     for d in (128, 64):
         regs, smem, local, stages = ops.flash_attention_info(d)
         log(f"flash_attention bf16 D={d} (TMA + wgmma kernel): {regs} "
@@ -1495,7 +1635,7 @@ def all_paths(dev) -> tuple:
     b = np.random.default_rng(2).standard_normal(a.n)
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                          lambda: execute_plan(a, plan, b, device=dev))
-    for stem in ("tri_solve", "bell_"):
+    for stem in ("tri_solve", "bell_") + FACTOR_STEMS:
         log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, {stem} "
             f"kernels (s): " + json.dumps(kernel_device_s(spans, stem)))
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",

@@ -11,9 +11,14 @@ code; its kernels build into that tree's own ``build/torch_kernels``. On
 grid3d(32,32,32) under ``nd`` (the solve path of ``chip_smoke.py``) it runs
 ``execute_plan`` (pipelined, device sweeps, fp32 factors with fp64
 refinement, one RHS) once to warm up and ``RUNS`` more times, keeping the
-``solve.setup``, ``solve.sweep`` and ``solve.refine`` spans and the
-``bell_spmv`` launches of each; profiles one more run and sums the device
-time of the tri-solve and the ``bell_spmv`` kernels by name; runs
+``factor.device``, ``solve.setup``, ``solve.sweep`` and ``solve.refine``
+spans and the ``bell_spmv`` launches of each; profiles one more run and sums
+the device time of the tri-solve, the ``bell_spmv`` and the factor kernels
+by name (the factor's under the stems ``chip_smoke.FACTOR_STEMS``, which
+match both the first design's two kernels and the current four, with
+their sum as ``device_s["factor"]``); runs ``chip_smoke.frontal_check``
+(the kernel held against its plain version, run twice with the same bits,
+timed) on the populated and the largest bucket's assembled workspaces; runs
 ``chip_smoke.tri_solve_check`` (the kernel held against its plain version,
 timed beside it and ``solve_triangular``) on the factored L11 of the
 populated and the largest bucket, at one RHS and eight, both sweeps; and
@@ -26,7 +31,8 @@ each; runs ``execute_plan`` with it once through the fp64 residual gate
 device time by name; and runs ``chip_smoke.tile_checks`` on the peak front
 (``chip_smoke.tile_fronts``), which holds each tile kernel against its
 plain version and times ``matmul_nt`` at every (rows, N, K) of the
-per-front path and ``tri_inv_tile`` at bs = 128, 100 and 33. Prints one
+per-front path, ``tri_inv_tile`` at bs = 128, 100 and 33 and ``chol_tile``
+at bs = 128, 100 and 33 and on an odd row stride. Prints one
 JSON line; exits 2 without a CUDA device.
 """
 from __future__ import annotations
@@ -81,17 +87,26 @@ def main(argv=None) -> int:
     for _ in range(RUNS):
         before = spmv_bell.bell_spmv.launches
         sp = solve()["spans"]
-        runs.append({k: sp[k] for k in ("solve.setup", "solve.sweep",
-                                         "solve.refine")})
+        runs.append({k: sp[k] for k in ("factor.device", "solve.setup",
+                                         "solve.sweep", "solve.refine")})
         runs[-1]["bell_spmv launches"] = spmv_bell.bell_spmv.launches - before
     spans = cs.profile_call("execute_plan", solve)
     device_s = {stem: cs.kernel_device_s(spans, stem)
-                for stem in ("tri_solve", "bell_")}
+                for stem in ("tri_solve", "bell_") + cs.FACTOR_STEMS}
+    device_s["factor"] = sum(device_s[s]["total"] for s in cs.FACTOR_STEMS)
 
     pa = permute_symmetric(a, plan.perm)
     f = multifrontal_cholesky(pa, sym=plan.sym, device=dev)
     routes = _route_contributions(f.schedule)
     picks = cs.pick_buckets(f.schedule, routes)
+    frontal = {}
+    for tag in ("populated", "largest"):
+        bk, w0, groups = cs.bucket_inputs(pa, f, routes, picks[tag], dev)
+        for u, off, srcs, dst, rows in groups:
+            ops.extend_add_batch(w0, u, dst, rows, src=srcs, off=off)
+        frontal[f"{tag} B={len(bk.members)} P={bk.P} M={bk.M}"] = \
+            cs.frontal_check({}, tag, w0, bk.P, ops.pick_block_size(bk.P),
+                             False)
     rng = np.random.default_rng(1)
     tri = {}
     for tag in ("populated", "largest"):
@@ -142,6 +157,7 @@ def main(argv=None) -> int:
     print(json.dumps({"src": os.path.relpath(src, ROOT),
                       "device": torch.cuda.get_device_name(0),
                       "runs": runs, "device_s": device_s,
+                      "frontal_factor_batch": frontal,
                       "tri_solve": tri, "bell_spmv_ms": bell,
                       "per_front": per_front, "tile_ms": tile_ms}),
           flush=True)

@@ -47,9 +47,11 @@ void frontal_factor(at::Tensor& w, int64_t npiv, int64_t bs) {
               "npiv must be a positive multiple of bs and at most M");
   if (w.size(0) == 0) return;
   const c10::cuda::CUDAGuard guard(w.device());
-  launch_frontal_factor(w.data_ptr<float>(), as_int(w.size(0), "B"),
-                        as_int(M, "M"), static_cast<int>(npiv),
-                        static_cast<int>(bs),
+  // each panel's L11^-T, from the diagonal step to the panel step
+  at::Tensor xinv = w.new_empty({w.size(0), bs, bs});
+  launch_frontal_factor(w.data_ptr<float>(), xinv.data_ptr<float>(),
+                        as_int(w.size(0), "B"), as_int(M, "M"),
+                        static_cast<int>(npiv), static_cast<int>(bs),
                         c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -331,6 +333,17 @@ std::vector<int64_t> tile_kernels_info(int64_t i) {
   return std::vector<int64_t>(info, info + 8);
 }
 
+// The frontal_factor kernels' instantiation i and its resources, as
+// frontal_factor_kernel_info (kernels.h) lists them; an empty list past the
+// last.
+std::vector<int64_t> frontal_factor_info(int64_t i) {
+  int info[8];
+  if (i < 0 || i > INT32_MAX ||
+      !frontal_factor_kernel_info(static_cast<int>(i), info))
+    return {};
+  return std::vector<int64_t>(info, info + 8);
+}
+
 // matmul_nt's output tile and tile counts at (M, N), as matmul_nt_plan
 // (kernels.h) gives them.
 std::vector<int64_t> matmul_nt_plan_info(int64_t M, int64_t N) {
@@ -425,6 +438,7 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def("matmul_nt_plan(int M, int N) -> int[]", &matmul_nt_plan_info);
   m.def("frontal_factor(Tensor(a!) w, int npiv, int bs) -> ()",
         &frontal_factor);
+  m.def("frontal_factor_info(int i) -> int[]", &frontal_factor_info);
   m.def(
       "extend_add(Tensor(a!) w, Tensor u, int off, Tensor src, Tensor rows, "
       "Tensor seg_ptr, Tensor seg_dst) -> ()",

@@ -16,8 +16,21 @@ constexpr int kMaxPanel = 32;
 // Widest tile chol_tile and tri_inv_tile take (ops.frontal_factor's bs = 128).
 constexpr int kMaxTile = 128;
 
-void launch_frontal_factor(float* w, int B, int M, int npiv, int bs,
-                           cudaStream_t stream);
+// frontal_factor.cu: `xinv` is a (B, bs, bs) scratch for each panel's
+// L11^-T.
+void launch_frontal_factor(float* w, float* xinv, int B, int M, int npiv,
+                           int bs, cudaStream_t stream);
+
+// Instantiation i of the frontal_factor kernels, while i is below their
+// count (returns 0 past it): kind (0 the diagonal step, 1 the panel step,
+// 2 the Schur step, 3 the whole-front kernel of M <= 32), three parameters
+// (diagonal: the register row's width and warps a front; whole front: the
+// largest M and warps a front;
+// panel: 0, 0 and whether its copies are 16-byte; Schur: the output tile's
+// edge, outputs a thread along it and whether its copies are 16-byte),
+// threads a block, registers per thread, shared memory per block at its
+// largest (bytes), local memory per thread (bytes: spills).
+int frontal_factor_kernel_info(int i, int out[8]);
 
 void launch_extend_add(float* w, int M, const float* u, int Mu, int off,
                        const int* src, const int* rows, int R,

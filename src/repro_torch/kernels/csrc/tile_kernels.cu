@@ -24,11 +24,23 @@
 // outputs spends 4 (TM + TN) cycles of reads on 4 TM TN FMAs a 4-deep k step.
 //
 // What the designs do about it (the tiles in shared memory):
-//   * chol_tile (one block of 1,024 threads): blocked in panels of 32
-//     columns, so the dependent chain is four 32-step factorizations of
-//     diagonal blocks, each in one warp's registers with shuffles; the rows
-//     below each block and the trailing update spread over all threads,
-//     with a block barrier between the three parts of a panel.
+//   * chol_tile (one block of 384 threads): the tile arrives by cp.async,
+//     every copy in flight at once (as tri_inv_tile's), padded with
+//     identity to a multiple of 32, and is factored in panels of 32
+//     columns. A panel's dependent chain is the factor of its 32 x 32
+//     diagonal block in four warps' registers (tile::chol_cols, shared with
+//     frontal_factor.cu: a shared-memory round trip, a fast division and an
+//     FMA a column), with a fifth warp forming the factor's inverse from
+//     the same published columns at the same barriers (tile::inv_cols), so
+//     the inverse adds nothing to the chain; then the product L21 =
+//     A21 L11^-T over every warp and the update of the next diagonal
+//     block. The rest of the rank-32 update of the lower trailing 32 x 32
+//     tiles runs beside the next factor (look-ahead), on register tiles of
+//     4 x 4 outputs a thread laid out so that a warp's 16-byte reads are
+//     broadcasts or hit distinct banks, and each panel's finished columns
+//     go out beside it too. There is no per-element index arithmetic. The
+//     block is the only one of its launch, so its in-place updates of the
+//     staged tile need only its own barriers.
 //   * tri_inv_tile (one block of 512 threads): a blocked inverse. The tile
 //     arrives by cp.async, every copy in flight at once. Its ceil(bs / 32)
 //     diagonal 32 x 32 blocks, padded with identity to 1, 2 or 4 blocks, are
@@ -49,143 +61,14 @@
 //     later slabs land while this one computes; a thread with at most 16
 //     outputs loads its c before the K loop. Each output is one thread's
 //     sum over k in order: no atomics, the same bits every run.
+#include "cp_async.cuh"
 #include "kernels.h"
+#include "tile_chol.cuh"
 #include "tile_invert.cuh"
 
 #include <cstdint>
 
 namespace {
-
-constexpr int kTileThreads = 1024;
-constexpr int kPanel = 32;  // the column panel of chol_tile, one warp wide
-
-// Cholesky of one (bs, bs) tile, blocked in panels of 32 columns. Reads the
-// lower triangle of `a` (row stride lda) only; writes L with zeros above the
-// diagonal into the contiguous `l`. The tile lives in shared memory with
-// rows of bs + 1 floats, so threads on neighbouring rows hit distinct banks.
-// Per panel: (1) warp 0 factors the 32 x 32 diagonal block right-looking,
-// lane = row, the row in registers and the column broadcast by shuffles
-// (rows past the tile are identity rows, which factor to themselves);
-// (2) one thread per row below solves that row against the block
-// (L21 = A21 L11^-T), the row in registers; (3) all threads apply the
-// rank-32 update to the lower trailing triangle. Divisions by the pivot are
-// multiplications by its reciprocal, so zeros (identity-padded tiles) take
-// no slow path. A non-positive pivot gives NaN through sqrtf, as the
-// reference does.
-__global__ void __launch_bounds__(kTileThreads)
-chol_tile_kernel(const float* __restrict__ a, int lda, float* __restrict__ l,
-                 int bs) {
-  extern __shared__ float S[];  // bs x (bs + 1), then kPanel reciprocals
-  const int ld = bs + 1;
-  float* rdiag = S + bs * ld;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const unsigned full = 0xffffffffu;
-
-  for (int e = tid; e < bs * bs; e += kTileThreads) {
-    const int i = e / bs, k = e - i * bs;
-    S[i * ld + k] = k <= i ? a[(size_t)i * lda + k] : 0.f;
-  }
-  __syncthreads();
-
-  for (int p0 = 0; p0 < bs; p0 += kPanel) {
-    const int nb = min(kPanel, bs - p0);
-    float* D = S + p0 * ld + p0;  // the diagonal block, row stride ld
-    if (tid < 32) {
-      float r[kPanel];
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k)
-        r[k] = lane < nb ? (k <= lane ? D[lane * ld + k] : 0.f)
-                         : (k == lane ? 1.f : 0.f);
-#pragma unroll
-      for (int j = 0; j < kPanel; ++j) {
-        const float d = sqrtf(__shfl_sync(full, r[j], j));
-        if (lane == j) r[j] = d;
-        else if (lane > j) r[j] *= 1.f / d;
-#pragma unroll
-        for (int k = j + 1; k < kPanel; ++k) {
-          const float lkj = __shfl_sync(full, r[j], k);
-          if (lane >= k) r[k] -= r[j] * lkj;
-        }
-      }
-      if (lane < nb) {
-#pragma unroll
-        for (int k = 0; k < kPanel; ++k)
-          if (k <= lane) D[lane * ld + k] = r[k];
-        rdiag[lane] = 1.f / r[lane];
-      }
-    }
-    __syncthreads();
-    const int r0 = p0 + nb, n2 = bs - r0;
-    for (int row = r0 + tid; row < bs; row += kTileThreads) {
-      float* x = S + row * ld + p0;
-      float v[kPanel];
-#pragma unroll
-      for (int j = 0; j < kPanel; ++j) v[j] = j < nb ? x[j] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kPanel; ++j) {
-        if (j < nb) {
-          float t = v[j];
-#pragma unroll
-          for (int k = 0; k < j; ++k) t -= v[k] * D[j * ld + k];
-          v[j] = t * rdiag[j];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kPanel; ++j)
-        if (j < nb) x[j] = v[j];
-    }
-    __syncthreads();
-    for (int e = tid; e < n2 * n2; e += kTileThreads) {
-      const int i = e / n2, k = e - i * n2;
-      if (k > i) continue;
-      const float* si = S + (r0 + i) * ld + p0;
-      const float* sk = S + (r0 + k) * ld + p0;
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int t = 0; t < kPanel; t += 2) {
-        if (t < nb) s0 += si[t] * sk[t];
-        if (t + 1 < nb) s1 += si[t + 1] * sk[t + 1];
-      }
-      S[(r0 + i) * ld + r0 + k] -= s0 + s1;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < bs * bs; e += kTileThreads) {
-    const int i = e / bs, k = e - i * bs;
-    l[e] = k <= i ? S[i * ld + k] : 0.f;
-  }
-}
-
-
-// ---- cp.async (sm_80+) --------------------------------------------------------
-
-// A 16- or 4-byte copy of which the first `bytes` come from `src` and the
-// rest are zero.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Component u (0..3, known at compile time once unrolled) of v.
 __device__ __forceinline__ float comp(const float4& v, int u) {
@@ -199,11 +82,47 @@ constexpr int kInvThreads = 512;
 // memory: 16-byte rows, and neighbouring rows 16 bytes apart modulo the 128
 // bytes of the banks, so the products' 16-byte reads of 4 or 8 neighbouring
 // rows by a warp are free of conflicts.
-constexpr int kInvLd = 132;
+constexpr int kTileLd = 132;
 constexpr int kTLd = 68;
 
 constexpr size_t inv_smem(int nb) {
-  return ((size_t)32 * nb * kInvLd + (nb > 1 ? 64 * kTLd : 0)) * sizeof(float);
+  return ((size_t)32 * nb * kTileLd + (nb > 1 ? 64 * kTLd : 0)) * sizeof(float);
+}
+
+// Stages tril of the (bs, bs) tile at l (row stride ldl) into the n x n
+// tile S (row stride kTileLd), padded with identity to n (a multiple of 32),
+// every copy in flight at once: a warp a row, a lane 4 columns; one 16-byte
+// cp.async where the 4 lie on or below the diagonal and the rows are 16-byte
+// aligned, 4-byte ones that zero-fill past the diagonal where not; nothing
+// above the diagonal is read. Ends with the block's barrier.
+template <int NT>
+__device__ __forceinline__ void stage_lower(float* S, int n,
+                                            const float* __restrict__ l,
+                                            int ldl, int bs, int warp,
+                                            int lane) {
+  const bool wide =
+      ((reinterpret_cast<uintptr_t>(l) | (uintptr_t)ldl * 4) & 15) == 0;
+  for (int i = warp; i < n; i += NT / 32)
+    for (int k = 4 * lane; k < n; k += 128) {
+      float* d = S + i * kTileLd + k;
+      if (i < bs && k <= i) {
+        const float* row = l + (size_t)i * ldl + k;
+        if (wide && k + 3 <= i) {
+          cpa::copy16(d, row, 16);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            cpa::copy4(d + u, k + u <= i ? row + u : l, k + u <= i ? 4 : 0);
+        }
+      } else {
+        *reinterpret_cast<float4*>(d) =
+            make_float4(k == i ? 1.f : 0.f, k + 1 == i ? 1.f : 0.f,
+                        k + 2 == i ? 1.f : 0.f, k + 3 == i ? 1.f : 0.f);
+      }
+    }
+  cpa::commit();
+  cpa::wait<0>();
+  __syncthreads();
 }
 
 // out = sign * A B for n x n blocks in shared memory (n = GI NR), summing
@@ -245,7 +164,7 @@ __device__ __forceinline__ void block_product(float* out, int ldo,
 }
 
 // One doubling step on the 2H x 2H diagonal block at D (row stride
-// kInvLd) whose halves Y11, Y22 are inverted and whose lower-left holds
+// kTileLd) whose halves Y11, Y22 are inverted and whose lower-left holds
 // L21: T = L21 Y11 into the scratch T (k from the column: Y11 is lower),
 // then Y21 = -Y22 T over L21 (k up to the row: Y22 is lower). Thread g of
 // the NTG in a group (working where `on`) owns NR rows and 4 columns of
@@ -256,14 +175,14 @@ template <int NTG, int H>
 __device__ __forceinline__ void double_step(float* D, float* T, int g,
                                             bool on) {
   constexpr int GI = 4 * NTG / H, NR = H / GI;
-  float* const L21 = D + H * kInvLd;
+  float* const L21 = D + H * kTileLd;
   if (on)
-    block_product<GI, NR>(T, kTLd, L21, kInvLd, D, kInvLd, g % GI, g / GI,
+    block_product<GI, NR>(T, kTLd, L21, kTileLd, D, kTileLd, g % GI, g / GI,
                           4 * (g / GI), H, 1.f);
   __syncthreads();
   const int ti = g / (H / 4), tj = g % (H / 4);
   if (on)
-    block_product<GI, NR>(L21, kInvLd, L21 + H, kInvLd, T, kTLd, ti, tj, 0,
+    block_product<GI, NR>(L21, kTileLd, L21 + H, kTileLd, T, kTLd, ti, tj, 0,
                           ((ti + GI * (NR - 1)) & ~3) + 4, -1.f);
   __syncthreads();
 }
@@ -280,47 +199,21 @@ template <int NB>
 __global__ void __launch_bounds__(kInvThreads)
 tri_inv_tile_kernel(const float* __restrict__ l, int ldl,
                     float* __restrict__ y, int bs) {
-  constexpr int n = 32 * NB, NT = kInvThreads, kWarps = NT / 32;
+  constexpr int n = 32 * NB, NT = kInvThreads;
   extern __shared__ float4 inv_smem4[];
-  float* const S = reinterpret_cast<float*>(inv_smem4);  // n x kInvLd
-  float* const T = S + n * kInvLd;                        // 64 x kTLd
+  float* const S = reinterpret_cast<float*>(inv_smem4);  // n x kTileLd
+  float* const T = S + n * kTileLd;                        // 64 x kTLd
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  // stage tril(L) with the identity pad, every copy in flight at once: a
-  // warp a row, a lane 4 columns; one 16-byte cp.async where the 4 lie on
-  // or below the diagonal and the rows are 16-byte aligned, 4-byte ones
-  // that zero-fill past the diagonal where not; nothing above is read
-  const bool wide =
-      ((reinterpret_cast<uintptr_t>(l) | (uintptr_t)ldl * 4) & 15) == 0;
-  for (int i = warp; i < n; i += kWarps)
-    for (int k = 4 * lane; k < n; k += 128) {
-      float* d = S + i * kInvLd + k;
-      if (i < bs && k <= i) {
-        const float* row = l + (size_t)i * ldl + k;
-        if (wide && k + 3 <= i) {
-          cp_async16(d, row, 16);
-        } else {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            cp_async4(d + u, k + u <= i ? row + u : l, k + u <= i ? 4 : 0);
-        }
-      } else {
-        *reinterpret_cast<float4*>(d) =
-            make_float4(k == i ? 1.f : 0.f, k + 1 == i ? 1.f : 0.f,
-                        k + 2 == i ? 1.f : 0.f, k + 3 == i ? 1.f : 0.f);
-      }
-    }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  stage_lower<NT>(S, n, l, ldl, bs, warp, lane);
 
   if (warp < NB)
-    tile::invert_tile<false, 32>(S + warp * 32 * (kInvLd + 1), kInvLd, 32,
+    tile::invert_tile<false, 32>(S + warp * 32 * (kTileLd + 1), kTileLd, 32,
                                  lane);
   __syncthreads();
   if (NB >= 2) {  // 32 -> 64: half the threads a pair
     const int p = tid / (NT / 2);
-    double_step<NT / 2, 32>(S + 64 * p * (kInvLd + 1), T + 32 * p,
+    double_step<NT / 2, 32>(S + 64 * p * (kTileLd + 1), T + 32 * p,
                             tid % (NT / 2), p < NB / 2);
   }
   if (NB == 4)  // 64 -> 128: every thread
@@ -328,8 +221,8 @@ tri_inv_tile_kernel(const float* __restrict__ l, int ldl,
 
   const bool wide_out =
       ((reinterpret_cast<uintptr_t>(y) | (uintptr_t)bs * 4) & 15) == 0;
-  for (int i = warp; i < bs; i += kWarps) {
-    const float* src = S + i * kInvLd;
+  for (int i = warp; i < bs; i += NT / 32) {
+    const float* src = S + i * kTileLd;
     float* dst = y + (size_t)i * bs;
     if (wide_out)
       for (int k = 4 * lane; k < bs; k += 128)
@@ -340,10 +233,218 @@ tri_inv_tile_kernel(const float* __restrict__ l, int ldl,
   }
 }
 
+// ---- chol_tile --------------------------------------------------------------
+
+constexpr int kCholThreads = 384;
+constexpr int kXLd = kMaxPanel + 4;  // the panel inverse's row stride
+
+constexpr size_t chol_smem(int n) {
+  return ((size_t)n * kTileLd + 32 * kXLd + 64) * sizeof(float);
+}
+
+// L21 = A21 X for the n2 x 32 panel at P (row stride kTileLd; n2 a multiple
+// of 32), X = L11^-T (row stride kXLd), in place. Group g = tid / 128 takes
+// rows 32 g .. 32 g + 31: its thread (ty, tx) rows ty and ty + 16, columns
+// 4 tx .. 4 tx + 3, so a warp reads 4 rows of A (broadcasts) and 8
+// neighbouring 16-byte pieces of a row of X. The sums stay in registers
+// until every thread has read A.
+__device__ __forceinline__ void panel_product(float* P, const float* X,
+                                              int n2, int tid) {
+  const int g = tid / 128, ty = tid % 128 / 8, tx = tid % 8;
+  const bool on = g < n2 / 32;
+  float* const A = P + (32 * g + ty) * kTileLd;
+  float acc[2][4] = {};
+  if (on) {
+#pragma unroll
+    for (int k = 0; k < 32; k += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + k);
+      const float4 a1 = *reinterpret_cast<const float4*>(A + 16 * kTileLd + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(X + (k + u) * kXLd + 4 * tx);
+        const float v0 = comp(a0, u), v1 = comp(a1, u);
+        acc[0][0] = fmaf(v0, x.x, acc[0][0]);
+        acc[0][1] = fmaf(v0, x.y, acc[0][1]);
+        acc[0][2] = fmaf(v0, x.z, acc[0][2]);
+        acc[0][3] = fmaf(v0, x.w, acc[0][3]);
+        acc[1][0] = fmaf(v1, x.x, acc[1][0]);
+        acc[1][1] = fmaf(v1, x.y, acc[1][1]);
+        acc[1][2] = fmaf(v1, x.z, acc[1][2]);
+        acc[1][3] = fmaf(v1, x.w, acc[1][3]);
+      }
+    }
+  }
+  __syncthreads();
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float4*>(A + 16 * i * kTileLd + 4 * tx) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// S -= L21 L21^T on the lower 32 x 32 tile (bi, t) of the trailing block
+// at T (row stride kTileLd), L21 the panel at P, by thread `tid` of 64.
+// Thread (ty, tx) owns rows ty + 8 i and columns tx + 8 j (i, j < 4), so a
+// warp's 16-byte reads are broadcasts over 4 rows of A and 8 neighbouring
+// rows of B (distinct banks). Reads the panel's columns, writes only the
+// tile's.
+__device__ __forceinline__ void update_tile(float* T, const float* P, int bi,
+                                            int t, int tid) {
+  const int ty = tid % 64 / 8, tx = tid % 8;
+  const float* A = P + (32 * bi + ty) * kTileLd;
+  const float* B = P + (32 * t + tx) * kTileLd;
+  float acc[4][4] = {};
+#pragma unroll
+  for (int k = 0; k < 32; k += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(A + 8 * i * kTileLd + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(B + 8 * j * kTileLd + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+      }
+  }
+  float* const O = T + (32 * bi + ty) * kTileLd + 32 * t + tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) O[8 * i * kTileLd + 8 * j] -= acc[i][j];
+}
+
+// update_tile on the lower 32 x 32 tiles of the n2 x n2 trailing block
+// from the t0-th on (row by row), by the ng / 64 groups of 64 threads
+// (thread g of ng, ng a multiple of 64; threads at or past ng do nothing),
+// a tile a group a round.
+__device__ __forceinline__ void trailing_update(float* T, const float* P,
+                                                int n2, int g, int ng,
+                                                int t0) {
+  const int tiles = n2 / 32 * (n2 / 32 + 1) / 2;
+  for (int t = t0 + g / 64; g < ng && t < tiles; t += ng / 64) {
+    int tk = t, bi = 0;
+    while (tk > bi) tk -= ++bi;  // the t-th lower tile is (bi, tk)
+    update_tile(T, P, bi, tk, g % 64);
+  }
+}
+
+// Columns [c0, c0 + 32) of the leading bs x bs of S (row stride kTileLd)
+// into the contiguous y, zeros above the diagonal: thread g of ng takes 4
+// columns of a row, 8 threads a row, 16-byte stores where y's rows are
+// 16-byte aligned.
+__device__ __forceinline__ void write_strip(float* __restrict__ y, int bs,
+                                            const float* S, int c0, int g,
+                                            int ng) {
+  const bool wide =
+      ((reinterpret_cast<uintptr_t>(y) | (uintptr_t)bs * 4) & 15) == 0;
+  for (int e = g; e < bs * 8; e += ng) {
+    const int i = e / 8, k = c0 + 4 * (e % 8);
+    if (k >= bs) continue;
+    const float4 v = *reinterpret_cast<const float4*>(S + i * kTileLd + k);
+    const float o[4] = {k <= i ? v.x : 0.f, k + 1 <= i ? v.y : 0.f,
+                        k + 2 <= i ? v.z : 0.f, k + 3 <= i ? v.w : 0.f};
+    float* const dst = y + (size_t)i * bs + k;
+    if (wide) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (k + u < bs) dst[u] = o[u];
+    }
+  }
+}
+
+constexpr int kInvWarp = 11;  // forms each diagonal block's inverse
+
+// The diagonal step on the 32 x 32 block at D: warps 0-3 factor it in
+// place (tile::chol_cols) while warp kInvWarp forms the inverse of the
+// factor, transposed, into X (tile::inv_cols), at the same barriers; other
+// warps return at once. The caller's block barrier publishes both.
+__device__ __forceinline__ void diag_step(float* D, float* X, float* col,
+                                          int warp, int lane) {
+  if (warp < 4) {
+    float r[8];
+    tile::load_cols<32, 4>(D, kTileLd, 32, lane, warp, r);
+    tile::chol_cols<32, 4, 5>(r, col, 32, lane, warp, 1);
+    tile::store_cols<32, 4>(D, kTileLd, 32, lane, warp, r);
+    tile::sync_warps<5>(1);
+  } else if (warp == kInvWarp) {
+    float y[32];
+    tile::inv_cols<32, 5>(y, col, 32, lane, 1);
+    tile::sync_warps<5>(1);  // L's diagonal, sqrt(p_i), is stored in D
+    float4* const out = reinterpret_cast<float4*>(X + lane * kXLd);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = y[4 * q + u] * D[(4 * q + u) * (kTileLd + 1)];
+      out[q] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Cholesky of one (bs, bs) tile (bs <= 128; only entries on or below the
+// diagonal of `a`, row stride lda, are read), written with zeros above the
+// diagonal to the contiguous `l`. The tile is staged padded with identity
+// to n = 32 ceil(bs / 32) ([A 0; 0 I] = [L 0; 0 I][L 0; 0 I]^T, so the pad
+// changes nothing in the bs x bs corner) and factored in place in panels
+// of 32 columns. The diagonal step (diag_step) factors the first diagonal
+// block and forms its inverse; then per panel: every thread forms L21 =
+// A21 L11^-T (panel_product); warps 0-3 update the next diagonal block and,
+// with warp kInvWarp, take its diagonal step (look-ahead), while warps 4-9
+// update the rest of the lower trailing tiles (trailing_update) and warps
+// 4-10 write the panel's 32 columns of L, final from here on, to `l`
+// (write_strip). A block barrier separates the steps, and within the last
+// the groups touch disjoint entries: the next diagonal block, X and the
+// column buffer, or the other tiles and the finished columns.
+__global__ void __launch_bounds__(kCholThreads)
+chol_tile_kernel(const float* __restrict__ a, int lda, float* __restrict__ l,
+                 int bs) {
+  extern __shared__ float4 chol_smem4[];
+  const int n = (bs + 31) & ~31;
+  float* const S = reinterpret_cast<float*>(chol_smem4);  // n x kTileLd
+  float* const X = S + n * kTileLd;                         // 32 x kXLd
+  float* const col = X + 32 * kXLd;                         // 2 x 32
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  stage_lower<kCholThreads>(S, n, a, lda, bs, warp, lane);
+  diag_step(S, X, col, warp, lane);
+  __syncthreads();
+  for (int p0 = 0; p0 + 32 < n; p0 += 32) {
+    float* const P = S + (p0 + 32) * kTileLd + p0;  // the panel below
+    float* const T = P + 32;                         // the trailing block
+    const int n2 = n - p0 - 32;
+    panel_product(P, X, n2, tid);
+    __syncthreads();
+    if (warp < 4) {
+      if (tid < 64) update_tile(T, P, 0, 0, tid);  // the next block
+      tile::sync_warps<4>(2);
+      diag_step(T, X, col, warp, lane);
+    } else if (warp == kInvWarp) {
+      diag_step(T, X, col, warp, lane);
+    } else {  // the rest of the update (warps 4-9); the panel's columns
+      trailing_update(T, P, n2, tid - 128, 192, 1);
+      write_strip(l, bs, S, p0, tid - 128, 32 * (kInvWarp - 4));
+    }
+    __syncthreads();
+  }
+  write_strip(l, bs, S, n - 32, tid, kCholThreads);
+}
+
 // ---- matmul_nt --------------------------------------------------------------
 
 constexpr int kBK = 32;        // the K slab
-constexpr int kLdk = kBK + 4;  // a slab row (floats): 16-byte rows, as kInvLd
+constexpr int kLdk = kBK + 4;  // a slab row (floats): 16-byte rows, as kTileLd
 constexpr int kStages = 4;     // slabs in flight: three ahead of the one in use
 
 // A launch configuration: thread tile TM x TN, thread grid TY x TX (TY a
@@ -378,14 +479,7 @@ __device__ __forceinline__ void load_slab(float* dst, const float* src,
       const int k = k0 + 4 * q;
       const int left = r0 + r < nrows ? K - k : 0;  // floats left in the row
       const float* s = left > 0 ? src + (size_t)(r0 + r) * ld + k : src;
-      float* d = dst + r * kLdk + 4 * q;
-      if (WIDE) {
-        cp_async16(d, s, left >= 4 ? 16 : left > 0 ? 4 * left : 0);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          cp_async4(d + u, left > u ? s + u : src, left > u ? 4 : 0);
-      }
+      cpa::copy_chunk<WIDE>(dst + r * kLdk + 4 * q, s, left, src);
     }
   }
 }
@@ -424,7 +518,7 @@ matmul_nt_kernel(const float* __restrict__ a, int lda,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) load(s, s);
-    cp_async_commit();
+    cpa::commit();
   }
 
   float cv[TM][TN];
@@ -439,11 +533,11 @@ matmul_nt_kernel(const float* __restrict__ a, int lda,
   float acc[TM][TN] = {};
   int stage = 0;
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // slab kt has landed (this thread's part)
+    cpa::wait<kStages - 2>();  // slab kt has landed (this thread's part)
     __syncthreads();  // every part has; every thread is done with slab kt - 1
     const int next = kt + kStages - 1;  // into slab kt - 1's stage
     if (next < nk) load(next % kStages, next);
-    cp_async_commit();
+    cpa::commit();
     const float* A = As + stage * BM * kLdk + ty * kLdk;
     const float* B = Bs + stage * BN * kLdk + tx * kLdk;
 #pragma unroll
@@ -480,7 +574,7 @@ matmul_nt_kernel(const float* __restrict__ a, int lda,
     }
     stage = stage + 1 == kStages ? 0 : stage + 1;
   }
-  cp_async_wait<0>();
+  cpa::wait<0>();
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -574,9 +668,9 @@ void fill_info(const void* kernel, int kind, int p0, int p1, int p2,
 
 void launch_chol_tile(const float* a, int lda, float* l, int bs,
                       cudaStream_t stream) {
-  const size_t smem = ((size_t)bs * (bs + 1) + kPanel) * sizeof(float);
+  const size_t smem = chol_smem((bs + 31) & ~31);
   if (!set_smem(reinterpret_cast<const void*>(chol_tile_kernel), smem)) return;
-  chol_tile_kernel<<<1, kTileThreads, smem, stream>>>(a, lda, l, bs);
+  chol_tile_kernel<<<1, kCholThreads, smem, stream>>>(a, lda, l, bs);
 }
 
 void launch_tri_inv_tile(const float* l, int ldl, float* y, int bs,
@@ -617,8 +711,7 @@ void launch_matmul_nt(const float* a, int lda, const float* b, int ldb,
 int tile_kernel_info(int i, int out[8]) {
   if (i == 0) {
     fill_info(reinterpret_cast<const void*>(chol_tile_kernel), 0, kMaxTile, 0,
-              0, kTileThreads,
-              ((size_t)kMaxTile * (kMaxTile + 1) + kPanel) * sizeof(float), out);
+              0, kCholThreads, chol_smem(kMaxTile), out);
     return 1;
   }
   if (i <= 3) {

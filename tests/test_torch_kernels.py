@@ -39,7 +39,9 @@ def _spd_fronts(rng, B, M):
 
 
 @pytest.mark.parametrize("B,M,npiv,bs", [(3, 24, 16, 8), (2, 40, 32, 16),
-                                         (1, 32, 32, 32), (2, 48, 24, 8)])
+                                         (1, 32, 32, 32), (2, 48, 24, 8),
+                                         (2, 56, 40, 20), (3, 5, 3, 3),
+                                         (1, 64, 64, 32), (4, 16, 8, 8)])
 def test_frontal_factor_plain_matches_pallas(B, M, npiv, bs):
     rng = np.random.default_rng(B * 1000 + M)
     w = _spd_fronts(rng, B, M)

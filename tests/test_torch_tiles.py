@@ -35,7 +35,7 @@ def _spd(rng, m):
     return (g @ g.T / m + 2 * np.eye(m)).astype(np.float32)
 
 
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("bs", [8, 16, 32, 33, 100, 128])
 def test_chol_tile_matches_pallas(bs):
     rng = np.random.default_rng(bs)
     a = _spd(rng, bs)
@@ -45,7 +45,7 @@ def test_chol_tile_matches_pallas(bs):
     assert not np.triu(got.numpy(), 1).any()
 
 
-@pytest.mark.parametrize("bs", [8, 32])
+@pytest.mark.parametrize("bs", [8, 32, 33, 100, 128])
 def test_chol_tile_reads_only_the_lower_triangle(bs):
     """After the first panel the upper triangle of the workspace holds the
     full-square update's garbage: neither package may read it."""
@@ -289,3 +289,25 @@ def test_tile_kernels_info_and_matmul_plan_are_bound():
     for src in ("tile_kernels.cu", "tri_solve.cu"):
         assert '#include "tile_invert.cuh"' in (csrc / src).read_text(), src
     assert "void invert_tile(" in (csrc / "tile_invert.cuh").read_text()
+
+
+def test_frontal_factor_info_is_bound_and_both_factors_share_one_step():
+    """The resource op that chip_smoke.py logs for frontal_factor_batch is
+    bound, and both Cholesky kernels take their diagonal block's factor from
+    one header; chol_tile forms the inverse beside it, the batched factor
+    after it."""
+    from repro_torch.kernels import _build
+
+    csrc = _build._CSRC
+    binding = (csrc / "bindings.cpp").read_text()
+    header = (csrc / "kernels.h").read_text()
+    assert '"frontal_factor_info(int i) -> int[]"' in binding
+    assert "int frontal_factor_kernel_info(int i, int out[8]);" in header
+    for src in ("frontal_factor.cu", "tile_kernels.cu"):
+        text = (csrc / src).read_text()
+        assert '#include "tile_chol.cuh"' in text, src
+        assert "tile::chol_cols<" in text, src
+    assert "tile::invert_tile<" in (csrc / "frontal_factor.cu").read_text()
+    assert "tile::inv_cols<" in (csrc / "tile_kernels.cu").read_text()
+    header = (csrc / "tile_chol.cuh").read_text()
+    assert "void chol_cols(" in header and "void inv_cols(" in header
