@@ -46,7 +46,15 @@ it and read just after it:
   runs and the kernel launches 0 times.
 
 Then it holds each kernel against its plain PyTorch version (the solve
-kernels at shapes from the 32³ schedule; ``frontal_factor_batch`` on the
+kernels at shapes from the 32³ schedule; ``extend_add_batch`` at the
+populated fed bucket and the root, launched as the pipelined factor launches it
+(one launch per destination bucket, its routing uploaded once per
+factorization), with no difference allowed and the same bits on a second
+run, then at seeded cases the path never gives (unaligned rows, 40
+contributions to one slot, rows wider than the staging buffer, 40 source
+groups: two launches), after the count of its launches in a 32³
+factorization and a line of registers, shared memory and spills for each
+of its kernels; ``frontal_factor_batch`` on the
 populated and the largest bucket and on the most populated bucket of every
 other pivot width, and on seeded stacks at (B, M, npiv, bs) = (2, 56, 40,
 20), (3, 5, 3, 3) and (1, 64, 64, 32), each run twice with the same bits,
@@ -70,13 +78,16 @@ bits) and ``tri_inv_tile`` at bs 128, 100 and 33, then ``matmul_nt`` at
 (200, 136, 72) and on odd row strides and ``tri_inv_tile`` on an odd row
 stride, after a line of registers, shared memory and spills for each
 tile-kernel instantiation; the ``csr_stats`` kernels
-on the served batch, ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
+on the served batch, ``row_stats`` also on seeded batches (B = 1, N = 2^17
++ 3, N = 5, a matrix with no valid row) and once under the profiler (one
+kernel on the card), ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
 spills) and times kernel,
 plain version and, where one exists, the PyTorch library call computing
 the same function; it profiles the pipelined solve (with the summed device
-time of the tri-solve, the ``bell_spmv`` and the factor kernels) and the
+time of the tri-solve, the ``bell_spmv``, the extend-add and the factor
+kernels, and the count and seconds of its host-to-device copies) and the
 per-front
 solve (with the summed device time of each tile kernel), one
 selection, and one prefill and 16 decode steps of the served model. It
@@ -114,7 +125,9 @@ PEAK_BF16 = 989e12
 #: orders; the factor's error grows with the front (M up to 1,280 here, and
 #: each Schur entry is a sum of up to P = 256 products), hence 1e-4. fp64
 #: SpMV: both sum the same products of one block-row, in other orders.
-TOL = {"frontal_factor_batch": 1e-4, "extend_add_batch": 1e-5,
+#: extend_add_batch: none (0.0), since the kernel adds in the plain
+#: version's order with no float atomics.
+TOL = {"frontal_factor_batch": 1e-4, "extend_add_batch": 0.0,
        "tri_solve_batch": 1e-5, "bell_spmv": 1e-12,
        # the tile Cholesky's error grows along its 128-step chain of
        # dependent updates; the inverse and the product are short sums
@@ -406,6 +419,38 @@ def bucket_inputs(pa, f, routes, key, dev) -> tuple:
     sched = f.schedule
     bk = sched.buckets[key[0]][key[1]]
     w0 = to_device(_assemble_bucket(pa, sched, bk), dev)
+    return bk, w0, bucket_inputs_groups(f, routes, key)
+
+
+def extend_add_as_path(f, routes, key, dev):
+    """A function that runs bucket ``key``'s extend-add into a copy of its
+    workspaces as this tree's ``_factor_pipelined`` runs it: one launch
+    per destination bucket from the routing of the whole factorization,
+    uploaded beforehand (``_device_routing``), or, on a tree without one, a
+    launch and a routing upload per source group."""
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import multifrontal as mf
+
+    sched = f.schedule
+    if hasattr(mf, "_device_routing"):
+        routing, fed = mf._device_routing(sched)
+        routing = routing.to(dev)
+        d, skeys = fed[key]
+        us = [f.device_stacks[k] for k in skeys]
+        offs = [sched.buckets[k[0]][k[1]].P for k in skeys]
+        return lambda w: ops.extend_add_routed(w, us, offs, routing, d)
+    groups = bucket_inputs_groups(f, routes, key)
+
+    def run(w):
+        for u, off, src, dst, rows in groups:
+            ops.extend_add_batch(w, u, dst, rows, src=src, off=off)
+    return run
+
+
+def bucket_inputs_groups(f, routes, key) -> list:
+    """Bucket ``key``'s extend-add groups (source stack, offset, src, dst,
+    rows), in the order the per-group launches ran them."""
+    sched = f.schedule
     groups = []
     for skey, contribs in sorted(routes.get(key, {}).items()):
         contribs.sort(key=lambda c: c[1])
@@ -414,7 +459,15 @@ def bucket_inputs(pa, f, routes, key, dev) -> tuple:
                        np.array([c[0] for c in contribs], np.int32),
                        np.array([c[1] for c in contribs], np.int32),
                        np.stack([c[2] for c in contribs])))
-    return bk, w0, groups
+    return groups
+
+
+def copy_events(spans, kind: str = "HtoD") -> dict:
+    """Count and summed seconds of the profiler's copy events of ``kind``
+    (``HtoD``, ``DtoH``, ``DtoD``)."""
+    ts = [(s1 - s0) / 1e6 for s0, s1, name in spans
+          if name.startswith("Memcpy") and kind in name]
+    return dict(count=len(ts), s=sum(ts))
 
 
 def tile_fronts(pa, f, routes, dev) -> dict:
@@ -544,10 +597,21 @@ def kernel_checks(a, plan, dev) -> dict:
                                                  multifrontal_cholesky)
 
     pa = permute_symmetric(a, plan.perm)
+    before = fc.extend_add_batch.launches
     f = multifrontal_cholesky(pa, sym=plan.sym, device=dev)
+    n_ea = fc.extend_add_batch.launches - before
     sched = f.schedule
     routes = _route_contributions(sched)
     picks = pick_buckets(sched, routes)
+    # one extend-add launch per fed bucket, and one more per further
+    # EA_MAX_GROUPS source groups
+    most = sum(-(-len(g) // fc.EA_MAX_GROUPS) for g in routes.values())
+    log(f"extend_add launches in a pipelined factorization of {a.name}: "
+        f"{n_ea} ({len(routes)} fed buckets, "
+        f"{sum(len(g) for g in routes.values())} source groups)")
+    if n_ea > most:
+        raise AssertionError(f"extend_add launched {n_ea} times for "
+                             f"{len(routes)} fed buckets (at most {most})")
     log("schedule " + json.dumps({k: f.stats[k] for k in (
         "nsup", "nlevels", "nbatches", "peak_front", "front_flops",
         "occupancy")}) + " buckets " + json.dumps(
@@ -557,22 +621,29 @@ def kernel_checks(a, plan, dev) -> dict:
     out: dict = {}
 
     # extend_add_batch: a bucket's real contributions, read from the
-    # factored stacks of the factorization above
+    # factored stacks of the factorization above, launched as the path
+    # launches them (one launch, the routing uploaded beforehand); the same
+    # bits as the plain version applied group by group, twice
     for tag in ("populated_fed", "largest_fed"):
         bk, w0, groups = bucket_inputs(pa, f, routes, picks[tag], dev)
         wk, wp, wl = w0.clone(), w0.clone(), w0.clone()
+        run_path = extend_add_as_path(f, routes, picks[tag], dev)
 
         def run_kernel():
-            for u, off, src, dst, rows in groups:
-                fc.extend_add_batch(wk, u, dst, rows, src=src, off=off)
+            run_path(wk)
 
         def run_plain():
             for u, off, src, dst, rows in groups:
                 fc.extend_add_batch_plain(wp, u, dst, rows, src, off)
 
+        before = fc.extend_add_batch.launches
         run_kernel()
+        n_launch = fc.extend_add_batch.launches - before
         run_plain()
         err = compare("extend_add_batch", wk, wp)
+        again = w0.clone()
+        run_path(again)
+        same_bits("extend_add_batch", tag, again, wk)
         # the library call: one index_put_(accumulate=True) of every entry
         di, ri, ci, vals = [], [], [], []
         for u, off, src, dst, rows in groups:
@@ -598,9 +669,12 @@ def kernel_checks(a, plan, dev) -> dict:
                                              for g in groups)
         record(out, "extend_add_batch",
                f"{tag} B={len(bk.members)} M={bk.M} groups={len(groups)} "
-               f"C={sum(g[2].size for g in groups)} entries={n_u}",
+               f"C={sum(g[2].size for g in groups)} entries={n_u} "
+               f"launches={n_launch} (same bits twice)",
                err, ms, pms, lms, n_u, nbytes, PEAK_FP32,
                tag == "largest_fed")
+
+    extend_add_seeded(dev)
 
     # frontal_factor_batch on the workspaces the main path factors (A's
     # entries plus the children's Schur blocks) at the populated and the
@@ -669,6 +743,73 @@ def kernel_checks(a, plan, dev) -> dict:
 
     bell_spmv_checks(pa, dev, rng, out)
     return out
+
+
+def extend_add_seeded(dev) -> None:
+    """extend_add_routed on seeded cases the 32³ path never gives, each held
+    to the plain version applied group by group (no difference allowed) and
+    run twice for the same bits: unaligned rows (Mu, offset and M odd: the
+    scalar kernel, at R = 5 and at R = 300 with four warps a row); 40
+    contributions to one slot; rows wider than a warp's staging buffer
+    (M = 6,200 with two contributions of R = 3,100, a warp a row; M = 8,192
+    with two of R = 520 spread over the row, four warps a row); and 40
+    source groups, more than one launch's table holds."""
+    import torch
+
+    from repro_torch.kernels import frontal_cholesky as fc
+
+    rng = np.random.default_rng(5)
+
+    def group(B, M, C, R, Bu, Mu, off, slot=None, full=False):
+        u = torch.as_tensor(rng.standard_normal((Bu, Mu, Mu)),
+                            dtype=torch.float32, device=dev)
+        dst = (np.sort(rng.integers(0, B, C)) if slot is None
+               else np.full(C, slot))
+        rows = np.full((C, R), -1, np.int64)
+        for c in range(C):
+            k = R if full else int(rng.integers(1, R + 1))
+            rows[c, :k] = np.sort(rng.choice(M, k, replace=False))
+        return u, off, rng.integers(0, Bu, C), dst, rows
+
+    cases = (("unaligned R=5 off=3 Mu=11 M=13", 3, 13,
+              [group(3, 13, 9, 5, 4, 11, 3)]),
+             ("unaligned wide R=300 off=3 Mu=307 M=1001", 2, 1001,
+              [group(2, 1001, 3, 300, 2, 307, 3)]),
+             ("40 contributions to one slot", 2, 64,
+              [group(2, 64, 40, 16, 6, 24, 8, slot=1)]),
+             ("rows wider than the buffer M=6200, a warp a row", 1, 6200,
+              [group(1, 6200, 2, 3100, 2, 3104, 4, slot=0, full=True)]),
+             ("rows wider than the buffer M=8192, four warps a row", 1, 8192,
+              [group(1, 8192, 2, 520, 2, 528, 8, slot=0, full=True)]),
+             ("40 source groups", 4, 48,
+              [group(4, 48, 3, 8, 2, 16, 8) for _ in range(40)]))
+    for tag, B, M, groups in cases:
+        routing = fc.extend_add_routing(
+            [(M, [(src, dst, rows) for _, _, src, dst, rows in groups])]
+        ).to(dev)
+        us = [g[0] for g in groups]
+        offs = [g[1] for g in groups]
+        w0 = torch.as_tensor(rng.standard_normal((B, M, M)),
+                             dtype=torch.float32, device=dev)
+        wk, wp, again = w0.clone(), w0.clone(), w0.clone()
+        before = fc.extend_add_batch.launches
+        fc.extend_add_routed(wk, us, offs, routing, 0)
+        n_launch = fc.extend_add_batch.launches - before
+        for u, off, src, dst, rows in groups:
+            fc.extend_add_batch_plain(wp, u, dst, rows, src, off)
+        err = compare("extend_add_batch", wk, wp)
+        fc.extend_add_routed(again, us, offs, routing, 0)
+        same_bits("extend_add_batch", tag, again, wk)
+        ms = device_ms(lambda: fc.extend_add_routed(wk, us, offs, routing, 0),
+                       setup=lambda: wk.copy_(w0))
+        log(f"kernel extend_add_batch seeded {tag}: B={B} M={M} "
+            f"groups={len(groups)} C={sum(g[2].size for g in groups)} "
+            f"launches={n_launch}, max_abs_err {err:.3e}, same bits twice, "
+            f"ms {ms:.5f}")
+        want = -(-len(groups) // fc.EA_MAX_GROUPS)
+        if n_launch != want:
+            raise AssertionError(f"extend_add {tag}: {n_launch} launches, "
+                                 f"want {want}")
 
 
 def bell_spmv_checks(pa, dev, rng, out: dict) -> None:
@@ -829,6 +970,18 @@ def frontal_resources(ops) -> None:
             f"thread, {smem} bytes of shared memory a block, {local} bytes "
             f"of local memory (spills) a thread")
         i += 1
+
+
+def stream_kernel_resources(ops) -> None:
+    """Registers, shared memory and spills of the extend_add and row_stats
+    kernels, with scalar and with 16-byte loads."""
+    for name, info in (("extend_add", ops.extend_add_info),
+                       ("row_stats", ops.row_stats_info)):
+        for i in (0, 1):
+            vec, threads, regs, smem, local = info(i)
+            log(f"{name} {16 if vec else 4}-byte loads: {threads} threads, "
+                f"{regs} registers a thread, {smem} bytes of shared memory a "
+                f"block, {local} bytes of local memory (spills) a thread")
 
 
 def tri_solve_resources(ops) -> None:
@@ -1241,13 +1394,30 @@ def per_front_phase(plans, engine, dev) -> dict:
     return counts
 
 
+def hold_stats(name: str, shape: str, got, want, exact) -> tuple:
+    """Raise unless the integer columns ``exact`` of a csr_stats result are
+    equal to the plain version's and the others within CSR_STATS_RTOL of
+    them per matrix; returns (max abs error, max relative error)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    fl = [c for c in range(got.shape[1]) if c not in exact]
+    rel = ((got[:, fl] - want[:, fl]).abs()
+           / want[:, fl].abs().clamp(min=1e-30)).max().item()
+    if not (torch.equal(got[:, exact], want[:, exact])
+            and rel <= CSR_STATS_RTOL):
+        raise AssertionError(f"{name} {shape}: integer stats differ or float "
+                             f"stats off by {rel:.3e} relative")
+    return err, rel
+
+
 def csr_stats_checks(mats, dev, out: dict) -> None:
     """entry_stats / row_stats against their plain versions on the served
     batch's arguments, as the featurizer builds them, with times and
-    bounds. Neither has a single PyTorch call computing the same function:
-    each statistic is a masked reduction, and no library call masks."""
-    import torch
-
+    bounds; then row_stats on seeded batches and one profiled call. Neither
+    has a single PyTorch call computing the same function: each statistic
+    is a masked reduction, and no library call masks."""
     from repro_torch.core.features import csr_stats_args, pad_csr_batch
     from repro_torch.kernels import csr_stats as cs
 
@@ -1258,24 +1428,82 @@ def csr_stats_checks(mats, dev, out: dict) -> None:
             ("entry_stats", ea, cs.entry_stats_plain, [0], 4 * B * E),
             ("row_stats", ra, cs.row_stats_plain, [0, 1], 5 * B * N)):
         kern = getattr(cs, name)
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        fl = [c for c in range(got.shape[1]) if c not in exact]
-        rel = ((got[:, fl] - want[:, fl]).abs()
-               / want[:, fl].abs().clamp(min=1e-30)).max().item()
-        if not (torch.equal(got[:, exact], want[:, exact])
-                and rel <= CSR_STATS_RTOL):
-            raise AssertionError(f"{name}: integer stats differ or float "
-                                 f"stats off by {rel:.3e} relative")
+        err, rel = hold_stats(name, "served", kern(*args), plain(*args),
+                              exact)
         ms = device_ms(lambda: kern(*args))
         pms = stream_ms(lambda: plain(*args))
         # each input read once, the (B, 2) or (B, 3) result written once
         nbytes = sum(a.numel() * a.element_size() for a in args) \
-            + got.numel() * 4
+            + B * (2 if name == "entry_stats" else 3) * 4
         record(out, name, f"B={B} E={E} N={N} (max rel err float stats "
                f"{rel:.3e})", err, ms, pms, None, ops, nbytes, PEAK_FP32,
                True)
+    row_stats_seeded(dev)
+    row_stats_profiled(ra)
+
+
+def row_stats_seeded(dev) -> None:
+    """row_stats against its plain version on seeded batches the served one
+    never gives: B = 1; N = 2^17 + 3 (every matrix but the first starts off
+    a 16-byte boundary); N = 5; a matrix with no valid row."""
+    import torch
+
+    from repro_torch.kernels import csr_stats as cs
+
+    rng = np.random.default_rng(9)
+    for tag, B, N, empty in (("B=1", 1, 12_288, None),
+                             ("N=2^17+3", 4, 2 ** 17 + 3, None),
+                             ("N=5", 6, 5, None),
+                             ("no valid row", 3, 1027, 1)):
+        n = rng.integers(1, N + 1, B)
+        if empty is not None:
+            n[empty] = 0
+        args = [torch.as_tensor(x, device=dev) for x in (
+            rng.integers(0, 40, (B, N)).astype(np.int32),
+            (np.arange(N)[None, :] < n[:, None]).astype(np.int32),
+            (rng.random(B) * 20).astype(np.float32))]
+        err, rel = hold_stats("row_stats", tag, cs.row_stats(*args),
+                              cs.row_stats_plain(*args), [0, 1])
+        ms = device_ms(lambda: cs.row_stats(*args))
+        log(f"kernel row_stats seeded {tag} B={B} N={N}: max_abs_err "
+            f"{err:.3e}, max rel err float stats {rel:.3e}, ms {ms:.5f}")
+
+
+def row_stats_profiled(args, calls: int = 20) -> None:
+    """``calls`` warm row_stats calls under the profiler: raise unless the
+    card ran exactly one row_stats kernel for each and nothing else. The
+    profiler can miss the first kernels of a window, so the window opens on
+    a few sleep kernels, which the count leaves out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import csr_stats as cs
+
+    cs.row_stats(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            cs.row_stats(*args)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.name]
+    names = [e.name for e in evs]
+    kernels = sorted({n[:80] for n in names})
+    us = sum(e.time_range.end - e.time_range.start for e in evs) / max(
+        len(evs), 1)
+    log(f"profile row_stats (served batch), {calls} calls: {len(names)} "
+        f"device events besides the sleep kernels, names {kernels}, "
+        f"{us / 1e3:.5f} ms a kernel on the device; an empty kernel timed as "
+        f"the kernel lines time theirs: "
+        f"{device_ms(lambda: torch.cuda._sleep(0)):.5f} ms")
+    if len(names) != calls or any("row_stats" not in n for n in names):
+        raise AssertionError(f"{calls} row_stats calls ran {len(names)} "
+                             f"device events ({kernels}), want one "
+                             f"row_stats kernel a call")
 
 
 def hold_attention(tag: str, got, want) -> tuple:
@@ -1573,6 +1801,7 @@ def main(argv=None) -> int:
     bell_spmv_resources(ops)
     tile_resources(ops)
     frontal_resources(ops)
+    stream_kernel_resources(ops)
     for d in (128, 64):
         regs, smem, local, stages = ops.flash_attention_info(d)
         log(f"flash_attention bf16 D={d} (TMA + wgmma kernel): {regs} "
@@ -1635,9 +1864,11 @@ def all_paths(dev) -> tuple:
     b = np.random.default_rng(2).standard_normal(a.n)
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                          lambda: execute_plan(a, plan, b, device=dev))
-    for stem in ("tri_solve", "bell_") + FACTOR_STEMS:
+    for stem in ("tri_solve", "bell_", "extend_add") + FACTOR_STEMS:
         log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, {stem} "
             f"kernels (s): " + json.dumps(kernel_device_s(spans, stem)))
+    log(f"profile {a.name} {plan.algorithm} k=1 execute_plan, host-to-device "
+        f"copies: " + json.dumps(copy_events(spans, "HtoD")))
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan pallas",
                          lambda: execute_plan(a, plan, b, backend="pallas",
                                               device=dev))

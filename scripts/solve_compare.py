@@ -11,12 +11,23 @@ code; its kernels build into that tree's own ``build/torch_kernels``. On
 grid3d(32,32,32) under ``nd`` (the solve path of ``chip_smoke.py``) it runs
 ``execute_plan`` (pipelined, device sweeps, fp32 factors with fp64
 refinement, one RHS) once to warm up and ``RUNS`` more times, keeping the
-``factor.device``, ``solve.setup``, ``solve.sweep`` and ``solve.refine``
-spans and the ``bell_spmv`` launches of each; profiles one more run and sums
-the device time of the tri-solve, the ``bell_spmv`` and the factor kernels
-by name (the factor's under the stems ``chip_smoke.FACTOR_STEMS``, which
-match both the first design's two kernels and the current four, with
-their sum as ``device_s["factor"]``); runs ``chip_smoke.frontal_check``
+``factor.schedule``, ``factor.device``, ``solve.setup``, ``solve.sweep``
+and ``solve.refine`` spans and the ``bell_spmv`` and ``extend_add_batch``
+launches of each; profiles one more run and sums the device time of the
+tri-solve, the ``bell_spmv``, the extend-add (stem ``extend_add``, both
+designs) and the factor kernels by name (the factor's under the stems
+``chip_smoke.FACTOR_STEMS``, which match both the first design's two
+kernels and the current four, with their sum as ``device_s["factor"]``),
+and counts its host-to-device copies and their seconds (``h2d``); times
+the host build of the extend-add routing (``routing_build_s``:
+``_route_contributions`` and, where the tree has it, ``_device_routing``,
+``RUNS`` times each); times
+the extend-add of the root and the populated fed bucket as that tree's
+pipelined factor runs it (``chip_smoke.extend_add_as_path``: one launch a
+bucket from the routing uploaded beforehand, or a launch and an upload per
+source group) and ``row_stats`` on the served batch's arguments
+(``csr_stats_args`` of ``generate_suite(16, seed=1, size_scale=8)``);
+runs ``chip_smoke.frontal_check``
 (the kernel held against its plain version, run twice with the same bits,
 timed) on the populated and the largest bucket's assembled workspaces; runs
 ``chip_smoke.tri_solve_check`` (the kernel held against its plain version,
@@ -41,6 +52,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -63,12 +75,14 @@ def main(argv=None) -> int:
     src = os.path.abspath(args.src)
     sys.path[:0] = [src, ROOT]
     import chip_smoke as cs
+    from repro_torch.core.features import csr_stats_args, pad_csr_batch
     from repro_torch.core.plan import PlanBuilder, execute_plan
     from repro_torch.device import to_device
-    from repro_torch.kernels import launch_counts, ops, spmv_bell
+    from repro_torch.kernels import csr_stats, launch_counts, ops, spmv_bell
     from repro_torch.kernels._build import load_kernels
+    from repro_torch.sparse import multifrontal as mf
     from repro_torch.sparse.csr import permute_symmetric
-    from repro_torch.sparse.dataset import grid3d
+    from repro_torch.sparse.dataset import generate_suite, grid3d
     from repro_torch.sparse.multifrontal import (_route_contributions,
                                                  multifrontal_cholesky)
 
@@ -85,20 +99,45 @@ def main(argv=None) -> int:
     solve()
     runs = []
     for _ in range(RUNS):
-        before = spmv_bell.bell_spmv.launches
+        before = launch_counts()
         sp = solve()["spans"]
-        runs.append({k: sp[k] for k in ("factor.device", "solve.setup",
-                                         "solve.sweep", "solve.refine")})
-        runs[-1]["bell_spmv launches"] = spmv_bell.bell_spmv.launches - before
+        after = launch_counts()
+        runs.append({k: sp[k] for k in ("factor.schedule", "factor.device",
+                                         "solve.setup", "solve.sweep",
+                                         "solve.refine")})
+        for k in ("bell_spmv", "extend_add_batch"):
+            runs[-1][f"{k} launches"] = after[k] - before[k]
     spans = cs.profile_call("execute_plan", solve)
     device_s = {stem: cs.kernel_device_s(spans, stem)
-                for stem in ("tri_solve", "bell_") + cs.FACTOR_STEMS}
+                for stem in ("tri_solve", "bell_", "extend_add")
+                + cs.FACTOR_STEMS}
     device_s["factor"] = sum(device_s[s]["total"] for s in cs.FACTOR_STEMS)
+    h2d = cs.copy_events(spans, "HtoD")
 
     pa = permute_symmetric(a, plan.perm)
     f = multifrontal_cholesky(pa, sym=plan.sym, device=dev)
     routes = _route_contributions(f.schedule)
+    # the host cost of the extend-add routing inside factor.schedule: the
+    # routes of every tree, and the device routing of a tree that has one
+    build_s = {}
+    for name in ("_route_contributions", "_device_routing"):
+        fn = getattr(mf, name, None)
+        if fn is not None:
+            build_s[name] = []
+            for _ in range(RUNS):
+                t0 = time.perf_counter()
+                fn(f.schedule)
+                build_s[name].append(time.perf_counter() - t0)
     picks = cs.pick_buckets(f.schedule, routes)
+    extend_add = {}
+    for tag in ("largest_fed", "populated_fed"):
+        bk, w0, _ = cs.bucket_inputs(pa, f, routes, picks[tag], dev)
+        run, wk = cs.extend_add_as_path(f, routes, picks[tag], dev), w0.clone()
+        extend_add[f"{tag} B={len(bk.members)} M={bk.M}"] = cs.device_ms(
+            lambda: run(wk), setup=lambda: wk.copy_(w0))
+    ra = csr_stats_args(pad_csr_batch(list(generate_suite(
+        16, seed=1, size_scale=8)), bucket=True), dev)[1]
+    row_stats_ms = cs.device_ms(lambda: csr_stats.row_stats(*ra))
     frontal = {}
     for tag in ("populated", "largest"):
         bk, w0, groups = cs.bucket_inputs(pa, f, routes, picks[tag], dev)
@@ -156,7 +195,10 @@ def main(argv=None) -> int:
                              cs.per_front_products(f.schedule))
     print(json.dumps({"src": os.path.relpath(src, ROOT),
                       "device": torch.cuda.get_device_name(0),
-                      "runs": runs, "device_s": device_s,
+                      "runs": runs, "routing_build_s": build_s,
+                      "device_s": device_s, "h2d": h2d,
+                      "extend_add_ms": extend_add,
+                      "row_stats_ms": row_stats_ms,
                       "frontal_factor_batch": frontal,
                       "tri_solve": tri, "bell_spmv_ms": bell,
                       "per_front": per_front, "tile_ms": tile_ms}),

@@ -24,10 +24,13 @@ from ..device import on_cuda
 from ._build import load_kernels
 
 __all__ = ["entry_stats", "row_stats", "entry_stats_plain", "row_stats_plain",
-           "CHUNK", "ROW_MIN_INIT"]
+           "CHUNK", "ROW_CHUNK", "ROW_MIN_INIT"]
 
-#: entries (rows) one block of the first pass reduces
+#: entries one entry_stats block reduces
 CHUNK = 4096
+#: rows one row_stats block reduces (a multiple of 4: it reads 16 bytes at a
+#: time)
+ROW_CHUNK = 8192
 #: min-accumulator identity (~f32 max), the reference's ``_ROW_MIN_INIT``
 ROW_MIN_INIT = 3.4e38
 
@@ -75,24 +78,42 @@ def entry_stats(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
     return out
 
 
+#: per (device, stream): int32 arrival counters of ``row_stats``, all zero
+#: between calls (the kernel's last block of a matrix resets its counter)
+_ARRIVED: dict = {}
+
+
+def _arrival_counters(device: torch.device, B: int) -> torch.Tensor:
+    """At least B zeroed counters for ``row_stats`` on the current stream
+    of ``device``. Calls on one stream run in order, so they can share
+    them."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    cnt = _ARRIVED.get(key)
+    if cnt is None or cnt.numel() < B:
+        cnt = _ARRIVED[key] = torch.zeros(max(B, 64), dtype=torch.int32,
+                                          device=device)
+    return cnt
+
+
 def row_stats(row_nnz: torch.Tensor, row_valid: torch.Tensor,
               mean: torch.Tensor) -> torch.Tensor:
     """Per-matrix [max, min, Σ(x−mean)²] of valid per-row nonzero counts.
 
     row_nnz/row_valid: (B, N) int32; mean: (B,) float32 (= nnz/n, computed
     by the caller so the deviation sum is single-pass).
-    Returns (B, 3) float32.
+    Returns (B, 3) float32. One kernel launch.
     """
     if not on_cuda(row_nnz, row_valid, mean):
         return row_stats_plain(row_nnz, row_valid, mean)
     B, N = row_nnz.shape
-    parts = (B, -(-N // CHUNK))
-    mx_part = torch.empty(parts, dtype=torch.int32, device=row_nnz.device)
-    mn_part = torch.empty(parts, dtype=torch.int32, device=row_nnz.device)
-    sq_part = torch.empty(parts, dtype=torch.float64, device=row_nnz.device)
-    out = torch.empty((B, 3), dtype=torch.float32, device=row_nnz.device)
-    load_kernels().row_stats(row_nnz, row_valid, mean, CHUNK, mx_part,
-                             mn_part, sq_part, out)
+    dev = row_nnz.device
+    parts = (B, max(1, -(-N // ROW_CHUNK)))
+    mx_part = torch.empty(parts, dtype=torch.int32, device=dev)
+    mn_part = torch.empty(parts, dtype=torch.int32, device=dev)
+    sq_part = torch.empty(parts, dtype=torch.float64, device=dev)
+    out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    load_kernels().row_stats(row_nnz, row_valid, mean, ROW_CHUNK, mx_part,
+                             mn_part, sq_part, _arrival_counters(dev, B), out)
     row_stats.launches += 1
     return out
 

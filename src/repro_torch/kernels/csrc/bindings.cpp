@@ -56,36 +56,85 @@ void frontal_factor(at::Tensor& w, int64_t npiv, int64_t bs) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void extend_add(at::Tensor& w, const at::Tensor& u, int64_t off,
-                const at::Tensor& src, const at::Tensor& rows,
-                const at::Tensor& seg_ptr, const at::Tensor& seg_dst) {
+// One int32 section of an extend-add routing: contiguous, on w's device,
+// its storage aligned for the 16-byte (maps, ent) or 8-byte (rows) loads of
+// the kernel.
+void check_section(const at::Tensor& t, const at::Tensor& w, int64_t cols,
+                   int64_t align, const char* name) {
+  check_int_vector(t, w, name);
+  TORCH_CHECK(t.dim() == (cols == 1 ? 1 : 2) &&
+                  (cols == 1 || t.size(1) == cols),
+              name, " must be a (n, ", cols, ") int32 section");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % align == 0, name,
+              " must start at a multiple of ", align, " bytes");
+}
+
+// Destination rows [r0, r1) of the routing (maps, ent, rows, span)
+// into the (B, M, M) stack w, reading U from the source stacks u[g] at
+// offsets off[g] (frontal_cholesky.py `extend_add_routed`).
+void extend_add(at::Tensor& w, at::TensorList u, at::IntArrayRef off,
+                const at::Tensor& maps,
+                const at::Tensor& ent, const at::Tensor& rows,
+                const at::Tensor& span, int64_t r0, int64_t r1,
+                int64_t max_r) {
   check_cuda(w, at::kFloat, "w");
-  check_cuda(u, at::kFloat, "u");
   TORCH_CHECK(w.dim() == 3 && w.size(1) == w.size(2) && w.is_contiguous(),
               "w must be a contiguous (B, M, M) stack");
-  TORCH_CHECK(u.dim() == 3 && u.size(1) == u.size(2) && u.is_contiguous(),
-              "u must be a contiguous (Bu, Mu, Mu) stack");
-  TORCH_CHECK(u.device() == w.device(), "u is on another device");
-  for (const auto* t : {&src, &rows, &seg_ptr, &seg_dst})
-    check_int_vector(*t, w, "index tensor");
-  TORCH_CHECK(rows.dim() == 2 && rows.size(0) == src.numel(),
-              "rows must be (C, R) with C = len(src)");
-  const int64_t R = rows.size(1);
-  TORCH_CHECK(off >= 0 && off + R <= u.size(1),
-              "u[:, off:off+R, off:off+R] is out of range");
-  TORCH_CHECK(seg_ptr.numel() == seg_dst.numel() + 1,
-              "seg_ptr must have one entry more than seg_dst");
-  TORCH_CHECK(R * sizeof(int) <= 48 * 1024, "R too large: ", R);
-  const int64_t nseg = seg_dst.numel();
-  if (nseg == 0 || R == 0) return;
+  const int64_t M = w.size(1);
+  TORCH_CHECK(M < 65536, "extend_add takes fronts of M < 65,536, got ", M);
+  TORCH_CHECK(w.size(0) * M <= INT32_MAX, "too many rows in w");
+  TORCH_CHECK(!u.empty() && u.size() <= kEaMaxGroups &&
+                  static_cast<int64_t>(u.size()) ==
+                      static_cast<int64_t>(off.size()),
+              "one to ", kEaMaxGroups, " source stacks, each with an offset");
+  EaTable tab{};
+  tab.n = static_cast<int>(u.size());
+  for (size_t g = 0; g < u.size(); ++g) {
+    const at::Tensor& s = u[g];
+    check_cuda(s, at::kFloat, "u");
+    TORCH_CHECK(s.dim() == 3 && s.size(1) == s.size(2) && s.is_contiguous(),
+                "each u must be a contiguous (Bu, Mu, Mu) stack");
+    TORCH_CHECK(s.device() == w.device(), "u is on another device");
+    TORCH_CHECK(off[g] >= 0 && off[g] <= s.size(1), "offset out of range");
+    tab.g[g] = EaGroup{s.data_ptr<float>(), as_int(s.size(1), "Mu"),
+                       static_cast<int>(off[g])};
+  }
+  check_section(maps, w, 1, 16, "maps");
+  check_section(ent, w, 4, 16, "ent");
+  check_section(rows, w, 2, 8, "rows");
+  check_section(span, w, 1, 4, "span");
+  TORCH_CHECK(0 <= r0 && r0 <= r1 && r1 <= span.size(0) &&
+                  span.size(0) + 1 == rows.size(0),
+              "rows [r0, r1) out of range");
+  TORCH_CHECK(max_r >= 0 && max_r <= INT32_MAX, "max_r out of range");
+  if (r1 == r0) return;
   const c10::cuda::CUDAGuard guard(w.device());
-  launch_extend_add(w.data_ptr<float>(), as_int(w.size(1), "M"),
-                    u.data_ptr<float>(), as_int(u.size(1), "Mu"),
-                    static_cast<int>(off), src.data_ptr<int>(),
-                    rows.data_ptr<int>(), static_cast<int>(R),
-                    seg_ptr.data_ptr<int>(), seg_dst.data_ptr<int>(),
-                    as_int(nseg, "nseg"), c10::cuda::getCurrentCUDAStream());
+  launch_extend_add(w.data_ptr<float>(), static_cast<int>(M), tab,
+                    maps.data_ptr<int>(),
+                    ent.data_ptr<int>(), rows.data_ptr<int>(),
+                    reinterpret_cast<const unsigned*>(span.data_ptr<int>()),
+                    static_cast<int>(r0), static_cast<int>(r1),
+                    static_cast<int>(max_r),
+                    c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The extend_add and row_stats kernels' instantiation i and its resources,
+// as extend_add_kernel_info and row_stats_kernel_info (kernels.h) list
+// them; an empty list past the last.
+std::vector<int64_t> extend_add_info(int64_t i) {
+  int info[5];
+  if (i < 0 || i > INT32_MAX ||
+      !extend_add_kernel_info(static_cast<int>(i), info))
+    return {};
+  return std::vector<int64_t>(info, info + 5);
+}
+
+std::vector<int64_t> row_stats_info(int64_t i) {
+  int info[5];
+  if (i < 0 || i > INT32_MAX || !row_stats_kernel_info(static_cast<int>(i), info))
+    return {};
+  return std::vector<int64_t>(info, info + 5);
 }
 
 void tri_solve(const at::Tensor& l, at::Tensor& x, int64_t bs, int64_t kt,
@@ -187,12 +236,11 @@ void check_batch(const at::Tensor& t, at::ScalarType type,
 
 // Partial buffers of a (B, len) reduction in chunks of `chunk`.
 void check_parts(const at::Tensor& t, at::ScalarType type, int64_t B,
-                 int64_t len, int64_t chunk, const at::Tensor& like,
-                 const char* name) {
+                 int64_t chunks, const at::Tensor& like, const char* name) {
   check_cuda(t, type, name);
   TORCH_CHECK(t.is_contiguous() && t.dim() == 2 && t.size(0) == B &&
-                  t.size(1) == (len + chunk - 1) / chunk,
-              name, " must be a contiguous (B, ceil(len / chunk)) buffer");
+                  t.size(1) == chunks,
+              name, " must be a contiguous (B, ", chunks, ") buffer");
   TORCH_CHECK(t.device() == like.device(), name, " is on another device");
 }
 
@@ -216,8 +264,9 @@ void entry_stats(const at::Tensor& rows, const at::Tensor& cols,
   const int64_t B = rows.size(0), E = rows.size(1);
   TORCH_CHECK(chunk >= 1 && chunk <= INT32_MAX, "chunk out of range");
   TORCH_CHECK(B <= 65535, "at most 65,535 matrices in a batch, got ", B);
-  check_parts(bw_part, at::kInt, B, E, chunk, rows, "bw_part");
-  check_parts(prof_part, at::kLong, B, E, chunk, rows, "prof_part");
+  check_parts(bw_part, at::kInt, B, (E + chunk - 1) / chunk, rows, "bw_part");
+  check_parts(prof_part, at::kLong, B, (E + chunk - 1) / chunk, rows,
+              "prof_part");
   check_out(out, B, 2, rows);
   if (B == 0) return;
   const c10::cuda::CUDAGuard guard(rows.device());
@@ -232,7 +281,8 @@ void entry_stats(const at::Tensor& rows, const at::Tensor& cols,
 
 void row_stats(const at::Tensor& row_nnz, const at::Tensor& row_valid,
                const at::Tensor& mean, int64_t chunk, at::Tensor& mx_part,
-               at::Tensor& mn_part, at::Tensor& sq_part, at::Tensor& out) {
+               at::Tensor& mn_part, at::Tensor& sq_part, at::Tensor& arrived,
+               at::Tensor& out) {
   check_batch(row_nnz, at::kInt, row_nnz, "row_nnz");
   check_batch(row_valid, at::kInt, row_nnz, "row_valid");
   const int64_t B = row_nnz.size(0), N = row_nnz.size(1);
@@ -240,11 +290,16 @@ void row_stats(const at::Tensor& row_nnz, const at::Tensor& row_valid,
   TORCH_CHECK(mean.dim() == 1 && mean.size(0) == B && mean.is_contiguous(),
               "mean must be a contiguous (B,) float32 tensor");
   TORCH_CHECK(mean.device() == row_nnz.device(), "mean is on another device");
-  TORCH_CHECK(chunk >= 1 && chunk <= INT32_MAX, "chunk out of range");
+  TORCH_CHECK(chunk >= 4 && chunk <= INT32_MAX && chunk % 4 == 0,
+              "chunk must be a positive multiple of 4");
   TORCH_CHECK(B <= 65535, "at most 65,535 matrices in a batch, got ", B);
-  check_parts(mx_part, at::kInt, B, N, chunk, row_nnz, "mx_part");
-  check_parts(mn_part, at::kInt, B, N, chunk, row_nnz, "mn_part");
-  check_parts(sq_part, at::kDouble, B, N, chunk, row_nnz, "sq_part");
+  const int64_t chunks = std::max<int64_t>(1, (N + chunk - 1) / chunk);
+  check_parts(mx_part, at::kInt, B, chunks, row_nnz, "mx_part");
+  check_parts(mn_part, at::kInt, B, chunks, row_nnz, "mn_part");
+  check_parts(sq_part, at::kDouble, B, chunks, row_nnz, "sq_part");
+  check_int_vector(arrived, row_nnz, "arrived");
+  TORCH_CHECK(arrived.dim() == 1 && arrived.size(0) >= B,
+              "arrived must hold a counter for each matrix");
   check_out(out, B, 3, row_nnz);
   if (B == 0) return;
   const c10::cuda::CUDAGuard guard(row_nnz.device());
@@ -252,8 +307,9 @@ void row_stats(const at::Tensor& row_nnz, const at::Tensor& row_valid,
                    mean.data_ptr<float>(), static_cast<int>(B),
                    as_int(N, "N"), static_cast<int>(chunk),
                    mx_part.data_ptr<int>(), mn_part.data_ptr<int>(),
-                   sq_part.data_ptr<double>(), out.data_ptr<float>(),
-                   c10::cuda::getCurrentCUDAStream());
+                   sq_part.data_ptr<double>(),
+                   reinterpret_cast<unsigned*>(arrived.data_ptr<int>()),
+                   out.data_ptr<float>(), c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -440,9 +496,12 @@ TORCH_LIBRARY(repro_torch, m) {
         &frontal_factor);
   m.def("frontal_factor_info(int i) -> int[]", &frontal_factor_info);
   m.def(
-      "extend_add(Tensor(a!) w, Tensor u, int off, Tensor src, Tensor rows, "
-      "Tensor seg_ptr, Tensor seg_dst) -> ()",
+      "extend_add(Tensor(a!) w, Tensor[] u, int[] off, Tensor maps, "
+      "Tensor ent, Tensor rows, Tensor span, int r0, int r1, int max_r) "
+      "-> ()",
       &extend_add);
+  m.def("extend_add_info(int i) -> int[]", &extend_add_info);
+  m.def("row_stats_info(int i) -> int[]", &row_stats_info);
   m.def("tri_solve(Tensor l, Tensor(a!) x, int bs, int kt, bool lower) -> ()",
         &tri_solve);
   m.def("tri_solve_info(int P, int kt, int bs, bool lower) -> int[]",
@@ -464,6 +523,6 @@ TORCH_LIBRARY(repro_torch, m) {
   m.def(
       "row_stats(Tensor row_nnz, Tensor row_valid, Tensor mean, int chunk, "
       "Tensor(a!) mx_part, Tensor(b!) mn_part, Tensor(c!) sq_part, "
-      "Tensor(d!) out) -> ()",
+      "Tensor(d!) arrived, Tensor(e!) out) -> ()",
       &row_stats);
 }

@@ -32,10 +32,38 @@ void launch_frontal_factor(float* w, float* xinv, int B, int M, int npiv,
 // largest (bytes), local memory per thread (bytes: spills).
 int frontal_factor_kernel_info(int i, int out[8]);
 
-void launch_extend_add(float* w, int M, const float* u, int Mu, int off,
-                       const int* src, const int* rows, int R,
-                       const int* seg_ptr, const int* seg_dst, int nseg,
-                       cudaStream_t stream);
+// extend_add.cu: one launch adds every contribution of destination rows
+// [r0, r1) of a routing into the (B, M, M) stack `w` (M < 65,536). Each
+// contribution reads its U from one of the tab.n source groups: a factored
+// (Bu, Mu, Mu) stack and the offset of its trailing block. The routing's
+// arrays (frontal_cholesky.py `ExtendAddRouting`): maps (each contribution's
+// row map, padded with -1 to a multiple of 4); ent (4 ints an entry, a
+// (contribution, U row) pair: src << 5 | group, row-map offset, R, U row);
+// rows (2 ints a destination row and a sentinel: slot * M + row, its first
+// entry); span (a destination row's first and one past its last touched
+// column, lo | hi << 16). `max_r` is the widest row map of the launch.
+constexpr int kEaMaxGroups = 32;
+
+struct EaGroup {
+  const float* u;
+  int Mu;
+  int off;
+};
+
+struct EaTable {
+  EaGroup g[kEaMaxGroups];
+  int n;
+};
+
+void launch_extend_add(float* w, int M, const EaTable& tab, const int* maps,
+                       const int* ent, const int* rows, const unsigned* span,
+                       int r0, int r1, int max_r, cudaStream_t stream);
+
+// Instantiation i of the extend_add kernel, while i is below 2 (returns 0
+// past it): whether it loads 16 bytes, threads a block, registers per
+// thread, shared memory per block (bytes), local memory per thread (bytes:
+// spills).
+int extend_add_kernel_info(int i, int out[5]);
 
 void launch_tri_solve(const float* l, long long l_bstride, int ldl, float* x,
                       int B, int P, int K, int kt, int bs, bool lower,
@@ -73,10 +101,18 @@ void launch_entry_stats(const int* rows, const int* cols, const int* valid,
                         int* bw_part, int64_t* prof_part, float* out,
                         cudaStream_t stream);
 
+// row_stats is one kernel: its partial buffers are (B, max(1, ceil(N /
+// chunk))), chunk a multiple of 4, and `arrived` (B) holds zeros, which the
+// kernel leaves as it found them.
 void launch_row_stats(const int* row_nnz, const int* row_valid,
                       const float* mean, int B, int N, int chunk,
-                      int* mx_part, int* mn_part, double* sq_part, float* out,
-                      cudaStream_t stream);
+                      int* mx_part, int* mn_part, double* sq_part,
+                      unsigned* arrived, float* out, cudaStream_t stream);
+
+// Instantiation i of the row_stats kernel, while i is below 2: whether it
+// loads 16 bytes, threads a block, registers per thread, shared memory per
+// block (bytes), local memory per thread (bytes: spills).
+int row_stats_kernel_info(int i, int out[5]);
 
 // tile_kernels.cu: `a`, `l` and the matmul operands are row-major with the
 // given row strides (unit column stride); `l` and `y` are contiguous

@@ -9,7 +9,11 @@ hand-written CUDA kernel with its plain PyTorch version beside it.
   ``frontal_factor_batch``, ``extend_add_batch`` and ``tri_solve_batch``
   (``csrc/frontal_factor.cu``, ``csrc/extend_add.cu``,
   ``csrc/tri_solve.cu``). These work in place on the tensor they are given,
-  as the TPU kernels' aliased outputs did.
+  as the TPU kernels' aliased outputs did. The pipelined factor reaches the
+  extend-add kernel through ``extend_add_routed``: one launch per
+  destination bucket, from an :class:`ExtendAddRouting` uploaded once per
+  factorization; ``extend_add_batch`` is the same kernel for one group of
+  contributions.
 
 Each wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel (building it at first use) or raises. The
@@ -21,18 +25,21 @@ and the tile inverse read only the lower triangle of L.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..device import on_cuda, to_device
+from ..device import on_cuda
 from ._build import load_kernels
 
 __all__ = ["chol_tile", "chol_tile_plain", "tri_inv_tile",
            "tri_inv_tile_plain", "matmul_nt", "matmul_nt_plain",
            "frontal_factor_batch", "frontal_factor_batch_plain",
-           "extend_add_batch", "extend_add_batch_plain",
+           "extend_add_batch", "extend_add_batch_plain", "extend_add_routed",
+           "extend_add_routed_plain", "extend_add_routing", "ExtendAddRouting",
+           "extend_add_routing_arrays", "ExtendAddLaunch", "EA_MAX_GROUPS",
            "tri_solve_batch", "tri_solve_batch_plain"]
 
 
@@ -201,17 +208,197 @@ def frontal_factor_batch(w: torch.Tensor, npiv: int, *, bs: int
 frontal_factor_batch.launches = 0
 
 
-# -- extend_add_batch --------------------------------------------------------
+# -- extend_add_batch ---------------------------------------------------------
 
-def _segments(dst: np.ndarray) -> tuple:
-    """(seg_ptr, seg_dst) of an ascending ``dst``: contributions
-    ``seg_ptr[s]:seg_ptr[s+1]`` all go to slot ``seg_dst[s]``."""
-    dst = np.asarray(dst, dtype=np.int64)
-    if dst.size and np.any(np.diff(dst) < 0):
-        raise ValueError("dst must be sorted ascending")
-    starts = np.flatnonzero(np.r_[True, dst[1:] != dst[:-1]]) if dst.size \
+#: source stacks one extend-add launch reads (the kernel's by-value table,
+#: ``kEaMaxGroups``); a destination with more takes further launches
+EA_MAX_GROUPS = 32
+_GROUP_BITS = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtendAddLaunch:
+    """One extend-add kernel launch: source groups ``[g0, g1)`` of its
+    destination and the routing's destination rows ``[r0, r1)``; ``max_r``
+    is its widest row map."""
+
+    g0: int
+    g1: int
+    r0: int
+    r1: int
+    max_r: int
+
+
+@dataclasses.dataclass
+class ExtendAddRouting:
+    """The extend-add routing of a sequence of destination buckets, as the
+    kernel reads it, in one int32 tensor (``data``) of four sections:
+
+    * ``maps``: each contribution's row map, padded with −1 to a multiple
+      of 4;
+    * ``ent`` (E, 4): per (contribution, U row) pair ``[src << 5 | group,
+      map offset, R, i]`` (``group`` the contribution's source group within
+      its launch, R the width of its row map, i the U row), grouped by the
+      destination row the pair lands on, in contribution order within a
+      row;
+    * ``rows`` (N + 1, 2): per destination row ``[slot * M + row, its first
+      entry]``, and a sentinel ``[0, E]``; rows that receive nothing are
+      left out;
+    * ``span`` (N,): a row's first and one past its last touched column,
+      ``lo | hi << 16``.
+
+    ``launches[d]`` lists destination ``d``'s launches in order; ``meta[d]``
+    holds its M, the largest destination slot and each source group's
+    largest source slot and row-map width, which the launch checks against
+    the stacks."""
+
+    data: torch.Tensor
+    sizes: Tuple[int, int, int]    # map ints, E, N
+    launches: List[List[ExtendAddLaunch]]
+    meta: List[Tuple[int, int, List[int], List[int]]]
+
+    def sections(self) -> Tuple[torch.Tensor, ...]:
+        """(maps, ent, rows, span) views of ``data``."""
+        nm, E, N = self.sizes
+        cut = np.cumsum([0, nm, 4 * E, 2 * (N + 1), N])
+        maps, ent, rows, span = (self.data[a:b] for a, b in
+                                 zip(cut[:-1], cut[1:]))
+        return maps, ent.view(E, 4), rows.view(N + 1, 2), span
+
+    def to(self, device) -> "ExtendAddRouting":
+        """The routing on ``device``, in one copy (pinned and asynchronous
+        for CUDA)."""
+        device = torch.device(device)
+        data = (self.data if device.type != "cuda" else
+                self.data.pin_memory().to(device, non_blocking=True))
+        return dataclasses.replace(self, data=data)
+
+
+def extend_add_routing(dests) -> ExtendAddRouting:
+    """Build the routing of destination buckets ``dests``, each ``(M,
+    groups)`` with ``groups`` its source groups in launch order, each
+    ``(src, dst, rows)`` as :func:`extend_add_batch` takes them: the
+    contributions of a destination are its groups' in order, each group's in
+    its own order. See :func:`extend_add_routing_arrays`."""
+    cols = ([], [], [], [], [], [], [], [])
+    nc = 0
+    for d, (_, groups) in enumerate(dests):
+        for g, (src, dst, rows) in enumerate(groups):
+            rows = np.asarray(rows, dtype=np.int64)
+            C, R = rows.shape
+            if np.shape(src) != (C,) or np.shape(dst) != (C,):
+                raise ValueError("src and dst must have one entry per row map")
+            ci, ii = np.nonzero(rows >= 0)
+            for col, x in zip(cols, (np.full(C, d), np.full(C, g), src, dst,
+                                     np.full(C, R), nc + ci, ii, rows[ci, ii])):
+                col.append(np.asarray(x, dtype=np.int64))
+            nc += C
+    return extend_add_routing_arrays(
+        [M for M, _ in dests], [len(groups) for _, groups in dests],
+        *(np.concatenate(c) if c else np.zeros(0, np.int64) for c in cols))
+
+
+def extend_add_routing_arrays(M, ngroups, c_dest, c_group, c_src, c_dst,
+                              c_R, e_c, e_i, e_col) -> ExtendAddRouting:
+    """Build the routing from flat arrays. Per destination: its front width
+    ``M`` and its number of source groups. Per contribution, in routing
+    order (destinations ascending, then source groups ascending, then the
+    order in which each W entry is to receive its adds): its destination,
+    its source group within it, its source and destination slots and its
+    row-map width R. Per active (contribution, U row) pair, in contribution
+    order: the contribution, the U row and the destination row it maps to.
+    Host NumPy, vectorised: every per-group or per-destination figure is a
+    reduction over a run of the sorted contributions."""
+    M = np.asarray(M, dtype=np.int64)
+    ngroups = np.asarray(ngroups, dtype=np.int64)
+    nd, C, E = M.size, c_dest.size, e_c.size
+    if np.any((M <= 0) | (M >= 65536)):
+        raise ValueError("fronts of M < 65,536 only")
+    if C and (np.any(np.diff(c_dest * (1 << 32) + c_group) < 0)
+              or np.any(c_group >= ngroups[c_dest])
+              or min(c_src.min(), c_dst.min()) < 0
+              or c_src.max() >= 1 << (31 - _GROUP_BITS)):
+        raise ValueError("contributions out of order, or src or dst out of "
+                         "range")
+    if E and (np.any(np.diff(e_c) < 0) or e_col.min() < 0
+              or np.any(e_col >= M[c_dest[e_c]])):
+        raise ValueError("entries out of order, or a row map out of range")
+
+    def runs(key):  # the first index of each run of a sorted key
+        return (np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if key.size
+                else np.zeros(0, np.int64))
+
+    def run_max(out, key, x):  # out[k] = max of x over the run of key k
+        at = runs(key)
+        if at.size:
+            out[key[at]] = np.maximum.reduceat(x, at)
+        return out
+
+    # source groups and launches of each destination
+    nl = -(-ngroups // EA_MAX_GROUPS)
+    lbase = np.r_[0, np.cumsum(nl)]
+    gbase = np.r_[0, np.cumsum(ngroups)]
+    c_launch = lbase[c_dest] + c_group // EA_MAX_GROUPS
+    c_gid = gbase[c_dest] + c_group
+    max_r = run_max(np.zeros(lbase[-1], np.int64), c_launch, c_R)
+    smax = run_max(np.full(gbase[-1], -1, np.int64), c_gid, c_src)
+    widths = run_max(np.zeros(gbase[-1], np.int64), c_gid, c_R)
+    dmax = run_max(np.full(nd, -1, np.int64), c_dest, c_dst)
+    # row maps, each padded with -1 to a multiple of 4 ints
+    R4 = -(-c_R // 4) * 4
+    map_off = np.r_[0, np.cumsum(R4)]
+    maps = np.full(map_off[-1], -1, np.int64)
+    maps[map_off[e_c] + e_i] = e_col
+    # each contribution's first and one past its last destination row
+    c_lo = np.full(C, 1 << 16, np.int64)
+    c_hi = run_max(np.full(C, -1, np.int64), e_c, e_col) + 1
+    at = runs(e_c)
+    if at.size:
+        c_lo[e_c[at]] = np.minimum.reduceat(e_col, at)
+    # destination rows: the entries grouped by (launch, slot * M + row),
+    # each row's in contribution order; a launch's rows are keyed from its
+    # base
+    e_wrow = c_dst[e_c] * M[c_dest[e_c]] + e_col
+    base = np.r_[0, np.cumsum(np.repeat((dmax + 1) * M, nl))]
+    key = base[c_launch[e_c]] + e_wrow
+    order = (np.argsort(key * C + e_c) if base[-1] < (1 << 62) // max(C, 1)
+             else np.lexsort((e_c, key)))
+    key, e_c, e_i, e_wrow = (x[order] for x in (key, e_c, e_i, e_wrow))
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if E \
         else np.zeros(0, np.int64)
-    return np.r_[starts, dst.size].astype(np.int32), dst[starts].astype(np.int32)
+    N = starts.size
+    rows = np.zeros((N + 1, 2), np.int64)
+    rows[:N, 0] = e_wrow[starts]
+    rows[:N, 1] = starts
+    rows[N, 1] = E
+    # the span of a row fed by several contributions (the kernel reads no
+    # other)
+    span = np.zeros(N, np.int64)
+    multi = np.flatnonzero(np.diff(rows[:, 1]) > 1)
+    if multi.size:
+        lens = np.diff(rows[:, 1])[multi]
+        at = np.cumsum(lens) - lens  # each row's first, compacted
+        cm = e_c[np.arange(lens.sum()) + np.repeat(rows[multi, 1] - at, lens)]
+        span[multi] = (np.minimum.reduceat(c_lo[cm], at)
+                       | np.maximum.reduceat(c_hi[cm], at) << 16)
+    bounds = np.searchsorted(c_launch[e_c[starts]], np.arange(lbase[-1] + 1))
+    launches, meta = [], []
+    for d in range(nd):
+        ls = []
+        for k in range(lbase[d], lbase[d + 1]):
+            g0 = int(k - lbase[d]) * EA_MAX_GROUPS
+            ls.append(ExtendAddLaunch(
+                g0, min(int(ngroups[d]), g0 + EA_MAX_GROUPS), int(bounds[k]),
+                int(bounds[k + 1]), int(max_r[k])))
+        launches.append(ls)
+        meta.append((int(M[d]), int(dmax[d]),
+                     smax[gbase[d] : gbase[d + 1]].tolist(),
+                     widths[gbase[d] : gbase[d + 1]].tolist()))
+    ent = np.stack([c_src[e_c] << _GROUP_BITS | c_group[e_c] % EA_MAX_GROUPS,
+                    map_off[e_c], c_R[e_c], e_i], axis=1)
+    data = np.concatenate([maps, ent.ravel(), rows.ravel(), span])
+    return ExtendAddRouting(torch.from_numpy(data.astype(np.int32)),
+                            (maps.size, E, N), launches, meta)
 
 
 def extend_add_batch_plain(w: torch.Tensor, u: torch.Tensor, dst, rows, src,
@@ -230,6 +417,81 @@ def extend_add_batch_plain(w: torch.Tensor, u: torch.Tensor, dst, rows, src,
     return w
 
 
+def extend_add_routed_plain(w: torch.Tensor, us, offs, routing:
+                            ExtendAddRouting, d: int) -> torch.Tensor:
+    """Plain version of :func:`extend_add_routed`: an interpreter of the
+    routing. Round k adds the k-th entry of every destination row at once
+    (no two of them share a W entry), so every W entry receives its adds in
+    the routing's order, as the kernel adds them. In place on ``w``."""
+    maps, ent, rows, _ = (t.cpu().numpy().astype(np.int64)
+                          for t in routing.sections())
+    M = w.shape[1]
+    wf = w.view(-1)
+    t = lambda x: torch.as_tensor(x, device=w.device)  # noqa: E731
+    for ln in routing.launches[d]:
+        first = rows[ln.r0 : ln.r1 + 1, 1]
+        e = np.arange(first[0], first[-1])
+        rank = e - np.repeat(first[:-1], np.diff(first))
+        wrow = np.repeat(rows[ln.r0 : ln.r1, 0], np.diff(first))
+        src, grp = ent[e, 0] >> _GROUP_BITS, ent[e, 0] & (EA_MAX_GROUPS - 1)
+        moff, R, i = ent[e, 1], ent[e, 2], ent[e, 3]
+        for k in range(int(rank.max(initial=-1)) + 1):
+            for g in np.unique(grp[rank == k]):
+                sel = np.flatnonzero((rank == k) & (grp == g))
+                j = np.arange(int(R[sel].max()))
+                cols = np.where(j < R[sel, None],
+                                maps[np.minimum(moff[sel, None] + j,
+                                                maps.size - 1)], -1)
+                n, jj = np.nonzero(cols >= 0)
+                u, off = us[ln.g0 + g], offs[ln.g0 + g]
+                vals = u[t(src[sel][n]), t(off + i[sel][n]), t(off + jj)]
+                idx = t(wrow[sel][n] * M + cols[n, jj])
+                wf[idx] = wf[idx] + vals
+    return w
+
+
+def _check_launch(w: torch.Tensor, us, offs, routing: ExtendAddRouting,
+                  d: int) -> None:
+    M, dmax, smax, widths = routing.meta[d]
+    if w.dim() != 3 or w.shape[1:] != (M, M) or dmax >= w.shape[0]:
+        raise ValueError(f"w {tuple(w.shape)} does not fit destination {d} "
+                         f"(M = {M}, slots up to {dmax})")
+    if w.dtype != torch.float32:
+        raise TypeError("w must be float32")
+    if len(us) != len(smax) or len(offs) != len(smax):
+        raise ValueError(f"destination {d} reads {len(smax)} source stacks, "
+                         f"got {len(us)} stacks and {len(offs)} offsets")
+    for g, (u, off) in enumerate(zip(us, offs)):
+        if u.dtype != torch.float32:
+            raise TypeError("every source stack must be float32")
+        if (u.dim() != 3 or u.shape[1] != u.shape[2] or smax[g] >= u.shape[0]
+                or off < 0 or off + widths[g] > u.shape[1]):
+            raise ValueError(f"source stack {g} {tuple(u.shape)} does not "
+                             f"fit its contributions")
+
+
+def extend_add_routed(w: torch.Tensor, us, offs, routing: ExtendAddRouting,
+                      d: int) -> torch.Tensor:
+    """Extend-add of destination ``d`` of ``routing`` into the (B, M, M)
+    stack ``w``, in place: its source groups read their U from the factored
+    stacks ``us`` at offsets ``offs`` (``U[c] = us[g][src[c],
+    off:off+R, off:off+R]``). One kernel launch per :data:`EA_MAX_GROUPS`
+    source groups, none uploading anything: ``routing`` must already be on
+    ``w``'s device. Returns ``w``."""
+    _check_launch(w, us, offs, routing, d)
+    if not on_cuda(w, *us, routing.data):
+        return extend_add_routed_plain(w, us, offs, routing, d)
+    maps, ent, rows, span = routing.sections()
+    ops = load_kernels()
+    for ln in routing.launches[d]:
+        if ln.r1 > ln.r0:
+            ops.extend_add(w, list(us[ln.g0 : ln.g1]),
+                           [int(o) for o in offs[ln.g0 : ln.g1]], maps, ent,
+                           rows, span, ln.r0, ln.r1, ln.max_r)
+            extend_add_batch.launches += 1
+    return w
+
+
 def extend_add_batch(w: torch.Tensor, u: torch.Tensor, dst, rows, *,
                      src=None, off: int = 0) -> torch.Tensor:
     """On-device extend-add, in place on the (B, M, M) f32 stack ``w``:
@@ -239,7 +501,9 @@ def extend_add_batch(w: torch.Tensor, u: torch.Tensor, dst, rows, *,
     (C,) must be ascending; ``rows`` (C, R) maps U's rows to rows of the
     front, −1 marking inert ones, the active ones distinct. Equal slots
     accumulate in the order of ``dst``. ``dst``, ``rows`` and ``src`` are
-    host arrays (numpy). Returns ``w``."""
+    host arrays (numpy). On CUDA: the kernel of :func:`extend_add_routed`
+    for one source group, its routing built and uploaded here. Returns
+    ``w``."""
     dst = np.asarray(dst, dtype=np.int32)
     rows = np.asarray(rows, dtype=np.int32)
     C, R = rows.shape
@@ -247,19 +511,14 @@ def extend_add_batch(w: torch.Tensor, u: torch.Tensor, dst, rows, *,
            else np.asarray(src, dtype=np.int32))
     if dst.shape != (C,) or src.shape != (C,):
         raise ValueError("dst and src must have one entry per row map")
+    if np.any(np.diff(dst) < 0):
+        raise ValueError("dst must be sorted ascending")
     if w.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError("w and u must be float32")
-    seg_ptr, seg_dst = _segments(dst)
     if not on_cuda(w, u):
         return extend_add_batch_plain(w, u, dst, rows, src, off)
-    meta = to_device(np.concatenate([src, rows.ravel(), seg_ptr, seg_dst]),
-                     w.device)
-    a, b = C, C + C * R
-    load_kernels().extend_add(w, u, off, meta[:a], meta[a:b].view(C, R),
-                              meta[b : b + seg_ptr.size],
-                              meta[b + seg_ptr.size :])
-    extend_add_batch.launches += 1
-    return w
+    routing = extend_add_routing([(w.shape[1], [(src, dst, rows)])])
+    return extend_add_routed(w, [u], [off], routing.to(w.device), 0)
 
 
 extend_add_batch.launches = 0

@@ -3,7 +3,8 @@
 (``pick_block_size`` :144, ``rhs_tile`` :248, copied) and the wrappers the
 solver calls: ``matmul_nt_padded`` (:74), the per-front ``frontal_factor``
 (:87) over the three tile kernels, ``frontal_factor_batch_ws`` (:164),
-``extend_add_batch`` (:192), ``frontal_factor_batch`` (:206),
+``extend_add_batch`` (:192) with ``extend_add_routed`` (the pipelined
+factor's one launch per destination bucket), ``frontal_factor_batch`` (:206),
 ``tri_solve_batch`` (:258), ``sweep_forward`` and ``sweep_backward``
 (:283-334), and ``spmv`` (:337).
 
@@ -29,7 +30,8 @@ from .spmv_bell import bell_spmv, csr_to_bell
 
 __all__ = ["attention", "pick_block_size", "rhs_tile", "matmul_nt_padded",
            "front_workspace", "frontal_factor", "frontal_factor_batch_ws",
-           "extend_add_batch", "frontal_factor_batch", "tri_solve_batch",
+           "extend_add_batch", "extend_add_routed", "frontal_factor_batch",
+           "tri_solve_batch",
            "sweep_forward", "sweep_backward", "spmv"]
 
 #: widest RHS tile one tri-solve block holds (the kernel's limit)
@@ -163,6 +165,14 @@ def extend_add_batch(w: torch.Tensor, u: torch.Tensor, dst, rows, *,
     """On-device extend-add in place on ``w`` (see
     :func:`repro_torch.kernels.frontal_cholesky.extend_add_batch`)."""
     return fc.extend_add_batch(w, u, dst, rows, src=src, off=off)
+
+
+def extend_add_routed(w: torch.Tensor, us, offs,
+                      routing: fc.ExtendAddRouting, d: int) -> torch.Tensor:
+    """Destination ``d`` of an uploaded extend-add routing, in place on
+    ``w`` (see
+    :func:`repro_torch.kernels.frontal_cholesky.extend_add_routed`)."""
+    return fc.extend_add_routed(w, us, offs, routing, d)
 
 
 def frontal_factor_batch(fs, npiv: int, *, bs: int | None = None

@@ -25,10 +25,12 @@ Backends (``backend=``):
 * ``pipelined`` (the default here; the reference's default is ``numpy``):
   the host scatters A's entries into pinned workspace stacks per (level,
   bucket) and uploads them; the extend-add of the children's Schur blocks
-  (``extend_add_batch``, reading the children's factored stacks in place)
-  and the batched partial Cholesky are queued on the current CUDA stream, so
-  the host assembles level *k+1* while the card factors level *k*. The
-  factored stacks stay on the device; the one sync is the drain at the end.
+  (one ``extend_add_routed`` launch per fed bucket, reading the children's
+  factored stacks in place, its routing built by :func:`_device_routing`
+  and uploaded once) and the batched partial Cholesky are queued on the
+  current CUDA stream, so the host assembles level *k+1* while the card
+  factors level *k*. The factored stacks stay on the device; the one sync
+  is the drain at the end.
 
 The device backends factor in f32. ``stats`` adds ``t_factor_schedule``
 (supernodes, level schedule and, for ``pipelined``, the extend-add routing)
@@ -65,6 +67,8 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..kernels import ops
+from ..kernels.frontal_cholesky import (ExtendAddRouting,
+                                        extend_add_routing_arrays)
 from .csr import CSRMatrix
 from .schedule import FrontPlan, LevelSchedule, build_schedule
 from .symbolic import SymbolicFactor, supernodes, symbolic_cholesky
@@ -238,6 +242,71 @@ def _route_contributions(schedule: LevelSchedule) -> dict:
     return routes
 
 
+def _device_routing(schedule: LevelSchedule
+                    ) -> Tuple[ExtendAddRouting, dict]:
+    """The extend-add routing of every fed bucket, built from the schedule
+    alone with vectorised NumPy, for one upload per factorization. It holds
+    the contributions of :func:`_route_contributions` (which stays as it
+    is) in the order the per-group launches ran them: per fed bucket, its
+    source buckets in key order, each one's contributions by ascending
+    destination slot, then by front. Returns the routing and
+    ``{(level, bucket): (destination index, source bucket keys)}``."""
+    keys = [(li, bj) for li in range(schedule.nlevels)
+            for bj in range(len(schedule.buckets[li]))]
+    bks = [schedule.buckets[li][bj] for li, bj in keys]
+    fronts = schedule.fronts
+    bid = np.empty(schedule.nsup, np.int64)     # bucket of each front
+    slot = np.empty(schedule.nsup, np.int64)    # its slot there
+    for b, bk in enumerate(bks):
+        bid[bk.members] = b
+        slot[bk.members] = np.arange(len(bk.members))
+    P = np.array([bk.P for bk in bks], np.int64)
+    npiv = np.array([fp.c1 - fp.c0 for fp in fronts], np.int64)
+    parent = np.array([fp.parent for fp in fronts], np.int64)
+    m = np.array([fp.rows.size for fp in fronts], np.int64)
+    rows = np.concatenate([fp.rows for fp in fronts]).astype(np.int64)
+    start = np.r_[0, np.cumsum(m)]
+    kids = np.flatnonzero((parent >= 0) & (m > npiv))
+    par = parent[kids]
+    kids = kids[np.lexsort((kids, slot[par], bid[kids], bid[par]))]
+    par, nrest = parent[kids], m[kids] - npiv[kids]
+    fed_b, c_dest = np.unique(bid[par], return_inverse=True)
+    new_group = np.ones(kids.size, bool)
+    new_group[1:] = ((bid[par][1:] != bid[par][:-1])
+                     | (bid[kids][1:] != bid[kids][:-1]))
+    gid = np.cumsum(new_group) - 1
+    c_group = gid - gid[np.searchsorted(c_dest, c_dest)]
+    # each update row's position in the parent front (searchsorted over the
+    # parents' sorted rows, keyed by front), shifted past the pivot padding
+    e_c = np.repeat(np.arange(kids.size), nrest)
+    e_i = np.arange(e_c.size) - np.repeat(np.cumsum(nrest) - nrest, nrest)
+    urow = rows[start[kids][e_c] + npiv[kids][e_c] + e_i]
+    width = int(rows.max(initial=0)) + 1
+    front_keys = np.repeat(np.arange(schedule.nsup), m) * width + rows
+    want = par[e_c] * width + urow
+    pos = np.minimum(np.searchsorted(front_keys, want),
+                     max(front_keys.size - 1, 0))
+    bad = front_keys[pos] != want if want.size else np.zeros(0, bool)
+    if np.any(bad):
+        raise RuntimeError(
+            "assembly-tree containment violated (supernode "
+            f"{kids[e_c[np.argmax(bad)]]}: update rows not a subset of front "
+            "rows)")
+    loc = pos - start[par[e_c]]
+    pe = par[e_c]
+    loc = np.where(loc >= npiv[pe], loc + P[bid[pe]] - npiv[pe], loc)
+    first = np.flatnonzero(new_group)        # each group's first contribution
+    routing = extend_add_routing_arrays(
+        [bks[b].M for b in fed_b], np.bincount(c_dest[first],
+                                               minlength=fed_b.size),
+        c_dest, c_group, slot[kids], slot[par],
+        np.array([bk.R for bk in bks], np.int64)[bid[kids]], e_c, e_i, loc)
+    fed = {keys[b]: (d, []) for d, b in enumerate(fed_b)}
+    for c in first:
+        fed[keys[bid[par[c]]]][1].append(keys[bid[kids[c]]])
+    return routing, fed
+
+
 # ---------------------------------------------------------------------------
 # Dense partial factorization of one front (numpy / pallas backends)
 # ---------------------------------------------------------------------------
@@ -302,11 +371,11 @@ def multifrontal_cholesky(
     t0 = time.perf_counter()
     snode_ptr, snode_of = supernodes(sym, relax=relax)
     schedule = build_schedule(sym, snode_ptr, snode_of, pad=pad)
-    routes = _route_contributions(schedule) if backend == "pipelined" else None
+    routing = _device_routing(schedule) if backend == "pipelined" else None
     t_schedule = time.perf_counter() - t0
     fronts, stacks = None, None
     if backend == "pipelined":
-        timings, stacks = _factor_pipelined(a, schedule, routes, bs=bs,
+        timings, stacks = _factor_pipelined(a, schedule, routing, bs=bs,
                                             device=dev)
     elif backend == "batched":
         fronts, timings = _factor_batched(a, schedule, bs=bs, device=dev)
@@ -401,24 +470,30 @@ def _factor_batched(a: CSRMatrix, schedule: LevelSchedule,
     return fronts, _overlap_timings(t_asm, 0.0, t_sync)  # type: ignore[return-value]
 
 
-def _factor_pipelined(a: CSRMatrix, schedule: LevelSchedule, routes: dict,
+def _factor_pipelined(a: CSRMatrix, schedule: LevelSchedule,
+                      routing: Tuple[ExtendAddRouting, dict],
                       bs: Optional[int], device: torch.device
                       ) -> Tuple[dict, Dict[Tuple[int, int], torch.Tensor]]:
     """Pipelined device-resident factorization.
 
-    ``routes`` is :func:`_route_contributions` of the schedule. The host's
-    only numeric work is scattering A's entries into fresh
-    bucket workspaces, assembled in pinned memory and copied asynchronously.
-    The extend-add and the partial factorization are queued on the current
-    stream and return at once, so the host assembles the next bucket while
-    the card factors this one. Each factored stack stays on the device until
-    the end (its members' parents read their Schur blocks from it); the one
-    blocking sync is the drain at the end.
+    ``routing`` is :func:`_device_routing` of the schedule; it goes up to
+    the device in one copy before the first bucket. The host's only numeric
+    work is scattering A's entries into fresh bucket workspaces, assembled
+    in pinned memory and copied asynchronously. The extend-add (one launch
+    per fed bucket, reading every source stack of it) and the partial
+    factorization are queued on the current stream and return at once, so
+    the host assembles the next bucket while the card factors this one.
+    Each factored stack stays on the device until the end (its members'
+    parents read their Schur blocks from it); the one blocking sync is the
+    drain at the end.
     """
     pc = time.perf_counter
     cuda = device.type == "cuda"
     dev: Dict[Tuple[int, int], torch.Tensor] = {}
-    t_asm = t_disp = 0.0
+    t0 = pc()
+    ea_routing, fed = routing
+    ea_routing = ea_routing.to(device)
+    t_asm, t_disp = 0.0, pc() - t0
     for li in range(schedule.nlevels):
         for bj, bucket in enumerate(schedule.buckets[li]):
             t0 = pc()
@@ -428,14 +503,12 @@ def _factor_pipelined(a: CSRMatrix, schedule: LevelSchedule, routes: dict,
             t_asm += pc() - t0
             t0 = pc()
             w = host.to(device, non_blocking=True) if cuda else host
-            for (sli, sbj), contribs in sorted(
-                    routes.get((li, bj), {}).items()):
-                contribs.sort(key=lambda c: c[1])  # ascending dst slots
-                src = np.array([c[0] for c in contribs], dtype=np.int32)
-                dst = np.array([c[1] for c in contribs], dtype=np.int32)
-                rows = np.stack([c[2] for c in contribs])
-                ops.extend_add_batch(w, dev[(sli, sbj)], dst, rows, src=src,
-                                     off=schedule.buckets[sli][sbj].P)
+            if (li, bj) in fed:
+                d, skeys = fed[(li, bj)]
+                ops.extend_add_routed(
+                    w, [dev[k] for k in skeys],
+                    [schedule.buckets[k[0]][k[1]].P for k in skeys],
+                    ea_routing, d)
             dev[(li, bj)] = ops.frontal_factor_batch_ws(w, bucket.P, bs=bs)
             t_disp += pc() - t0
     # drain: the only host↔device sync — by now the host has assembled and

@@ -104,6 +104,120 @@ def test_extend_add_rejects_unsorted_destinations():
                             np.zeros((2, 4), np.int32))
 
 
+def _source_groups(rng, B, M, specs):
+    """Seeded source groups of a grouped extend-add: per (C, R, Bu, Mu,
+    off) a factored-stack stand-in (Bu, Mu, Mu) and C contributions."""
+    groups = []
+    for C, R, Bu, Mu, off in specs:
+        _, _, dst, rows = _extend_inputs(rng, B, M, C, R)
+        stack = rng.standard_normal((Bu, Mu, Mu)).astype(np.float32)
+        groups.append((stack, off, rng.integers(0, Bu, C).astype(np.int32),
+                       dst, rows))
+    return groups
+
+
+# (B, M, groups as (C, R, Bu, Mu, off)): stacks of different Mu and
+# offsets, row maps of different widths (R not a multiple of 4 included)
+GROUPED = [(3, 24, [(5, 8, 3, 12, 4), (4, 5, 2, 11, 3), (3, 16, 4, 20, 4)]),
+           (2, 40, [(6, 12, 4, 20, 8), (2, 7, 2, 9, 1)])]
+
+
+@pytest.mark.parametrize("B,M,specs", GROUPED, ids=["3-groups", "2-groups"])
+def test_extend_add_routed_plain_matches_pallas_group_by_group(B, M, specs):
+    """The grouped extend-add's plain path (the routing interpreter) equals
+    the reference kernel applied group by group to the gathered blocks."""
+    rng = np.random.default_rng(M)
+    w = rng.standard_normal((B, M, M)).astype(np.float32)
+    groups = _source_groups(rng, B, M, specs)
+    want = w
+    for stack, off, src, dst, rows in groups:
+        R = rows.shape[1]
+        want = np.asarray(ref_fc.extend_add_batch(
+            want, stack[src, off : off + R, off : off + R], dst, rows,
+            interpret=True))
+    routing = fc.extend_add_routing(
+        [(M, [(src, dst, rows) for _, _, src, dst, rows in groups])])
+    got = fc.extend_add_routed(torch.from_numpy(w.copy()),
+                               [torch.from_numpy(g[0]) for g in groups],
+                               [g[1] for g in groups], routing, 0)
+    _close(got.numpy(), want)
+
+
+def test_extend_add_routing_splits_groups_over_launches():
+    """A destination with more source groups than one launch's table
+    holds takes further launches, in group order; the interpreter gives the
+    bits of the per-group plain calls."""
+    rng = np.random.default_rng(11)
+    B, M = 4, 32
+    groups = _source_groups(rng, B, M, [(3, 6, 2, 10, 4)] * 70)
+    routing = fc.extend_add_routing(
+        [(M, [(src, dst, rows) for _, _, src, dst, rows in groups])])
+    assert [(ln.g0, ln.g1) for ln in routing.launches[0]] == [
+        (0, 32), (32, 64), (64, 70)]
+    w0 = torch.from_numpy(rng.standard_normal((B, M, M)).astype(np.float32))
+    stacks = [torch.from_numpy(g[0]) for g in groups]
+    got = fc.extend_add_routed(w0.clone(), stacks, [g[1] for g in groups],
+                               routing, 0)
+    want = w0.clone()
+    for stack, (_, off, src, dst, rows) in zip(stacks, groups):
+        fc.extend_add_batch_plain(want, stack, dst, rows, src, off)
+    assert torch.equal(got, want)
+
+
+def test_extend_add_routing_layout():
+    """The routing's sections as the kernel reads them: row maps at
+    multiples of 4 ints, padded with -1; each destination row once, its
+    entries in contribution order; each row's span covers its columns."""
+    rng = np.random.default_rng(5)
+    B, M = 3, 20
+    groups = _source_groups(rng, B, M, [(6, 5, 2, 9, 2), (4, 8, 3, 12, 4)])
+    dests = [(M, [(src, dst, rows) for _, _, src, dst, rows in groups])]
+    routing = fc.extend_add_routing(dests)
+    maps, ent, rows, span = (t.numpy() for t in routing.sections())
+    assert routing.data.dtype == torch.int32 and maps.size % 4 == 0
+    assert np.all(ent[:, 1] % 4 == 0)
+    contribs = [(g, c) for g, grp in enumerate(groups)
+                for c in range(grp[4].shape[0])]
+    seen = {}
+    for r in range(rows.shape[0] - 1):
+        e0, e1 = rows[r, 1], rows[r + 1, 1]
+        assert e1 > e0 and rows[r, 0] not in seen
+        seen[rows[r, 0]] = r
+        cols = []
+        for x, moff, R, i in ent[e0:e1]:
+            g = x & (fc.EA_MAX_GROUPS - 1)
+            m = maps[moff : moff + R]
+            assert m[i] == rows[r, 0] % M        # the U row lands here
+            cols.append(m[m >= 0])
+        order = [next(k for k, (gg, c) in enumerate(contribs) if gg == g)
+                 for g in (ent[e0:e1, 0] & (fc.EA_MAX_GROUPS - 1))]
+        assert order == sorted(order)
+        if e1 - e0 > 1:
+            allc = np.concatenate(cols)
+            assert span[r] & 0xFFFF == allc.min()
+            assert span[r] >> 16 == allc.max() + 1
+    # every active (contribution, U row) pair appears once
+    assert rows[-1, 1] == sum(int((g[4] >= 0).sum()) for g in groups)
+
+
+def test_extend_add_routed_checks_its_stacks():
+    rng = np.random.default_rng(2)
+    groups = _source_groups(rng, 2, 16, [(3, 6, 2, 10, 4)])
+    routing = fc.extend_add_routing(
+        [(16, [(src, dst, rows) for _, _, src, dst, rows in groups])])
+    w = torch.zeros((2, 16, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        fc.extend_add_routed(w, [torch.zeros((1, 10, 10))], [4], routing, 0)
+    with pytest.raises(ValueError, match="does not fit"):
+        fc.extend_add_routed(w, [torch.zeros((2, 10, 10))], [5], routing, 0)
+    with pytest.raises(ValueError, match="destination 0"):
+        fc.extend_add_routed(torch.zeros((2, 17, 17)),
+                             [torch.zeros((2, 10, 10))], [4], routing, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        fc.extend_add_routing([(16, [(np.zeros(1), np.zeros(1),
+                                      np.full((1, 3), 16))])])
+
+
 # (P, bs, K): the first two at P = 32, bs = 8; then every pivot width the
 # CUDA kernel's two variants meet on the solve path at its panel width
 # (ops.pick_block_size) and RHS counts of 1, 8 and 33 (a ragged 32 + 1 tile)

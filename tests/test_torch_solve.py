@@ -14,19 +14,21 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.core.plan import PlanBuilder as RefPlanBuilder  # noqa: E402
 from repro.core.plan import execute_plan as ref_execute_plan  # noqa: E402
 from repro.core.plan_cache import matrix_fingerprint as ref_fingerprint  # noqa: E402
 from repro.sparse import multifrontal as ref_mf  # noqa: E402
+from repro.sparse.csr import CSRMatrix as RefCSRMatrix  # noqa: E402
 from repro.sparse.csr import make_spd  # noqa: E402
-from repro.sparse.dataset import block_arrow, grid2d  # noqa: E402
+from repro.sparse.dataset import block_arrow, grid2d, grid3d  # noqa: E402
 from repro.sparse.refine import refine_solve as ref_refine_solve  # noqa: E402
 
 from repro_torch.convert import plan_arrays, plan_from_arrays  # noqa: E402
 from repro_torch.core.plan import SOLVE_STAGES, PlanBuilder, execute_plan  # noqa: E402
 from repro_torch.sparse import csr  # noqa: E402
+from repro_torch.kernels import frontal_cholesky as fc  # noqa: E402
 from repro_torch.sparse import multifrontal as mf  # noqa: E402
 from repro_torch.sparse.refine import RefineInfo, refine_solve_device  # noqa: E402
 
@@ -88,6 +90,67 @@ def test_pipelined_mult8_fronts_match_reference():
         _close(got.L11, want.L11, 1e-5)
         if want.L21.size:
             _close(got.L21, want.L21, 1e-5)
+
+
+def test_device_routing_reproduces_route_contributions():
+    """grid3d(6,6,6) under nd: the port's routes equal the reference's, and
+    the device routing built from them (one launch per fed bucket), applied
+    by its plain interpreter to seeded source stacks, gives the bits of the
+    per-group plain calls the first design made, in their order."""
+    a = grid3d(6, 6, 6, "g6")
+    pa = csr.permute_symmetric(_port(a), PlanBuilder().build(_port(a),
+                                                             "nd").perm)
+    ref = ref_mf.multifrontal_cholesky(
+        RefCSRMatrix(pa.indptr, pa.indices, pa.data, pa.shape, pa.name),
+        backend="numpy")
+    sched = mf.multifrontal_cholesky(pa, device="cpu").schedule
+    routes = mf._route_contributions(sched)
+    ref_routes = ref_mf._route_contributions(ref.schedule)
+    assert routes.keys() == ref_routes.keys()
+    for key, groups in routes.items():
+        assert groups.keys() == ref_routes[key].keys()
+        for skey, contribs in groups.items():
+            for (s, d, m), (rs, rd, rm) in zip(contribs, ref_routes[key][skey],
+                                               strict=True):
+                assert (s, d) == (rs, rd)
+                np.testing.assert_array_equal(m, rm)
+    routing, fed = mf._device_routing(sched)
+    assert fed.keys() == routes.keys()
+    assert [len(routing.launches[d]) for d, _ in fed.values()] == [
+        -(-len(routes[k]) // fc.EA_MAX_GROUPS) for k in fed]
+    rng = np.random.default_rng(6)
+    stacks = {(li, bj): torch.from_numpy(rng.standard_normal(
+        (len(bk.members), bk.M, bk.M)).astype(np.float32))
+        for li in range(sched.nlevels)
+        for bj, bk in enumerate(sched.buckets[li])}
+    for key, (d, skeys) in fed.items():
+        got = stacks[key].clone()
+        fc.extend_add_routed_plain(
+            got, [stacks[k] for k in skeys],
+            [sched.buckets[k[0]][k[1]].P for k in skeys], routing, d)
+        want = stacks[key].clone()
+        for skey in sorted(routes[key]):
+            contribs = sorted(routes[key][skey], key=lambda c: c[1])
+            fc.extend_add_batch_plain(
+                want, stacks[skey], np.array([c[1] for c in contribs]),
+                np.stack([c[2] for c in contribs]),
+                np.array([c[0] for c in contribs]),
+                sched.buckets[skey[0]][skey[1]].P)
+        assert torch.equal(got, want), key
+
+
+def test_device_routing_of_fronts_without_update_rows():
+    """A diagonal matrix: every front is a root, so nothing is routed and
+    the pipelined factor launches no extend-add."""
+    n = 5
+    a = csr.CSRMatrix(np.arange(n + 1, dtype=np.int32),
+                      np.arange(n, dtype=np.int32), np.arange(1.0, n + 1),
+                      (n, n), "diag")
+    f = mf.multifrontal_cholesky(a, device="cpu")
+    routing, fed = mf._device_routing(f.schedule)
+    assert fed == {} and routing.sizes == (0, 0, 0) and routing.launches == []
+    x = mf.multifrontal_solve(f, np.ones(n))
+    np.testing.assert_allclose(x, 1.0 / np.arange(1.0, n + 1), rtol=1e-6)
 
 
 @pytest.mark.parametrize("k", [None, 3])
