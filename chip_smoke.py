@@ -5,15 +5,20 @@ Run from the root of the repository, on a machine with one CUDA device:
     python3 chip_smoke.py
 
 It builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives five paths, each with the kernels' launch counts zeroed just before
-it and read just after it:
+drives seven paths, each with the kernels' launch counts zeroed just before
+it and read just after it (the families and Table 2 paths once per
+engine they serve):
 
 * **solve** (``PlanBuilder.build`` → ``execute_plan`` with
   ``backend="pipelined"``, ``sweep="device"``, ``solve_dtype="fp32_refine"``)
   on ``grid3d(20,20,20)`` under ``amd``, ``scotch``, ``nd`` and ``rcm`` and on
   ``grid3d(32,32,32)`` under ``nd`` (n = 32,768), each for one RHS and for
   eight: residual ≤ 1e-10 (fp64, scipy), refinement converged, and the four
-  solve kernels launched;
+  solve kernels launched; then, counted apart, Table 2's other orderings
+  with the same gates, each ordering's plan time printed: ``md``,
+  ``qamd`` and ``amf`` on ``grid3d(16,16,16)`` (at 20³ their host
+  orderings alone take 48 s on the card's machine), ``cm`` and
+  ``natural`` on ``grid3d(20,20,20)``;
 * **select**: a ``SolverEngine`` trained on the tracked label set
   ``artifacts/labels_c36_s7_x0.35_r1.npz`` (``fast_grids=True``, ``cv=3``)
   selects for one served batch of 16 matrices,
@@ -28,6 +33,23 @@ it and read just after it:
   ``generate_suite(16, seed=1, size_scale=4)`` with seeded right-hand sides:
   every residual ≤ 1e-10 with refinement converged, the six kernels of the
   served path launched, and a second ``plan_batch`` answered from the cache;
+* **families**: a ``SolverEngine(EngineConfig(model=name,
+  fast_grids=True, cv=3))`` for each of ``logistic_regression``, ``svm``,
+  ``mlp`` (trained by Adam on the card; a fit that ran elsewhere fails),
+  ``knn`` and ``naive_bayes`` (host), trained on the same label set
+  (seconds and held-out accuracy printed), then ``select_batch`` on the
+  served selection batch: ``entry_stats`` and ``row_stats`` launched and
+  names equal to the host path's (a mismatch passes only where the host
+  route's top two class scores lie within ``SCORE_ROUNDING`` of each
+  other; both routes' smallest margins printed), a ``save`` / ``load``
+  round trip with an equal fingerprint, and for ``mlp`` the engine path's
+  ``solve_batch`` with its gates;
+* **table2**: a host labeling campaign over all nine registered orderings
+  on ``generate_suite(12, seed=7, size_scale=0.25)`` (seconds and label
+  distribution printed), a ``SolverEngine`` trained on it, the select
+  path's checks on the served batch and ``solve_batch`` over
+  ``generate_suite(16, seed=1, size_scale=2)`` (n 220–3,360) with the
+  engine path's gates;
 * **per_front**: ``execute_plan`` with ``backend="pallas"`` (one front at a
   time through ``chol_tile``, ``tri_inv_tile`` and ``matmul_nt``),
   ``sweep="device"``, ``solve_dtype="fp32_refine"`` on the 32³ ``nd`` plan
@@ -169,6 +191,20 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_SHORT = "qwen3-1.7b", 4, 4096, 16, 64
 LM_PREFILL_RTOL = 2e-2
 
 LABELS = "artifacts/labels_c36_s7_x0.35_r1.npz"
+
+#: Table 2's orderings beyond the four labels, planned and solved in the
+#: solve path: the minimum-degree variants on grid3d(16,16,16), since at
+#: 20³ their Python quotient-graph loops take 11–24 s a plan on the card's
+#: host and the run would grow by 130 s; cm and natural on grid3d(20,20,20)
+NEW_ORDERINGS = {16: ("md", "qamd", "amf"), 20: ("cm", "natural")}
+#: Fig. 4's model families beyond the two trees, each trained on the card
+#: (logistic regression, SVM, MLP) or the host (KNN, naive Bayes) and served
+FAMILIES = ("logistic_regression", "svm", "mlp", "knn", "naive_bayes")
+#: a family's device name may differ from the host path's only where the
+#: host route's top two class scores lie this close, relative to the
+#: row's largest score: float32 rounding of the features (a few ulps of
+#: 2^-24) carried through the scaler and the model
+SCORE_ROUNDING = 1e-5
 
 REPLACES = {
     "frontal_factor_batch": "src/repro/kernels/frontal_cholesky.py:391",
@@ -1190,7 +1226,7 @@ def route_splits(model, x_host: np.ndarray, x_dev: np.ndarray) -> list:
     return out
 
 
-def select_phase(engine, mats, dev) -> None:
+def select_phase(engine, mats, dev, label: str = "select") -> None:
     """``engine.select_batch`` on one served batch (cold, then warm), with
     the launch counts of this path, the device features against the host
     float64 featurizer, and the names against the host path's."""
@@ -1203,7 +1239,7 @@ def select_phase(engine, mats, dev) -> None:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.sparse.dataset import suite_summary
 
-    log("select batch " + json.dumps(suite_summary(mats)))
+    log(f"{label} batch " + json.dumps(suite_summary(mats)))
     reset_launch_counts()
     t0 = time.perf_counter()
     names = engine.select_batch(mats)
@@ -1216,8 +1252,8 @@ def select_phase(engine, mats, dev) -> None:
         if again != names:
             raise AssertionError(f"selection is not repeatable: {names} "
                                  f"then {again}")
-    launched("select", launch_counts(), ("entry_stats", "row_stats"))
-    log(f"select: cold {cold:.4f} s, warm batch s {min(warm):.4f} "
+    launched(label, launch_counts(), ("entry_stats", "row_stats"))
+    log(f"{label}: cold {cold:.4f} s, warm batch s {min(warm):.4f} "
         f"(median {sorted(warm)[2]:.4f}); names {names}")
 
     # the stages of one warm batch, each ending in a sync
@@ -1233,7 +1269,7 @@ def select_phase(engine, mats, dev) -> None:
     t0 = time.perf_counter()
     idx = sel._predict_device(feats)
     t_inf = time.perf_counter() - t0
-    log(f"select stages: pad_csr_batch {t_pad:.4f} s "
+    log(f"{label} stages: pad_csr_batch {t_pad:.4f} s "
         f"(E={batch.indices.shape[1]}, N={batch.indptr.shape[1] - 1}), "
         f"upload + featurize {t_feat:.4f} s, scaler + forest + argmax + "
         f"copy back {t_inf:.4f} s")
@@ -1241,7 +1277,7 @@ def select_phase(engine, mats, dev) -> None:
     host = extract_features_batch(mats)
     got = feats.cpu().numpy().astype(np.float64)
     rel = np.abs(got - host) / np.maximum(np.abs(host), 1e-30)
-    log(f"select features: max rel err vs host float64 {rel.max():.3e}")
+    log(f"{label} features: max rel err vs host float64 {rel.max():.3e}")
     if not rel.max() <= 1e-4:
         raise AssertionError(f"device features differ from the host's by "
                              f"{rel.max():.3e} relative")
@@ -1256,22 +1292,162 @@ def select_phase(engine, mats, dev) -> None:
         splits = route_splits(sel.model, x_host[i], x_dev[i])
         # the deciding raw features may differ by float32 rounding only
         f32 = all(rel[i, f] <= F32_ROUNDING for _, f, _, _, _ in splits)
-        log(f"select {mats[i].name}: device {d}, host {h}; splits between "
+        log(f"{label} {mats[i].name}: device {d}, host {h}; splits between "
             f"the float64 and float32 features: {splits}")
         if not (splits and f32):
             raise AssertionError(f"{mats[i].name}: device selects {d}, host "
                                  f"{h}, not explained by float32 rounding "
                                  f"at a split threshold")
-    log(f"select: host path names {host_names}")
+    log(f"{label}: host path names {host_names}")
 
 
-def engine_phase(engine, mats) -> dict:
+def host_scores(model, x: np.ndarray) -> np.ndarray:
+    """The class scores whose argmax is the host route's selection, from
+    scaled float64 features ``x``."""
+    import torch
+
+    if hasattr(model, "forward_device"):
+        return model.forward_device(
+            torch.from_numpy(np.asarray(x, np.float32))).numpy()
+    if hasattr(model, "_joint_log_likelihood"):  # naive Bayes
+        return model._joint_log_likelihood(x)
+    return model.predict_proba(x)
+
+
+def margins(scores: np.ndarray) -> np.ndarray:
+    """Top class score minus the second, over the row's largest |score|."""
+    top = np.sort(scores, axis=1)
+    scale = np.maximum(np.abs(scores).max(axis=1), 1e-30)
+    return (top[:, -1] - top[:, -2]) / scale
+
+
+def family_select(name: str, engine, mats, host_feats, dev) -> None:
+    """``select_batch`` of one family on the served batch: the csr_stats
+    kernels launched, names equal to the host path's unless the host
+    route's top two scores lie within float32 rounding."""
+    from repro_torch.core.features import (extract_features_batch_device,
+                                           pad_csr_batch)
+    from repro_torch.core.scaling import scaler_transform_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    names = engine.select_batch(mats)
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.select_batch(mats)
+        warm.append(time.perf_counter() - t0)
+    launched(f"family {name} select", launch_counts(),
+             ("entry_stats", "row_stats"))
+    sel = engine.selector
+    host_names, _ = sel.select_batch(mats, path="host")
+    feats = extract_features_batch_device(pad_csr_batch(mats, bucket=True),
+                                          device=dev)
+    m_host = margins(host_scores(sel.model, sel.scaler.transform(host_feats)))
+    if hasattr(sel.model, "forward_device"):
+        z = scaler_transform_device(sel.scaler, feats)
+        m_dev = margins(sel.model.forward_device(z).cpu().numpy())
+    else:  # the device route classifies the device features on the host
+        m_dev = margins(host_scores(sel.model, sel.scaler.transform(
+            feats.cpu().numpy())))
+    log(f"family {name} select: cold {cold:.4f} s, warm batch s "
+        f"{min(warm):.4f} (median {sorted(warm)[2]:.4f}); names {names}")
+    for i, (d, h) in enumerate(zip(names, host_names)):
+        if d == h:
+            continue
+        log(f"family {name} select {mats[i].name}: device {d}, host {h}; "
+            f"top-two margin host {m_host[i]:.3e}, device {m_dev[i]:.3e}")
+        if not m_host[i] <= SCORE_ROUNDING:
+            raise AssertionError(f"family {name}, {mats[i].name}: device "
+                                 f"selects {d}, host {h}, with a host "
+                                 f"margin of {m_host[i]:.3e}")
+    log(f"family {name} select: smallest top-two margin host "
+        f"{m_host.min():.3e}, device {m_dev.min():.3e}; names equal to the "
+        f"host path's: {names == host_names}")
+
+
+def families_phase(served, solve_mats, dev) -> None:
+    """Each family of FAMILIES trained by a ``SolverEngine`` on the tracked
+    label set (the gradient-trained ones on the card), served on the
+    selection batch, saved and loaded with an equal fingerprint; the MLP
+    engine also solves the engine path's batch."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.features import extract_features_batch
+    from repro_torch.core.labeling import LabeledDataset
+    from repro_torch.engine import EngineConfig, SolverEngine
+
+    ds = LabeledDataset.load(os.path.join(ROOT, LABELS))
+    host_feats = extract_features_batch(served)
+    for name in FAMILIES:
+        engine = SolverEngine(EngineConfig(model=name, fast_grids=True,
+                                           cv=3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = engine.train(ds)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        model = engine.selector.model
+        where = "host"
+        if getattr(model, "trains_on_device", False):
+            # the fit keeps its trained tensors as their device's copy;
+            # training adds only the host's (its held-out predictions)
+            where = engine.config.device or "cuda"
+            held = sorted({d.type for d in model._dev[1]})
+            if where not in held:
+                raise AssertionError(f"family {name} trained on {held}")
+        log(f"family {name}: train {t_train:.3f} s ({where}) on {LABELS}, "
+            f"held-out accuracy {rep['test_accuracy']:.4f} (cv "
+            f"{rep['cv_score']:.4f}, {rep['best_params']}), fingerprint "
+            f"{engine.fingerprint}")
+        family_select(name, engine, served, host_feats, dev)
+        with tempfile.TemporaryDirectory() as d:
+            again = SolverEngine.load(engine.save(os.path.join(d, "b")))
+        if again.fingerprint != engine.fingerprint:
+            raise AssertionError(f"family {name}: bundle round trip changed "
+                                 f"the fingerprint")
+        log(f"family {name}: bundle round trip, fingerprint equal")
+        if name == "mlp":
+            engine_phase(engine, solve_mats, "family mlp engine")
+
+
+def table2_phase(served, dev) -> None:
+    """A host labeling campaign over all nine registered orderings, then a
+    ``SolverEngine`` trained on it that selects on the card and solves."""
+    from repro_torch.core.labeling import run_labeling_campaign
+    from repro_torch.engine import EngineConfig, SolverEngine
+    from repro_torch.sparse.dataset import generate_suite
+    from repro_torch.sparse.reorder import REORDERINGS
+
+    algs = list(REORDERINGS)
+    mats = list(generate_suite(12, seed=7, size_scale=0.25))
+    t0 = time.perf_counter()
+    ds = run_labeling_campaign(mats, algorithms=algs)
+    dist = {a: int((ds.labels == i).sum()) for i, a in enumerate(algs)}
+    log(f"table2: campaign {time.perf_counter() - t0:.3f} s (host) over "
+        f"{len(mats)} matrices x {len(algs)} orderings; labels {dist}")
+    engine = SolverEngine(EngineConfig(algorithms=algs, fast_grids=True,
+                                       cv=3))
+    t0 = time.perf_counter()
+    rep = engine.train(ds)
+    log(f"table2: train {time.perf_counter() - t0:.3f} s, held-out accuracy "
+        f"{rep['test_accuracy']:.4f}, fingerprint {engine.fingerprint}")
+    select_phase(engine, served, dev, "table2 select")
+    engine_phase(engine, list(generate_suite(16, seed=1, size_scale=2)),
+                 "table2 engine")
+
+
+def engine_phase(engine, mats, label: str = "engine") -> dict:
     """``engine.solve_batch`` over one served batch with seeded right-hand
     sides; returns the launch counts of this path."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.sparse.dataset import suite_summary
 
-    log("engine batch " + json.dumps(suite_summary(mats)))
+    log(f"{label} batch " + json.dumps(suite_summary(mats)))
     rng = np.random.default_rng(0)
     bs = [rng.standard_normal(a.n) for a in mats]
     engine.builder.reset_stats()
@@ -1285,7 +1461,7 @@ def engine_phase(engine, mats) -> dict:
     warm = engine.stats()
     t_plan = sum(p.meta["t_build"] for p in plans)
     t_exec = sum(r["time"] for r in results)
-    log(f"engine: solve_batch {wall:.3f} s = select {st['select_seconds']:.4f}"
+    log(f"{label}: solve_batch {wall:.3f} s = select {st['select_seconds']:.4f}"
         f" s ({st['select_calls']} device batch) + plans {t_plan:.3f} s "
         f"(reorder {sum(p.meta['t_reorder'] for p in plans):.3f}, symbolic "
         f"{sum(p.meta['t_symbolic'] for p in plans):.3f}) + execute_plan "
@@ -1293,7 +1469,7 @@ def engine_phase(engine, mats) -> dict:
     for a, b, r, p in zip(mats, bs, results, plans):
         res = rel_residual(a, r["x"], b)
         sp = r["spans"]
-        log(f"engine {a.name} n={a.n} nnz={a.nnz}: {r['algorithm']}, plan "
+        log(f"{label} {a.name} n={a.n} nnz={a.nnz}: {r['algorithm']}, plan "
             f"{p.meta['t_build']:.4f} s, nnz_L={p.nnz_L}; s: "
             + ", ".join(f"{k} {sp[k]:.4f}" for k in (
                 "permute", "factor.schedule", "factor.assemble",
@@ -1302,15 +1478,15 @@ def engine_phase(engine, mats) -> dict:
             + f"; residual {res:.3e}, refine iterations "
             f"{r['refine_iterations']}")
         if not (res <= 1e-10 and r["refine_converged"]):
-            raise AssertionError(f"engine {a.name}: residual {res:.3e}, "
+            raise AssertionError(f"{label} {a.name}: residual {res:.3e}, "
                                  f"converged {r['refine_converged']}")
     if not (warm["hits"] - st["hits"] == len(mats)
             and warm["select_calls"] == st["select_calls"]
             and warm["sym_builds"] == st["sym_builds"]):
         raise AssertionError(f"second plan_batch was not all cache hits: "
                              f"{st} then {warm}")
-    log(f"engine: second plan_batch all {len(mats)} cache hits")
-    launched("engine", counts, SERVED_KERNELS)
+    log(f"{label}: second plan_batch all {len(mats)} cache hits")
+    launched(label, counts, SERVED_KERNELS)
     return counts
 
 
@@ -1847,12 +2023,18 @@ def all_paths(dev) -> tuple:
     plans = main_path([(g20, ["amd", "scotch", "nd", "rcm"]), (g32, ["nd"])],
                       dev)
     launched("solve", launch_counts(), SOLVE_KERNELS)
+    reset_launch_counts()
+    main_path([(grid3d(n, n, n, f"grid3d_{n}"), list(algs))
+               for n, algs in NEW_ORDERINGS.items()], dev)
+    launched("solve table2", launch_counts(), SOLVE_KERNELS)
 
     engine = train_phase()
     served = list(generate_suite(16, seed=1, size_scale=8))
     select_phase(engine, served, dev)
-    counts = engine_phase(engine,
-                          list(generate_suite(16, seed=1, size_scale=4)))
+    solve_mats = list(generate_suite(16, seed=1, size_scale=4))
+    counts = engine_phase(engine, solve_mats)
+    families_phase(served, solve_mats, dev)
+    table2_phase(served, dev)
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
                    if k in TILE_KERNELS})
     counts["flash_attention"] = lm_serve_phase(dev)["flash_attention"]

@@ -8,12 +8,17 @@ importing ``repro``. :func:`plan_from_arrays` builds the port's
 :class:`~repro_torch.core.plan.ExecutionPlan` from them, so both packages
 can execute the same plan.
 
+:func:`classifier_state_arrays` turns a classifier's fitted state
+(``state()`` of either package) into the port's: array leaves of other
+types — the ``jax.Array`` weights of the reference's logistic regression,
+SVM and MLP — become numpy arrays of the same dtype and bytes, and the
+containers stay as they are, so the fingerprint does not change.
 :func:`selector_bundle_arrays` reads the fields of a selector bundle — a
 ``repro.engine.SelectorBundle``, this package's, or any object with their
-names — as plain dicts, lists and numpy arrays, and
-:func:`bundle_from_arrays` builds the port's validated
-:class:`~repro_torch.engine.bundle.SelectorBundle` from them, with the same
-fingerprint.
+names — as plain dicts, lists and numpy arrays (the model state through
+:func:`classifier_state_arrays`), and :func:`bundle_from_arrays` builds the
+port's validated :class:`~repro_torch.engine.bundle.SelectorBundle` from
+them, with the same fingerprint.
 
 :func:`lm_params_from_jax` builds the port's language-model parameters
 (:mod:`repro_torch.models.transformer`) from the reference's nested dict of
@@ -34,8 +39,9 @@ from .models.config import ModelConfig
 from .models.transformer import check_ported
 from .sparse.symbolic import SymbolicFactor
 
-__all__ = ["plan_arrays", "plan_from_arrays", "selector_bundle_arrays",
-           "bundle_from_arrays", "lm_params_from_jax"]
+__all__ = ["plan_arrays", "plan_from_arrays", "classifier_state_arrays",
+           "selector_bundle_arrays", "bundle_from_arrays",
+           "lm_params_from_jax"]
 
 
 def plan_arrays(plan) -> dict:
@@ -61,11 +67,28 @@ def plan_from_arrays(fingerprint: str, algorithm: str, perm, parent, counts,
                          np.asarray(perm, dtype=np.int64), sym, int(flops))
 
 
+def classifier_state_arrays(state):
+    """``state`` with every array leaf that is not a numpy array (nor a
+    numpy scalar) copied into a numpy array of its dtype; dicts, lists,
+    tuples and every other leaf are kept as they are."""
+    if isinstance(state, dict):
+        return {k: classifier_state_arrays(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(classifier_state_arrays(v) for v in state)
+    if (not isinstance(state, (np.ndarray, np.generic))
+            and hasattr(state, "__array__") and hasattr(state, "dtype")):
+        return np.array(state)
+    return state
+
+
 def selector_bundle_arrays(bundle) -> dict:
     """The keyword arguments of :func:`bundle_from_arrays` for ``bundle``:
-    every field of :class:`SelectorBundle`, deep-copied as plain data."""
-    return {f.name: copy.deepcopy(getattr(bundle, f.name))
-            for f in dataclasses.fields(SelectorBundle)}
+    every field of :class:`SelectorBundle`, deep-copied as plain data, the
+    model state through :func:`classifier_state_arrays`."""
+    fields = {f.name: copy.deepcopy(getattr(bundle, f.name))
+              for f in dataclasses.fields(SelectorBundle)}
+    fields["model_state"] = classifier_state_arrays(fields["model_state"])
+    return fields
 
 
 def bundle_from_arrays(**fields) -> SelectorBundle:

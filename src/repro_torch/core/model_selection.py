@@ -3,7 +3,7 @@ cross-validation and grid search (paper §3.4)."""
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -48,11 +48,12 @@ def kfold_indices(n: int, k: int = 5, seed: int = 0) -> List[Tuple[np.ndarray, n
 
 
 def cross_val_score(model: BaseClassifier, x: np.ndarray, y: np.ndarray,
-                    cv: int = 5, seed: int = 0) -> float:
+                    cv: int = 5, seed: int = 0,
+                    fit_params: Optional[Dict[str, Any]] = None) -> float:
     scores = []
     for train, val in kfold_indices(x.shape[0], cv, seed):
         m = model.clone()
-        m.fit(x[train], y[train])
+        m.fit(x[train], y[train], **(fit_params or {}))
         scores.append(m.score(x[val], y[val]))
     return float(np.mean(scores))
 
@@ -62,14 +63,17 @@ class GridSearchCV:
 
     ``param_grid``: mapping name → candidate values. After ``fit``,
     ``best_model_`` is refit on the full training data with the best combo.
+    ``fit_params`` are passed to every ``fit`` (the port's ``device``).
     """
 
     def __init__(self, model: BaseClassifier, param_grid: Dict[str, Sequence[Any]],
-                 cv: int = 5, seed: int = 0):
+                 cv: int = 5, seed: int = 0,
+                 fit_params: Optional[Dict[str, Any]] = None):
         self.model = model
         self.param_grid = param_grid
         self.cv = cv
         self.seed = seed
+        self.fit_params = dict(fit_params or {})
 
     def _combos(self) -> Iterable[Dict[str, Any]]:
         keys = sorted(self.param_grid)
@@ -81,13 +85,14 @@ class GridSearchCV:
         best = (None, -1.0)
         for combo in self._combos():
             m = self.model.with_params(**combo)
-            score = cross_val_score(m, x, y, self.cv, self.seed)
+            score = cross_val_score(m, x, y, self.cv, self.seed,
+                                    self.fit_params)
             self.results_.append((combo, score))
             if score > best[1]:
                 best = (combo, score)
         self.best_params_, self.best_score_ = best
         self.best_model_ = self.model.with_params(**self.best_params_)
-        self.best_model_.fit(x, y)
+        self.best_model_.fit(x, y, **self.fit_params)
         return self
 
     def predict(self, x: np.ndarray) -> np.ndarray:

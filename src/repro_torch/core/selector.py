@@ -3,16 +3,18 @@ the paper's deliverable.
 
 ``ReorderSelector`` = feature extraction → scaler → classifier → algorithm
 name. ``select`` runs the trained pipeline on one matrix on the host;
-``select_batch`` (:105) is the serving path over many matrices at once,
+``select_batch`` is the serving path over many matrices at once,
 through the host featurizer or the CSR-native device featurizer
 (:func:`repro_torch.core.features.extract_features_batch_device`). On the
-device path the scaler transform, the forest traversal and the argmax run
-on the card too (``_predict_device``, :149); the feature batch never
+device path the scaler transform, the classifier's forward (the forest
+traversal, or the products of logistic regression, SVM and MLP) and the
+argmax run on the card too (``_predict_device``); the feature batch never
 leaves it, only the label indices do. There is one card and no serving
 mesh, so the reference's shard_map and padding to the mesh width have no
-counterpart. A model without ``forward_device`` classifies on the host.
+counterpart. A model without ``forward_device`` (KNN, naive Bayes)
+classifies on the host.
 
-``train_selector`` (:241) grid-searches and refits a selector on a
+``train_selector`` grid-searches and refits a selector on a
 :class:`~repro_torch.core.labeling.LabeledDataset`, as the reference does.
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ __all__ = ["ReorderSelector", "DEFAULT_GRIDS", "FAST_GRIDS",
 
 
 # Hyperparameter grids per model family (paper §3.4: "candidate values are
-# usually given by empirical methods"), for the families ported so far.
+# usually given by empirical methods").
 DEFAULT_GRIDS: Dict[str, Dict[str, Sequence]] = {
     "random_forest": {
         "criterion": ["gini"],
@@ -49,6 +51,11 @@ DEFAULT_GRIDS: Dict[str, Dict[str, Sequence]] = {
         "max_depth": [None, 8, 16],
         "min_samples_leaf": [1, 2, 5],
     },
+    "logistic_regression": {"C": [0.1, 1.0, 10.0], "steps": [500]},
+    "naive_bayes": {"var_smoothing": [1e-9, 1e-6]},
+    "svm": {"C": [1.0, 10.0], "gamma": [0.1, 0.5], "kernel": ["rbf"]},
+    "mlp": {"hidden_layer_sizes": [(64, 32), (128,)], "lr": [0.01]},
+    "knn": {"n_neighbors": [3, 5, 9], "weights": ["uniform", "distance"]},
 }
 
 # Smaller grids for smoke-speed runs.
@@ -110,8 +117,9 @@ class ReorderSelector:
         """Label indices for a (B, d) float32 feature tensor.
 
         Models exposing ``forward_device`` (trees and forests, via
-        :mod:`repro_torch.core.ml.forest_torch`) classify on the tensor's
-        device: scaler transform in float32, forest traversal, argmax. The
+        :mod:`repro_torch.core.ml.forest_torch`, and the models of
+        :mod:`repro_torch.core.ml.torch_models`) classify on the tensor's
+        device: scaler transform in float32, forward, argmax. The
         fitted state is uploaded once per fit and device and cached, so a
         warm batch uploads only its matrices. Other models classify the
         transferred features on the host in float64, as the reference does
@@ -121,6 +129,9 @@ class ReorderSelector:
             z = scaler_transform_device(self.scaler, feats)
             return self.model.forward_device(z).argmax(dim=1).cpu().numpy()
         return self.model.predict(self.scaler.transform(feats.cpu().numpy()))
+
+    def accuracy(self, feats: np.ndarray, labels: np.ndarray) -> float:
+        return accuracy_score(labels, self.predict_features(feats))
 
 
 def train_selector(
@@ -133,6 +144,7 @@ def train_selector(
     grid: Optional[Dict[str, Sequence]] = None,
     fast: bool = False,
     feature_set: Optional[str] = None,
+    device=None,
 ):
     """Grid-search + refit a selector; returns (selector, report dict).
 
@@ -142,6 +154,10 @@ def train_selector(
     featurized with. The report carries everything the paper's evaluation
     needs: test accuracy, indices of the split, per-scenario totals (AMD /
     predicted / ideal — Table 6), and the mean speedup vs AMD.
+
+    Families trained by gradient descent (``trains_on_device``: logistic
+    regression, SVM, MLP) fit on ``device`` (``None`` → the card); the
+    others fit on the host.
     """
     fs_name = feature_set or getattr(ds, "feature_set", None) or "paper12"
     fs = get_feature_set(fs_name)
@@ -153,8 +169,11 @@ def train_selector(
     xtr, xte, ytr, yte, itr, ite = train_test_split(x, y, test_size, seed)
     scaler = SCALERS[scaling]().fit(xtr)
     grids = FAST_GRIDS if fast else DEFAULT_GRIDS
-    gs = GridSearchCV(MODEL_ZOO[model_name](),
-                      grid or grids.get(model_name, {}), cv=cv, seed=seed)
+    model = MODEL_ZOO[model_name]()
+    fit_params = ({"device": device}
+                  if getattr(model, "trains_on_device", False) else {})
+    gs = GridSearchCV(model, grid or grids.get(model_name, {}), cv=cv,
+                      seed=seed, fit_params=fit_params)
     gs.fit(scaler.transform(xtr), ytr)
     sel = ReorderSelector(gs.best_model_, scaler, list(ds.algorithms),
                           feature_set=fs_name)

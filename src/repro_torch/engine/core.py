@@ -27,6 +27,7 @@ import numpy as np
 
 from .bundle import SelectorBundle
 from .config import EngineConfig
+from .registry import get_feature_set
 
 __all__ = ["SolverEngine", "EngineError"]
 
@@ -86,6 +87,10 @@ class SolverEngine:
                               "SolverEngine.load(path)")
         return self._selector
 
+    @property
+    def is_trained(self) -> bool:
+        return self._selector is not None
+
     def attach(self, selector) -> "SolverEngine":
         """Adopt a fitted ``ReorderSelector`` (feature set must match)."""
         fs = getattr(selector, "feature_set", "paper12")
@@ -101,7 +106,8 @@ class SolverEngine:
         """Grid-search + refit on a :class:`LabeledDataset`; returns the
         evaluation report. Any ``train_selector`` keyword can be overridden
         per call (e.g. ``grid=...``); the new fit gets a new fingerprint,
-        which re-versions the plan cache automatically."""
+        which re-versions the plan cache automatically. Families trained by
+        gradient descent fit on the config's ``device``."""
         from ..core.selector import train_selector
 
         cfg = self.config
@@ -114,7 +120,7 @@ class SolverEngine:
         kwargs: Dict[str, Any] = dict(
             model_name=cfg.model, scaling=cfg.scaling,
             feature_set=cfg.feature_set, fast=cfg.fast_grids, cv=cfg.cv,
-            test_size=cfg.test_size, seed=cfg.seed)
+            test_size=cfg.test_size, seed=cfg.seed, device=cfg.device)
         kwargs.update(overrides)
         self._selector, report = train_selector(dataset, **kwargs)
         self.last_report = report
@@ -275,6 +281,9 @@ class SolverEngine:
         return cls(config).attach(bundle.to_selector())
 
     # -- introspection -------------------------------------------------------
+    def feature_set(self):
+        return get_feature_set(self.config.feature_set)
+
     def stats(self) -> Dict[str, Any]:
         s = (self._get_builder().stats() if self._selector is not None
              else {})

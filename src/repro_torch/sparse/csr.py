@@ -1,5 +1,5 @@
-"""Copy of ``repro/sparse/csr.py``: ``CSRMatrix`` (with ``matvec``),
-``coo_to_csr``, ``csr_from_dense``, ``bandwidth``, ``profile``, ``permute_symmetric``,
+"""Copy of ``repro/sparse/csr.py``: ``CSRMatrix``, ``coo_to_csr``,
+``csr_from_dense``, ``bandwidth``, ``profile``, ``permute_symmetric``,
 ``symmetrize_pattern`` and ``make_spd``.
 
 Compressed-sparse-row container and structural utilities. Host-side
@@ -53,8 +53,29 @@ class CSRMatrix:
     def row(self, i: int) -> np.ndarray:
         return self.indices[self.indptr[i] : self.indptr[i + 1]]
 
+    def row_values(self, i: int) -> np.ndarray:
+        assert self.data is not None
+        return self.data[self.indptr[i] : self.indptr[i + 1]]
+
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    def copy(self) -> "CSRMatrix":
+        return CSRMatrix(
+            self.indptr.copy(),
+            self.indices.copy(),
+            None if self.data is None else self.data.copy(),
+            self.shape,
+            self.name,
+            self.group,
+        )
+
+    def to_dense(self) -> np.ndarray:
+        n, m = self.shape
+        out = np.zeros((n, m), dtype=np.float64)
+        rows = np.repeat(np.arange(n), self.row_lengths())
+        out[rows, self.indices] = 1.0 if self.data is None else self.data
+        return out
 
     def to_coo(self) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
         rows = np.repeat(np.arange(self.n, dtype=np.int32), self.row_lengths())
@@ -70,6 +91,12 @@ class CSRMatrix:
             np.array_equal(self.indptr, t.indptr)
             and np.array_equal(self.indices, t.indices)
         )
+
+    def has_full_diagonal(self) -> bool:
+        for i in range(self.n):
+            if i not in self.row(i):
+                return False
+        return True
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """A @ x for a single RHS ``(n,)`` or an RHS block ``(n, k)``."""

@@ -1,12 +1,10 @@
-"""Copy of ``repro/sparse/symbolic.py``: ``etree``, ``column_counts``,
-``cholesky_flops``, ``symbolic_cholesky``, ``supernodes`` and
-``SymbolicFactor`` (``postorder`` and ``fill_in`` are not on the port's path
-and were left out).
+"""Copy of ``repro/sparse/symbolic.py``.
 
 Symbolic Cholesky analysis: elimination tree, factor pattern, column counts,
 fill-in and factorization FLOPs, all without numeric work.
 
 * ``etree``          — Liu's elimination-tree algorithm with path compression.
+* ``postorder``      — DFS postorder of the etree.
 * ``column_counts``  — row-subtree traversal (O(|L|)): exact nnz per column
                        of the Cholesky factor.
 * ``symbolic_cholesky`` — full factor pattern per column (CSC of L).
@@ -16,15 +14,15 @@ fill-in and factorization FLOPs, all without numeric work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
 from .csr import CSRMatrix
 
 __all__ = [
-    "etree", "column_counts", "cholesky_flops", "symbolic_cholesky",
-    "supernodes", "SymbolicFactor",
+    "etree", "postorder", "column_counts", "fill_in", "cholesky_flops",
+    "symbolic_cholesky", "supernodes", "SymbolicFactor",
 ]
 
 
@@ -54,6 +52,38 @@ def etree(a: CSRMatrix) -> np.ndarray:
     return parent
 
 
+def postorder(parent: np.ndarray) -> np.ndarray:
+    """Postorder of the forest given by `parent` (children visited first)."""
+    n = parent.shape[0]
+    # children lists
+    head = np.full(n, -1, dtype=np.int64)
+    nxt = np.full(n, -1, dtype=np.int64)
+    for v in range(n - 1, -1, -1):
+        p = parent[v]
+        if p >= 0:
+            nxt[v] = head[p]
+            head[p] = v
+    out = np.empty(n, dtype=np.int64)
+    k = 0
+    stack: List[int] = []
+    for root in range(n):
+        if parent[root] != -1:
+            continue
+        stack.append(root)
+        while stack:
+            v = stack[-1]
+            c = head[v]
+            if c == -1:
+                stack.pop()
+                out[k] = v
+                k += 1
+            else:
+                head[v] = nxt[c]
+                stack.append(int(c))
+    assert k == n
+    return out
+
+
 def column_counts(a: CSRMatrix, parent: np.ndarray | None = None) -> np.ndarray:
     """nnz of each column of L **including** the diagonal.
 
@@ -75,6 +105,13 @@ def column_counts(a: CSRMatrix, parent: np.ndarray | None = None) -> np.ndarray:
                 counts[j] += 1
                 j = int(parent[j])
     return counts
+
+
+def fill_in(a: CSRMatrix) -> int:
+    """Number of factor entries that are NOT in the lower triangle of A."""
+    counts = column_counts(a)
+    nnz_lower = sum(cols.size for _, cols in _lower_rows(a)) + a.n
+    return int(counts.sum()) - nnz_lower
 
 
 def cholesky_flops(a: CSRMatrix, counts: np.ndarray | None = None) -> int:

@@ -220,11 +220,13 @@ def test_fingerprints_match_reference():
 
 
 def test_grids_are_the_references():
-    for name in ("random_forest", "decision_tree"):
-        assert DEFAULT_GRIDS[name] == REF_GRIDS[name]
-        assert FAST_GRIDS[name] == REF_FAST_GRIDS[name]
-    assert sorted(MODEL_ZOO) == ["decision_tree", "random_forest"]
-    assert all(MODEL_ZOO.metadata(m)["device_capable"] for m in MODEL_ZOO)
+    from repro.core.ml import MODEL_ZOO as REF_ZOO
+    assert DEFAULT_GRIDS == REF_GRIDS
+    assert FAST_GRIDS == REF_FAST_GRIDS
+    assert sorted(MODEL_ZOO) == sorted(REF_ZOO)
+    for m in REF_ZOO:
+        assert (MODEL_ZOO.metadata(m)["device_capable"]
+                == REF_ZOO.metadata(m)["device_capable"])
 
 
 @pytest.fixture(scope="module")
@@ -297,7 +299,7 @@ def test_bundle_validation_refuses_what_it_cannot_serve(trained, tmp_path):
         SelectorBundle(**dict(fields, algorithms=["rcm", "nd", "amd",
                                                   "scotch"])).validate()
     with pytest.raises(BundleValidationError, match="unknown model"):
-        SelectorBundle(**dict(fields, model_name="knn",
+        SelectorBundle(**dict(fields, model_name="gradient_boosting",
                               fingerprint="")).validate()
     with pytest.raises(BundleValidationError, match="feature schema"):
         SelectorBundle(**dict(fields, feature_names=["n"],
