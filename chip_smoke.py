@@ -5,7 +5,7 @@ Run from the root of the repository, on a machine with one CUDA device:
     python3 chip_smoke.py
 
 It builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives seven paths, each with the kernels' launch counts zeroed just before
+drives eight paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve):
 
@@ -33,6 +33,20 @@ engine they serve):
   ``generate_suite(16, seed=1, size_scale=4)`` with seeded right-hand sides:
   every residual ≤ 1e-10 with refinement converged, the six kernels of the
   served path launched, and a second ``plan_batch`` answered from the cache;
+* **serving**: the engine's selector behind ``SolverEngine.serve(rpc=True)``
+  on 127.0.0.1 with a fresh two-tier plan cache in a temporary directory,
+  cold, under ``SERVING``'s traffic over the engine path's 16 matrices (150
+  requests, Zipf alpha 1.1, bursts of 24 with 50 ms pauses over 4 client
+  threads, batch 8, 5 ms wait, queue bound 256, 2 build workers, 60 s
+  deadlines): all 150 answered with no shed, rejection or error, each plan
+  equal to ``engine.plan``'s and its algorithm to ``engine.select``'s
+  (unless float32 rounding at a split explains it), ``entry_stats`` and
+  ``row_stats`` launched; then one cold request with a 1 ms deadline shed as
+  ``DeadlineExceeded``; an engine loaded from the saved bundle over the
+  same disk tier serving all 16 from disk with no plan built and no
+  ``entry_stats`` launch; and one ``solve(ctx=...)`` at the residual gate;
+  requests/s, client and per-stage p50/p99, hit rates per tier and the
+  card's name and power limit printed;
 * **families**: a ``SolverEngine(EngineConfig(model=name,
   fast_grids=True, cv=3))`` for each of ``logistic_regression``, ``svm``,
   ``mlp`` (trained by Adam on the card; a fit that ran elsewhere fails),
@@ -242,6 +256,15 @@ TILE_STEMS = ("chol_tile", "tri_inv", "matmul_nt")
 #: (the first design had a panel and a Schur kernel of the same names)
 FACTOR_STEMS = ("small_kernel", "diag_kernel", "panel_kernel",
                 "schur_kernel")
+
+#: the serving path's traffic: the JAX-era BENCH_traffic.json config (150
+#: requests, Zipf alpha 1.1 over 16 structures, bursts of 24 with 50 ms
+#: pauses fanned over 4 RPC clients, batch 8, 5 ms wait, queue bound 256, 2
+#: build workers, seed 7) with a 60 s deadline in place of 30 s, since host
+#: clocks on the card's machine move up to 2.3x between runs
+SERVING = dict(requests=150, zipf_alpha=1.1, burst=24, pause_ms=50.0,
+               clients=4, batch=8, max_wait_ms=5.0, max_queue=256,
+               build_workers=2, deadline_ms=60_000.0, seed=7)
 
 
 def log(*args) -> None:
@@ -1490,6 +1513,236 @@ def engine_phase(engine, mats, label: str = "engine") -> dict:
     return counts
 
 
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def serving_phase(engine, mats, dev) -> None:
+    """The serving plane on the card: ``engine``'s selector behind
+    ``SolverEngine.serve(rpc=True)`` on 127.0.0.1, a fresh two-tier plan
+    cache in a temporary directory, and the SERVING traffic over ``mats``
+    (cold) from four client threads; every answered plan must equal
+    ``engine.plan``'s (``engine`` planned ``mats`` in the engine path) and
+    its algorithm ``engine.select``'s unless float32 rounding at a split
+    threshold explains the difference. Then one cold request with a 1 ms
+    deadline must come back as ``DeadlineExceeded``; an engine loaded from
+    the saved bundle over the same disk tier must serve every structure
+    from disk with no plan built and no ``entry_stats`` launch; and one
+    ``solve(ctx=...)`` under a generous deadline must reach the fp64
+    residual gate."""
+    import tempfile
+    import threading
+
+    from repro_torch.core.features import (extract_features_batch,
+                                           extract_features_batch_device,
+                                           pad_csr_batch)
+    from repro_torch.core.reqctx import (DeadlineExceeded, QueueFull,
+                                         RequestContext)
+    from repro_torch.core.scaling import scaler_transform_device
+    from repro_torch.engine import EngineConfig, SolverEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.rpc import PlanRPCClient, RPCError
+    from repro_torch.sparse.dataset import grid2d
+
+    cfg_t = SERVING
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    # the engine path's plans (warm in its cache) and the host selection
+    want = [engine.plan(a) for a in mats]
+    host = [engine.select(a)[0] for a in mats]
+    sel = engine.selector
+    feats = extract_features_batch_device(pad_csr_batch(mats, bucket=True),
+                                          device=dev)
+    x_dev = scaler_transform_device(sel.scaler, feats).cpu().numpy()
+    x_host = sel.scaler.transform(extract_features_batch(mats))
+    rel = (np.abs(feats.cpu().numpy().astype(np.float64)
+                  - extract_features_batch(mats))
+           / np.maximum(np.abs(extract_features_batch(mats)), 1e-30))
+
+    def check_plan(i, got, where):
+        w = want[i]
+        if got.algorithm != w.algorithm or not np.array_equal(got.perm,
+                                                              w.perm):
+            raise AssertionError(f"serving {where} {mats[i].name}: plan "
+                                 f"{got.algorithm} differs from "
+                                 f"engine.plan's {w.algorithm}")
+        if got.algorithm != host[i]:
+            splits = route_splits(sel.model, x_host[i], x_dev[i])
+            f32 = all(rel[i, f] <= F32_ROUNDING for _, f, _, _, _ in splits)
+            if not (splits and f32):
+                raise AssertionError(f"serving {where} {mats[i].name}: "
+                                     f"{got.algorithm} against engine."
+                                     f"select's {host[i]}, not explained "
+                                     f"by float32 rounding")
+            return 1
+        return 0
+
+    rng = np.random.default_rng(cfg_t["seed"])
+    pop = 1.0 / np.power(1.0 + np.arange(len(mats)), cfg_t["zipf_alpha"])
+    stream = rng.choice(len(mats), size=cfg_t["requests"], p=pop / pop.sum())
+    tmp = tempfile.TemporaryDirectory()
+    cfg = EngineConfig(cache_dir=os.path.join(tmp.name, "plan_cache"),
+                       batch_size=cfg_t["batch"],
+                       max_wait_ms=cfg_t["max_wait_ms"],
+                       max_queue=cfg_t["max_queue"],
+                       build_workers=cfg_t["build_workers"])
+    served = SolverEngine(cfg, selector=sel)
+    bundle = served.save(os.path.join(tmp.name, "selector.bundle"))
+    results, res_lock = [], threading.Lock()
+    srv = None
+    clients = []
+    try:
+        reset_launch_counts()
+        srv = served.serve(rpc=True, host="127.0.0.1", port=0)
+        clients = [PlanRPCClient("127.0.0.1", srv.port, timeout=300)
+                   for _ in range(cfg_t["clients"])]
+        work, work_lock = [], threading.Lock()
+
+        def worker(c):
+            while True:
+                with work_lock:
+                    if not work:
+                        return
+                    i = work.pop()
+                t0 = time.perf_counter()
+                try:
+                    r = c.plan_detailed(mats[i],
+                                        deadline_ms=cfg_t["deadline_ms"])
+                    out = ("ok", r["plan"], r["spans_ms"])
+                except DeadlineExceeded:
+                    out = ("shed", None, {})
+                except QueueFull:
+                    out = ("rejected", None, {})
+                except (RPCError, OSError) as exc:
+                    out = ("error", repr(exc), {})
+                with res_lock:
+                    results.append((out[0], i, out[1], out[2],
+                                    (time.perf_counter() - t0) * 1e3))
+
+        t_start = time.perf_counter()
+        for lo in range(0, len(stream), cfg_t["burst"]):
+            with work_lock:
+                work.extend(int(i) for i in stream[lo : lo + cfg_t["burst"]])
+            ts = [threading.Thread(target=worker, args=(c,), daemon=True)
+                  for c in clients]
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join(600)
+                if th.is_alive():
+                    raise AssertionError("serving: a client thread hung")
+            if lo + cfg_t["burst"] < len(stream):
+                time.sleep(cfg_t["pause_ms"] / 1e3)
+        wall = time.perf_counter() - t_start
+        traffic = launch_counts()
+        stats = srv.dispatcher.stats()
+        snap = served.metrics.snapshot()
+
+        outcome = {k: sum(r[0] == k for r in results)
+                   for k in ("ok", "shed", "rejected", "error")}
+        if outcome["ok"] != len(stream) or len(results) != len(stream):
+            bad = [r for r in results if r[0] != "ok"][:5]
+            raise AssertionError(f"serving: {outcome} of {len(stream)} "
+                                 f"requests; first failures {bad}")
+        rounding = len({r[1] for r in results
+                        if check_plan(r[1], r[2], "rpc")})
+        # the structures the stream never asked for, so the disk tier holds
+        # all of them, over one plan_batch call (the others warm)
+        with PlanRPCClient("127.0.0.1", srv.port, timeout=300) as c:
+            all_plans = c.plan_batch(mats, deadline_ms=cfg_t["deadline_ms"])
+            for i, p in enumerate(all_plans):
+                check_plan(i, p, "plan_batch")
+            cold = grid2d(96, 96, "serving_shed_96")
+            try:
+                c.plan(cold, deadline_ms=1.0)
+                raise AssertionError("serving: a cold request with a 1 ms "
+                                     "deadline was answered")
+            except DeadlineExceeded as exc:
+                log(f"serving: cold request with a 1 ms deadline shed: "
+                    f"{exc}")
+        shed_after = srv.dispatcher.stats()["shed"]
+        if shed_after != stats["shed"] + 1:
+            raise AssertionError(f"serving: shed {stats['shed']} then "
+                                 f"{shed_after} after the 1 ms request")
+    finally:
+        for c in clients:
+            c.close()
+        if srv is not None:
+            srv.close(timeout=60)
+
+    cl = [r[4] for r in results]
+    spans = {}
+    for r in results:
+        for k, v in r[3].items():
+            spans.setdefault(k, []).append(v)
+    log(f"serving rpc: {len(stream)} requests over {len(set(stream))} "
+        f"structures in {wall:.3f} s = {len(stream) / wall:.3f} requests/s; "
+        f"client ms p50 {_pct(cl, 50):.3f} p99 {_pct(cl, 99):.3f}; "
+        f"outcomes {outcome}; shed {stats['shed']}, rejected "
+        f"{stats['rejected']}, errors {stats['errors']}; {smi}")
+    log("serving rpc per-stage ms (p50, p99, requests): " + json.dumps({
+        k: [round(_pct(v, 50), 4), round(_pct(v, 99), 4), len(v)]
+        for k, v in sorted(spans.items())}))
+    log("serving rpc dispatcher stage ms: " + json.dumps({
+        k: round(stats[k], 4) for k in sorted(stats)
+        if k.startswith("stage_") or k in ("p50_ms", "p99_ms")}))
+    n_get = stats["hits"] + stats["misses"]
+    log(f"serving rpc cache: hit rate {stats['hit_rate']:.4f} of {n_get} "
+        f"lookups (memory tier {stats['memory_hits'] / n_get:.4f}, disk tier "
+        f"{stats['disk_hits'] / n_get:.4f}, misses {stats['misses']}); "
+        f"{stats['plans_built']} plans built, "
+        f"{stats['select_calls']} device selections "
+        f"({snap['infer.matrices']} matrices), disk {stats['disk_writes']} "
+        f"writes / {stats['disk_entries']} entries / {stats['disk_bytes']} "
+        f"bytes; entry_stats {traffic['entry_stats']} and row_stats "
+        f"{traffic['row_stats']} launches; {rounding} structures where the "
+        f"host selection differs by float32 rounding; {smi}")
+    launched("serving", traffic, ("entry_stats", "row_stats"))
+    if stats["errors"] or stats["rejected"] or stats["shed"]:
+        raise AssertionError(f"serving: {stats}")
+
+    # restart: a new engine from the saved bundle over the same disk tier
+    again = SolverEngine.load(bundle, cfg)
+    if again.cache_version != served.cache_version:
+        raise AssertionError("serving: the reloaded engine's cache version "
+                             "differs")
+    srv2 = again.serve()
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        plans = srv2.handle(mats, timeout=300)
+        t_disk = time.perf_counter() - t0
+        disk_counts = launch_counts()
+        st2 = srv2.stats()
+    finally:
+        srv2.close(timeout=60)
+    for i, p in enumerate(plans):
+        check_plan(i, p, "restart")
+    log(f"serving restart: {len(mats)} structures in process in "
+        f"{t_disk:.4f} s, disk tier hit rate "
+        f"{st2['disk_hits'] / max(1, st2['hits'] + st2['misses']):.4f} "
+        f"({st2['disk_hits']} hits), plans built "
+        f"{st2['plans_built']}, device selections {st2['select_calls']}, "
+        f"entry_stats {disk_counts['entry_stats']} and row_stats "
+        f"{disk_counts['row_stats']} launches; {smi}")
+    if not (st2["disk_hits"] == len(mats) and st2["plans_built"] == 0
+            and disk_counts["entry_stats"] == 0
+            and st2["warm_hits"] == len(mats)):
+        raise AssertionError(f"serving restart was not served from disk: "
+                             f"{st2}, launches {disk_counts}")
+
+    a = mats[int(stream[0])]
+    b = np.random.default_rng(3).standard_normal(a.n)
+    ctx = RequestContext.mint(deadline_ms=cfg_t["deadline_ms"])
+    r = again.solve(a, b, ctx=ctx)
+    gate(f"serving solve(ctx) {a.name} {r['algorithm']}", a, r, b)
+    log("serving solve(ctx) spans ms: " + json.dumps(
+        {k: round(v, 4) for k, v in ctx.spans_ms().items()}))
+    tmp.cleanup()
+
+
 def gate(label: str, a, r, b) -> None:
     """Raise unless the solve reached the fp64 residual gate (and, where it
     refined, converged)."""
@@ -2033,6 +2286,7 @@ def all_paths(dev) -> tuple:
     select_phase(engine, served, dev)
     solve_mats = list(generate_suite(16, seed=1, size_scale=4))
     counts = engine_phase(engine, solve_mats)
+    serving_phase(engine, solve_mats, dev)
     families_phase(served, solve_mats, dev)
     table2_phase(served, dev)
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()

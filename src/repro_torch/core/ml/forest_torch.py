@@ -17,6 +17,7 @@ differently.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, NamedTuple
 
 import numpy as np
@@ -159,6 +160,11 @@ def _upload(fa: ForestArrays, device: torch.device) -> tuple:
         (fa.value, torch.float32)))
 
 
+#: guards every model's ``_flat`` cache: the serving plane selects from its
+#: batcher thread and from RPC connection threads at once
+_FLAT_LOCK = threading.Lock()
+
+
 def _cached_arrays(model, trees, device: torch.device):
     """Flatten once per fit and upload once per device: keyed on the
     identity of the fitted roots.
@@ -166,18 +172,21 @@ def _cached_arrays(model, trees, device: torch.device):
     The key holds strong references to the root nodes (not their ``id``s):
     a refit frees the old roots, and a reallocated node could otherwise
     reuse an address and alias the stale arrays. Returns the host arrays
-    and their tensors on ``device``.
+    and their tensors on ``device``. The check and the fill run under one
+    lock, so concurrent first calls flatten and upload once and all get the
+    same tensors; the forward itself runs outside it.
     """
     key = tuple(t.root_ for t in trees)
-    cached = getattr(model, "_flat", None)
-    if (cached is None or len(cached[0]) != len(key)
-            or any(a is not b for a, b in zip(cached[0], key))):
-        cached = model._flat = (
-            key, forest_to_arrays(trees, int(model.n_classes_)), {})
-    fa, per_device = cached[1], cached[2]
-    if device not in per_device:
-        per_device[device] = _upload(fa, device)
-    return fa, per_device[device]
+    with _FLAT_LOCK:
+        cached = getattr(model, "_flat", None)
+        if (cached is None or len(cached[0]) != len(key)
+                or any(a is not b for a, b in zip(cached[0], key))):
+            cached = model._flat = (
+                key, forest_to_arrays(trees, int(model.n_classes_)), {})
+        fa, per_device = cached[1], cached[2]
+        if device not in per_device:
+            per_device[device] = _upload(fa, device)
+        return fa, per_device[device]
 
 
 def forest_forward(model, x: torch.Tensor) -> torch.Tensor:

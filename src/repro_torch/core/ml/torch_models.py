@@ -20,6 +20,7 @@ tensors, after casting its input to float32 as the reference does.
 from __future__ import annotations
 
 import math
+import threading
 from typing import List, Sequence
 
 import numpy as np
@@ -76,6 +77,10 @@ def _nll(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -torch.log_softmax(logits, dim=1).gather(1, y[:, None]).mean()
 
 
+#: guards every fitted model's per-device tensor cache (``_dev``)
+_DEV_LOCK = threading.Lock()
+
+
 class _TorchClassifier(BaseClassifier):
     """Shared device handling: fitted arrays ↔ cached tensors per device."""
 
@@ -103,14 +108,15 @@ class _TorchClassifier(BaseClassifier):
         references, so a refit or ``load_state`` never aliases stale
         tensors)."""
         key = tuple(self._arrays())
-        cached = getattr(self, "_dev", None)
-        if (cached is None or len(cached[0]) != len(key)
-                or any(a is not b for a, b in zip(cached[0], key))):
-            cached = self._dev = (key, {})
-        if device not in cached[1]:
-            cached[1][device] = [torch.from_numpy(np.asarray(a)).to(device)
-                                 for a in key]
-        return cached[1][device]
+        with _DEV_LOCK:  # served from several threads at once
+            cached = getattr(self, "_dev", None)
+            if (cached is None or len(cached[0]) != len(key)
+                    or any(a is not b for a, b in zip(cached[0], key))):
+                cached = self._dev = (key, {})
+            if device not in cached[1]:
+                cached[1][device] = [
+                    torch.from_numpy(np.asarray(a)).to(device) for a in key]
+            return cached[1][device]
 
     def forward_device(self, z: torch.Tensor) -> torch.Tensor:
         """Class scores for a float32 (B, d) tensor, on its device."""

@@ -1,20 +1,32 @@
 """Port of ``repro/core/plan.py``: ``ExecutionPlan`` (:39), ``PlanBuilder``
-(:67) — ``build`` (:111), ``get_or_build``, ``select_names`` (:158),
-``plan_batch`` (:196), ``stats`` — and ``execute_plan`` (:235).
+(:67) — ``build`` (:111), ``get_or_build`` (:140), ``select_names``
+(:158), ``plan_batch`` (:196), ``stats`` — and ``execute_plan`` (:235).
 
 An :class:`ExecutionPlan` carries everything that is a pure function of the
 sparsity structure — algorithm name, permutation, symbolic factor, predicted
 cost — so executing it only applies the permutation and runs the numeric
 phase. :class:`PlanBuilder` composes ``ReorderSelector.select_batch``
 (featurize + classify on the card), the reorderings and
-``symbolic_cholesky`` into plans, front-ended by the in-memory
-:class:`~repro_torch.core.plan_cache.PlanCache`. ``execute_plan`` runs
+``symbolic_cholesky`` into plans, front-ended by a
+:class:`~repro_torch.core.plan_cache.PlanCache` (in memory) or
+:class:`~repro_torch.core.plan_cache.TwoTierPlanCache` (memory over disk).
+``execute_plan`` runs
 every branch of the reference's (:302-345): the four multifrontal backends,
 the four sweep modes, host or device fp64 refinement and the simplicial
 solver; its defaults are the served path (``backend="pipelined"``,
-``sweep="device"``, ``solve_dtype="fp32_refine"``). Request contexts and
-the metrics registry are not ported yet; the solve-stage spans are returned
-in the result dict.
+``sweep="device"``, ``solve_dtype="fp32_refine"``).
+
+For serving, as in the reference: a
+:class:`~repro_torch.core.reqctx.RequestContext` passed as ``ctx`` gets the
+spans ``cache`` (``get_or_build``), ``select``, ``reorder`` and ``symbolic``
+(``build``) and the solve stages (``execute_plan``), whose factorization
+checks its deadline between levels; a
+:class:`~repro_torch.core.metrics.MetricsRegistry` passed as ``metrics``
+gets ``infer.batches`` / ``infer.matrices`` / ``infer.batch_s`` and the
+serving mesh's shard utilization per device micro-batch
+(``select_names``), and ``stage.<name>`` histograms, ``solve.*`` counters
+and gauges per solve (``execute_plan``). The solve-stage spans are also
+returned in the result dict.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..device import resolve_device
+from ..distributed.meshctx import get_serving_mesh, record_shard_utilization
 from ..sparse.csr import CSRMatrix, permute_symmetric
 from ..sparse.multifrontal import (DEVICE_BACKENDS, SWEEP_MODES,
                                    multifrontal_cholesky, multifrontal_solve)
@@ -34,6 +47,7 @@ from ..sparse.refine import refine_solve, refine_solve_device
 from ..sparse.reorder import get_reordering
 from ..sparse.symbolic import SymbolicFactor, symbolic_cholesky
 from .plan_cache import PlanCache, matrix_fingerprint
+from .reqctx import RequestContext
 
 __all__ = ["ExecutionPlan", "PlanBuilder", "execute_plan", "SOLVE_STAGES",
            "matrix_fingerprint"]
@@ -76,17 +90,21 @@ class PlanBuilder:
     Counters expose how much work each stage did, so a warm hit can be shown
     to do no feature extraction, classification or symbolic analysis.
     ``device`` is where the device path featurizes and classifies
-    (``None`` → CUDA).
+    (``None`` → CUDA). Thread-safe: the dispatcher's batcher, its build
+    workers and RPC connection threads share one builder.
     """
 
     def __init__(self, selector=None, cache: Optional[PlanCache] = None, *,
-                 path: str = "device", batch_size: int = 16, device=None):
+                 path: str = "device", batch_size: int = 16, device=None,
+                 metrics=None):
         self.selector = selector
         self.cache = cache if cache is not None else PlanCache()
         self.path = path
         self.batch_size = batch_size
         self.device = device
-        # stage counters, updated through _count
+        self.metrics = metrics
+        # stage counters; builds run concurrently in the dispatcher's worker
+        # pool, so updates go through _count
         self._stats_lock = threading.Lock()
         self.plans_built = 0
         self.sym_builds = 0
@@ -108,23 +126,30 @@ class PlanBuilder:
 
     # -- single-matrix ------------------------------------------------------
     def build(self, a: CSRMatrix, algorithm: Optional[str] = None,
-              fingerprint: Optional[str] = None) -> ExecutionPlan:
+              fingerprint: Optional[str] = None,
+              ctx: Optional[RequestContext] = None) -> ExecutionPlan:
         """Build a plan from scratch (no cache involvement); without an
         ``algorithm`` the selector picks one on the host. ``meta`` records
         ``t_select`` and ``t_build`` with its ``t_reorder`` / ``t_symbolic``
-        split."""
+        split; a ``ctx`` gets the spans ``select``, ``reorder`` and
+        ``symbolic``."""
         t_sel = 0.0
         if algorithm is None:
             if self.selector is None:
                 raise ValueError("no algorithm given and no selector set")
             algorithm, t_sel = self.selector.select(a)
             self._count(select_calls=1, select_seconds=t_sel)
+            if ctx is not None:
+                ctx.add_span("select", t_sel)
         t0 = time.perf_counter()  # select_seconds and build_seconds are
         perm = get_reordering(algorithm)(a)  # disjoint stages in reports
         t_reorder = time.perf_counter() - t0
         pa = permute_symmetric(a, perm)
         sym = symbolic_cholesky(pa)
         dt = time.perf_counter() - t0
+        if ctx is not None:
+            ctx.add_span("reorder", t_reorder)
+            ctx.add_span("symbolic", dt - t_reorder)
         self._count(sym_builds=1, plans_built=1, build_seconds=dt)
         return ExecutionPlan(
             fingerprint or matrix_fingerprint(a), algorithm,
@@ -132,13 +157,21 @@ class PlanBuilder:
             meta=dict(t_build=dt, t_reorder=t_reorder,
                       t_symbolic=dt - t_reorder, t_select=t_sel))
 
-    def get_or_build(self, a: CSRMatrix) -> Tuple[ExecutionPlan, bool]:
-        """(plan, was_hit) for one matrix through the cache."""
+    def get_or_build(self, a: CSRMatrix,
+                     ctx: Optional[RequestContext] = None
+                     ) -> Tuple[ExecutionPlan, bool]:
+        """(plan, was_hit) for one matrix through the cache; a ``ctx`` gets
+        its fingerprint and the ``cache`` span."""
         key = matrix_fingerprint(a)
-        plan = self.cache.get(key)
+        if ctx is not None:
+            ctx.fingerprint = key
+            with ctx.span("cache"):
+                plan = self.cache.get(key)
+        else:
+            plan = self.cache.get(key)
         if plan is not None:
             return plan, True
-        plan = self.build(a, fingerprint=key)
+        plan = self.build(a, fingerprint=key, ctx=ctx)
         self.cache.put(key, plan)
         return plan, False
 
@@ -163,6 +196,15 @@ class PlanBuilder:
             got, dt = self.selector.select_batch(batch, path=self.path,
                                                  device=self.device)
             self._count(select_calls=1, select_seconds=dt)
+            if self.metrics is not None:
+                self.metrics.counter("infer.batches").inc()
+                self.metrics.counter("infer.matrices").inc(len(chunk))
+                self.metrics.histogram("infer.batch_s").observe(dt)
+                if self.path == "device":
+                    # live rows vs pad-filler of this batch on each shard
+                    record_shard_utilization(
+                        self.metrics, get_serving_mesh(self.device),
+                        len(chunk), len(batch))
             for i, name in zip(chunk, got):
                 names[i] = name
         return names  # type: ignore[return-value]
@@ -219,7 +261,9 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
                  sweep: str = "device",
                  sweep_bs: Optional[int] = None,
                  rt: Optional[int] = None,
-                 device=None) -> dict:
+                 device=None,
+                 ctx: Optional[RequestContext] = None,
+                 metrics=None) -> dict:
     """Numeric factor + solve of ``A x = b`` driven by the plan, on
     ``device`` (``None`` → CUDA, raising when there is none; ``"cpu"``
     runs the plain versions of the kernels).
@@ -240,6 +284,15 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
     ``(n, k)``. The effective precision, sweep and policy land in the result
     dict and in ``plan.meta``; ``spans`` holds the times of the
     :data:`SOLVE_STAGES` the path has, in seconds.
+
+    A ``ctx`` gets those spans and rides into the factorization, which
+    raises :class:`~repro_torch.core.reqctx.DeadlineExceeded` at a level
+    boundary once its deadline has passed. A ``metrics`` registry gets a
+    ``stage.<name>`` histogram per span, the ``solve.overlap_efficiency``
+    gauge of the device backends, ``solve.requests`` and
+    ``solve.sweep.<mode>`` counters and, on the refined paths, the
+    ``solve.refine_iterations`` histogram and ``solve.refine_iters.<i>``
+    counters (``i`` capped at 8).
     """
     if a.data is None:
         raise ValueError("numeric execution needs values")
@@ -268,7 +321,7 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
         f = multifrontal_cholesky(
             pa, sym=plan.sym, backend=backend,
             dtype=np.float64 if eff_dtype == "fp64" else np.float32,
-            pad=pad, bs=bs, device=dev)
+            pad=pad, bs=bs, device=dev, ctx=ctx)
         fstats = f.stats
         t_fac = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -306,6 +359,22 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
         spans["solve.refine"] = refine_info.t_residual
         if eff_sweep == "device":
             spans["solve.setup"] = refine_info.t_setup
+    if ctx is not None:
+        for stage, dt in spans.items():
+            ctx.add_span(stage, dt)
+    if metrics is not None:
+        for stage, dt in spans.items():
+            metrics.histogram(f"stage.{stage}").observe(dt)
+        if "overlap_efficiency" in fstats:
+            metrics.gauge("solve.overlap_efficiency").set(
+                fstats["overlap_efficiency"])
+        metrics.counter("solve.requests").inc()
+        metrics.counter(f"solve.sweep.{eff_sweep}").inc()
+        if refine_info is not None:
+            metrics.histogram("solve.refine_iterations").observe(
+                float(refine_info.iterations))
+            metrics.counter(
+                f"solve.refine_iters.{min(refine_info.iterations, 8)}").inc()
     x = np.empty_like(z)
     x[perm] = z
     resid = float(np.linalg.norm(a.matvec(x) - b)
@@ -326,4 +395,5 @@ def execute_plan(a: CSRMatrix, plan: ExecutionPlan,
                 refine_converged=(None if refine_info is None
                                   else refine_info.converged),
                 nnz_L=plan.nnz_L, flops=plan.predicted_flops,
-                device=str(dev), spans=spans)
+                device=str(dev), spans=spans,
+                request_id=None if ctx is None else ctx.request_id)

@@ -7,13 +7,24 @@ less ``use_pallas``: the port's device featurizer always runs the
 reductions there. The defaults are the served main path of the port: device featurization through
 the ``csr_stats`` kernels, forest inference on the card, the pipelined
 factor, device sweeps and fp64 refinement, and an in-memory plan cache.
-Every ``backend``, ``sweep`` and ``solver`` of the reference is accepted. A
-value that names something not ported yet (a serving mesh, the disk cache,
-the serving and lifecycle fields, the solve tuner) raises
-``NotImplementedError`` naming the ROADMAP item; nothing falls back. The fields of the parts not
-ported yet (the disk tier, serving, the bundle lifecycle, the tuner) are
-kept so that a config reads as in the reference; any value but the
-default raises.
+Every ``backend``, ``sweep`` and ``solver`` of the reference is accepted, and
+so are the serving fields: the disk tier of the plan cache
+(``cache_dir`` and its budgets), the dispatcher (``max_wait_ms``,
+``build_workers``, ``max_queue``, ``default_deadline_ms``), the metrics
+sink (``metrics_jsonl``) and the RPC bind address (``rpc_host``,
+``rpc_port``).
+
+One default differs from the reference's: ``cache_dir`` is ``None`` (the
+plan cache stays in memory) where the reference's is its
+``artifacts/plan_cache``, so an engine writes into its working directory
+only when asked; the port's own directory is
+:data:`repro_torch.core.plan_cache.DEFAULT_CACHE_DIR`
+(``artifacts/plan_cache_torch``), which the launchers default to.
+
+The fields of the parts not ported yet (the bundle lifecycle, the solve
+tuner) are kept so that a config reads as in the reference; any value but
+the default raises ``NotImplementedError`` naming the ROADMAP item, as
+does a serving mesh of more than one device. Nothing falls back.
 """
 from __future__ import annotations
 
@@ -27,13 +38,10 @@ __all__ = ["EngineConfig"]
 #: fields read by parts not ported yet, by ROADMAP slice-queue item: any
 #: value but the default raises
 _UNPORTED_FIELDS = {
-    "serving": ("cache_dir", "cache_max_disk_bytes", "cache_max_disk_entries",
-                "max_wait_ms", "build_workers", "max_queue",
-                "default_deadline_ms", "metrics_jsonl", "rpc_host",
-                "rpc_port", "bundle_dir", "promote_min_accuracy",
-                "promote_min_shadow_requests", "promote_min_win_rate",
-                "shadow_max_queue"),
-    "the solve tuner": ("autotune_solve", "autotune_dir"),
+    "item 6, the bundle lifecycle": (
+        "bundle_dir", "promote_min_accuracy", "promote_min_shadow_requests",
+        "promote_min_win_rate", "shadow_max_queue"),
+    "item 6, the solve tuner": ("autotune_solve", "autotune_dir"),
 }
 
 
@@ -55,7 +63,9 @@ class EngineConfig:
     # algorithm list disagrees)
     algorithms: Optional[Sequence[str]] = None
 
-    # plan cache: in-memory (dir=None); the disk tier is not ported yet
+    # plan cache: dir=None/"" keeps it in memory (the port's default; the
+    # reference's is its disk dir); byte/entry budgets bound the disk tier
+    # (LRU-by-mtime eviction)
     cache_dir: Optional[str] = None
     cache_capacity: int = 4096
     cache_max_disk_bytes: Optional[int] = None
@@ -64,17 +74,24 @@ class EngineConfig:
     # featurization / inference path
     path: str = "device"          # "device" (padded CSR batch) or "host"
     batch_size: int = 16
+    # serving-mesh width: None or 1 (one card; more is not ported)
     serving_devices: Optional[int] = None
     # where the device path and the solve run: None → CUDA (raising when
     # there is no card); "cpu" runs the kernels' plain versions
     device: Optional[str] = None
 
-    # async serving and RPC (not ported yet)
+    # async serving: the dispatcher's micro-batch wait and build pool;
+    # max_queue=None keeps the dispatch queue unbounded, else submit raises
+    # QueueFull at it; default_deadline_ms stamps a deadline on requests
+    # that arrive without one (expired ones are shed with DeadlineExceeded)
     max_wait_ms: float = 5.0
     build_workers: int = 2
     max_queue: Optional[int] = None
     default_deadline_ms: Optional[float] = None
+    # structured metrics: a path here also streams events as JSON lines
     metrics_jsonl: Optional[str] = None
+    # RPC front-end (SolverEngine.serve(rpc=True)); port 0 binds an
+    # ephemeral port, published on the returned server
     rpc_host: str = "127.0.0.1"
     rpc_port: int = 0
 
@@ -121,7 +138,8 @@ class EngineConfig:
         if (self.serving_devices or 1) > 1:
             raise NotImplementedError(
                 "a serving mesh (serving_devices > 1) is not ported yet "
-                "(ROADMAP.md, slice queue: serving)")
+                "(ROADMAP.md, slice queue: item 4, the sharded serving "
+                "plane)")
         for f in dataclasses.fields(self):
             for item, names in _UNPORTED_FIELDS.items():
                 if f.name in names and getattr(self, f.name) != f.default:

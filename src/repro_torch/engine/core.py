@@ -1,22 +1,25 @@
 """Port of ``repro/engine/core.py``: :class:`SolverEngine` — matrix in,
 best reordering (and solve) out.
 
-The facade composes the registries, the selector pipeline and the
-ExecutionPlan builder and cache behind one object with one configuration:
-``train`` → ``select`` / ``select_batch`` → ``plan`` / ``plan_batch`` →
-``solve`` / ``solve_batch``, ``save`` / ``load`` as
-:class:`~repro_torch.engine.bundle.SelectorBundle`\\ s, and ``stats``. The
-fingerprint of the fitted model/scaler versions the plan cache: a refit
-gets a fresh cache front-end, so a stale plan is never served by a newer
-model.
+The facade composes the registries, the selector pipeline, the
+ExecutionPlan builder and cache, and the serving plane behind one object
+with one configuration: ``train`` → ``select`` / ``select_batch`` →
+``plan`` / ``plan_batch`` → ``solve`` / ``solve_batch`` → ``serve``,
+``save`` / ``load`` as bundles
+(:class:`~repro_torch.engine.bundle.SelectorBundle`), ``metrics`` and
+``stats``. The fingerprint of the fitted model/scaler
+versions the plan cache, in memory and on disk: a refit gets a fresh cache
+front-end, so a stale plan is never served by a newer model.
 
 ``solve_batch`` is the served main path on the card: featurize through the
 ``csr_stats`` kernels and classify with the forest on the card, build plans
 (reorder + symbolic on the host), then the pipelined factor, the device
-sweeps and fp64 refinement. Not ported yet (ROADMAP): ``serve``, shadow /
-promote / rollback and the bundle registry, ``metrics``, request-context
-spans, and the solve tuner (the engine passes the reference's conservative
-default policy, ``pad="pow2"``, ``bs=None``).
+sweeps and fp64 refinement. ``serve`` is the served plane: a
+:class:`~repro_torch.launch.serve_selector.AsyncPlanServer` (the deadline
+micro-batching dispatcher) on the engine's builder, optionally behind the
+RPC front-end. Not ported yet (ROADMAP): shadow / promote / rollback and
+the bundle registry, and the solve tuner (the engine passes the
+reference's conservative default policy, ``pad="pow2"``, ``bs=None``).
 """
 from __future__ import annotations
 
@@ -71,6 +74,7 @@ class SolverEngine:
         self._selector = None
         self._fingerprint: Optional[str] = None
         self._builder = None
+        self._metrics = None  # built on first use (sink config on config)
         self.last_report: Optional[Dict[str, Any]] = None
         # dataset provenance of the last train() — persisted into bundle
         # schema v2 by save() (None for attach()/load()-built engines)
@@ -155,15 +159,39 @@ class SolverEngine:
             raise EngineError("no fingerprint before training")
         return f"sel-{self._fingerprint[:16]}"
 
+    @property
+    def metrics(self):
+        """The engine's :class:`repro_torch.core.metrics.MetricsRegistry`,
+        shared by the cache tiers, the plan builder, the dispatcher and the
+        RPC front-end, so ``metrics.snapshot()`` covers the whole serving
+        stack; with ``metrics_jsonl`` set, events also go to that file."""
+        if self._metrics is None:
+            from ..core.metrics import JSONLSink, MetricsRegistry
+
+            self._metrics = MetricsRegistry()
+            if self.config.metrics_jsonl:
+                self._metrics.add_sink(JSONLSink(self.config.metrics_jsonl))
+        return self._metrics
+
     def _get_builder(self):
         if self._builder is None:
             from ..core.plan import PlanBuilder
-            from ..core.plan_cache import PlanCache
+            from ..core.plan_cache import PlanCache, TwoTierPlanCache
 
             cfg = self.config
+            if cfg.cache_dir:
+                cache = TwoTierPlanCache(
+                    cfg.cache_capacity, cfg.cache_dir,
+                    version=self.cache_version,
+                    max_disk_bytes=cfg.cache_max_disk_bytes,
+                    max_disk_entries=cfg.cache_max_disk_entries,
+                    metrics=self.metrics)
+            else:
+                cache = PlanCache(cfg.cache_capacity, metrics=self.metrics)
             self._builder = PlanBuilder(
-                self.selector, PlanCache(cfg.cache_capacity), path=cfg.path,
-                batch_size=cfg.batch_size, device=cfg.device)
+                self.selector, cache, path=cfg.path,
+                batch_size=cfg.batch_size, device=cfg.device,
+                metrics=self.metrics)
         return self._builder
 
     @property
@@ -178,18 +206,32 @@ class SolverEngine:
 
     def select_batch(self, mats: Sequence) -> List[str]:
         """Algorithm names for a batch via the configured path."""
+        self._ensure_serving_mesh()
         names, _ = self.selector.select_batch(
             mats, path=self.config.path, device=self.config.device)
         return names
 
     # -- planning ------------------------------------------------------------
-    def plan(self, a):
-        """Cached :class:`ExecutionPlan` for one matrix."""
-        plan, _ = self._get_builder().get_or_build(a)
+    def _mint(self, ctx):
+        from ..core.reqctx import RequestContext
+
+        if ctx is None:
+            ctx = RequestContext.mint(
+                deadline_ms=self.config.default_deadline_ms)
+        return ctx
+
+    def plan(self, a, ctx=None):
+        """Cached :class:`ExecutionPlan` for one matrix. Mints a
+        :class:`repro_torch.core.reqctx.RequestContext` when the caller
+        brought none; either way it gets the spans ``cache`` and, on a miss,
+        ``select``, ``reorder`` and ``symbolic``."""
+        self._ensure_serving_mesh()
+        plan, _ = self._get_builder().get_or_build(a, ctx=self._mint(ctx))
         return plan
 
     def plan_batch(self, mats: Sequence) -> List:
         """Plans for a request batch (hits skip every cold stage)."""
+        self._ensure_serving_mesh()
         return self._get_builder().plan_batch(mats)
 
     # -- solving -------------------------------------------------------------
@@ -200,15 +242,22 @@ class SolverEngine:
         return dict(solver=cfg.solver, backend=cfg.backend,
                     solve_dtype=cfg.solve_dtype, pad="pow2", bs=None,
                     sweep=cfg.sweep, sweep_bs=None, rt=None,
-                    device=cfg.device)
+                    device=cfg.device, metrics=self.metrics)
 
-    def solve(self, a, b: Optional[np.ndarray] = None) -> Dict[str, Any]:
+    def solve(self, a, b: Optional[np.ndarray] = None,
+              ctx=None) -> Dict[str, Any]:
         """Plan (cached) + numeric factor + solve; returns the result dict
         of :func:`repro_torch.core.plan.execute_plan` (x, timings, spans,
-        residual)."""
+        residual, request id). One
+        :class:`~repro_torch.core.reqctx.RequestContext` (minted when the
+        caller brought none) spans planning and the numeric tail: its
+        deadline is checked between the factorization's levels, and its
+        spans land in the engine's metrics as ``stage.*`` histograms."""
         from ..core.plan import execute_plan
 
-        return execute_plan(a, self.plan(a), b, **self._solve_kwargs())
+        ctx = self._mint(ctx)
+        return execute_plan(a, self.plan(a, ctx=ctx), b, ctx=ctx,
+                            **self._solve_kwargs())
 
     def solve_batch(self, mats: Sequence,
                     bs: Optional[Sequence[Optional[np.ndarray]]] = None
@@ -224,6 +273,61 @@ class SolverEngine:
         kw = self._solve_kwargs()
         return [execute_plan(a, p, b, **kw)
                 for a, p, b in zip(mats, plans, bs)]
+
+    # -- serving -------------------------------------------------------------
+    def _ensure_serving_mesh(self) -> None:
+        """Install the configured serving mesh (``serving_devices``) if it is
+        not already active: process-global, as in the reference, and a
+        no-op when the config leaves ``serving_devices`` unset."""
+        nd = self.config.serving_devices
+        if nd is None:
+            return
+        from ..distributed.meshctx import (get_serving_mesh,
+                                           make_serving_mesh,
+                                           set_serving_mesh)
+
+        if get_serving_mesh(self.config.device).num_devices != nd:
+            set_serving_mesh(make_serving_mesh(nd, self.config.device))
+
+    def serve(self, *, rpc: bool = False, host: Optional[str] = None,
+              port: Optional[int] = None, **overrides):
+        """A fresh server bound to this engine's builder (and so to its
+        fingerprint-versioned cache).
+
+        ``rpc=False`` returns the in-process
+        :class:`~repro_torch.launch.serve_selector.AsyncPlanServer`;
+        ``rpc=True`` also binds the socket front-end
+        (:class:`~repro_torch.launch.rpc.PlanRPCServer`) on ``(host,
+        port)``, defaulting to the config's ``rpc_host``/``rpc_port``, and
+        returns it: its ``close()`` shuts the pipeline down too, and the
+        bound port is ``server.port``. A failed bind closes the pipeline
+        before it raises. Keyword overrides pass through to the pipeline
+        (``batch_size``, ``max_wait_ms``, ``build_workers``, ...)."""
+        from ..launch.serve_selector import AsyncPlanServer
+
+        self._ensure_serving_mesh()
+        cfg = self.config
+        kwargs = dict(batch_size=cfg.batch_size,
+                      max_wait_ms=cfg.max_wait_ms,
+                      build_workers=cfg.build_workers,
+                      max_queue=cfg.max_queue,
+                      default_deadline_ms=cfg.default_deadline_ms,
+                      metrics=self.metrics)
+        kwargs.update(overrides)
+        server = AsyncPlanServer(self._get_builder(), **kwargs)
+        if not rpc:
+            return server
+        from ..launch.rpc import PlanRPCServer
+
+        try:
+            return PlanRPCServer(
+                server, host=cfg.rpc_host if host is None else host,
+                port=cfg.rpc_port if port is None else port,
+                own_dispatcher=True)
+        except BaseException:
+            # a failed bind must not leak the running batcher and builders
+            server.close()
+            raise
 
     # -- persistence ---------------------------------------------------------
     def _report_card(self) -> Optional[Dict[str, Any]]:

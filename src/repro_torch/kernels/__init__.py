@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from ._build import reset_launches
 from .csr_stats import entry_stats, row_stats
 from .flash_attention import flash_attention
 from .frontal_cholesky import (chol_tile, extend_add_batch,
@@ -35,5 +36,4 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches(KERNELS.values())

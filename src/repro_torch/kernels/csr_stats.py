@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..device import on_cuda
-from ._build import load_kernels
+from ._build import count_launch, load_kernels
 
 __all__ = ["entry_stats", "row_stats", "entry_stats_plain", "row_stats_plain",
            "CHUNK", "ROW_CHUNK", "ROW_MIN_INIT"]
@@ -74,7 +74,7 @@ def entry_stats(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
     out = torch.empty((B, 2), dtype=torch.float32, device=rows.device)
     load_kernels().entry_stats(rows, cols, valid, first, CHUNK, bw_part,
                                prof_part, out)
-    entry_stats.launches += 1
+    count_launch(entry_stats)
     return out
 
 
@@ -114,7 +114,7 @@ def row_stats(row_nnz: torch.Tensor, row_valid: torch.Tensor,
     out = torch.empty((B, 3), dtype=torch.float32, device=dev)
     load_kernels().row_stats(row_nnz, row_valid, mean, ROW_CHUNK, mx_part,
                              mn_part, sq_part, _arrival_counters(dev, B), out)
-    row_stats.launches += 1
+    count_launch(row_stats)
     return out
 
 

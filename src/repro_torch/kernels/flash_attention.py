@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 from ..device import on_cuda
-from ._build import load_kernels
+from ._build import count_launch, load_kernels
 
 __all__ = ["flash_attention", "flash_attention_plain", "operand_error",
            "NEG_INF"]
@@ -129,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     load_kernels().flash_attention(q, k, v, out, bool(causal), scale,
                                    -1 if kv_len is None else int(kv_len))
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..device import on_cuda
-from ._build import load_kernels
+from ._build import count_launch, load_kernels
 
 __all__ = ["chol_tile", "chol_tile_plain", "tri_inv_tile",
            "tri_inv_tile_plain", "matmul_nt", "matmul_nt_plain",
@@ -82,7 +82,7 @@ def chol_tile(a: torch.Tensor) -> torch.Tensor:
         return chol_tile_plain(a)
     out = torch.empty((bs, bs), dtype=torch.float32, device=a.device)
     load_kernels().chol_tile(a, out)
-    chol_tile.launches += 1
+    count_launch(chol_tile)
     return out
 
 
@@ -111,7 +111,7 @@ def tri_inv_tile(l: torch.Tensor) -> torch.Tensor:
         return tri_inv_tile_plain(l)
     out = torch.empty((bs, bs), dtype=torch.float32, device=l.device)
     load_kernels().tri_inv_tile(l, out)
-    tri_inv_tile.launches += 1
+    count_launch(tri_inv_tile)
     return out
 
 
@@ -150,7 +150,7 @@ def matmul_nt(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     if out is None:
         out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     load_kernels().matmul_nt(a, b, c, out, float(alpha), float(beta))
-    matmul_nt.launches += 1
+    count_launch(matmul_nt)
     return out
 
 
@@ -201,7 +201,7 @@ def frontal_factor_batch(w: torch.Tensor, npiv: int, *, bs: int
     if not on_cuda(w):
         return frontal_factor_batch_plain(w, npiv, bs)
     load_kernels().frontal_factor(w, npiv, bs)
-    frontal_factor_batch.launches += 1
+    count_launch(frontal_factor_batch)
     return w
 
 
@@ -488,7 +488,7 @@ def extend_add_routed(w: torch.Tensor, us, offs, routing: ExtendAddRouting,
             ops.extend_add(w, list(us[ln.g0 : ln.g1]),
                            [int(o) for o in offs[ln.g0 : ln.g1]], maps, ent,
                            rows, span, ln.r0, ln.r1, ln.max_r)
-            extend_add_batch.launches += 1
+            count_launch(extend_add_batch)
     return w
 
 
@@ -570,7 +570,7 @@ def tri_solve_batch(l: torch.Tensor, x: torch.Tensor, *, bs: int,
     K = x.shape[2]
     kt = min(32, max(K, 1)) if kt is None else kt
     load_kernels().tri_solve(l, x, bs, kt, lower)
-    tri_solve_batch.launches += 1
+    count_launch(tri_solve_batch)
     return x
 
 

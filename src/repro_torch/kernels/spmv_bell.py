@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import on_cuda
-from ._build import load_kernels
+from ._build import count_launch, load_kernels
 
 __all__ = ["SPMV_BLOCK_SIZES", "bell_spmv", "bell_spmv_plain", "csr_to_bell",
            "pick_spmv_bs"]
@@ -105,7 +105,7 @@ def bell_spmv(blocks: torch.Tensor, idx: torch.Tensor, x: torch.Tensor
         x2 = x2.contiguous()
         y = torch.empty_like(x2)
         load_kernels().bell_spmv(blocks, idx, x2, y)
-        bell_spmv.launches += 1
+        count_launch(bell_spmv)
     else:
         y = bell_spmv_plain(blocks, idx, x2)
     return y[:, 0] if single else y

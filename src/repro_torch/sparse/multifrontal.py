@@ -9,7 +9,8 @@ Ported functions: ``_scatter_entries`` (:128), ``_extend_add`` (:148),
 sweeps ``_build_sweeps``, ``_solve_level`` and ``_solve_sequential``
 (:496-592), the device sweeps ``_bucket_indices``, ``_build_device_sweeps``,
 ``_device_sweep_passes`` and ``_solve_device`` (:616-708),
-``multifrontal_solve`` (:714) and ``factor_and_solve_timed`` (:750).
+``multifrontal_solve`` (:714), ``factor_and_solve_timed`` (:750) and the
+request-context deadline check ``_check_deadline`` (:80).
 
 Backends (``backend=``):
 
@@ -49,8 +50,13 @@ host fronts are stacked and uploaded once. ``device`` is the default
 here, as ``pipelined`` is the factor's; ``auto`` is ``level``. Pair the
 f32 paths with :mod:`repro_torch.sparse.refine` for fp64 residuals.
 
-The reference's request-context deadline checks (``ctx``) belong to the
-serving slice and are not ported.
+``multifrontal_cholesky(ctx=...)`` takes a
+:class:`~repro_torch.core.reqctx.RequestContext`, as the reference's does:
+it checks the deadline at the start of the factorization, before each level
+of ``batched``, before each level ``pipelined`` dispatches, and before and
+after ``pipelined``'s drain (the port drains in one sync where the
+reference fetched level by level), and raises
+:class:`~repro_torch.core.reqctx.DeadlineExceeded` once it has passed.
 
 The reference padded each extend-add's contribution count to a power of two
 to bound jit shapes; eager torch needs no such padding.
@@ -137,6 +143,23 @@ class MultifrontalFactor:
 # ---------------------------------------------------------------------------
 # Host-side assembly
 # ---------------------------------------------------------------------------
+
+def _check_deadline(ctx, stage: str) -> None:
+    """Deadline checkpoint at a level boundary of the numeric phase: a
+    request whose context's deadline has passed raises
+    :class:`~repro_torch.core.reqctx.DeadlineExceeded` mid-factorization
+    instead of spending the remaining levels on an answer nobody waits for.
+    ``ctx`` is duck-typed (``expired()`` / ``remaining()``); the import is
+    lazy, as ``repro_torch.core`` imports this module."""
+    if ctx is None or not ctx.expired():
+        return
+    from ..core.reqctx import DeadlineExceeded
+
+    late_ms = -(ctx.remaining() or 0.0) * 1e3
+    raise DeadlineExceeded(
+        f"deadline exceeded {late_ms:.1f} ms ago at {stage} — "
+        f"factorization abandoned")
+
 
 def _scatter_entries(F: np.ndarray, a: CSRMatrix, fp: FrontPlan,
                      shift: int = 0) -> None:
@@ -347,6 +370,7 @@ def multifrontal_cholesky(
     pad: str = "pow2",
     bs: Optional[int] = None,
     device=None,
+    ctx=None,
 ) -> MultifrontalFactor:
     """Numeric supernodal factorization of an SPD CSR matrix.
 
@@ -357,7 +381,8 @@ def multifrontal_cholesky(
     runs on the host in ``dtype`` and resolves ``device`` only when one is
     given. ``pad`` is the bucket pad policy of the level schedule
     (``"pow2"`` / ``"mult8"``) and ``bs`` the panel-width cap of the batched
-    factor kernel (None → 32)."""
+    factor kernel (None → 32). ``ctx`` is an optional request context whose
+    deadline is checked at level boundaries (see the module docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
@@ -368,6 +393,7 @@ def multifrontal_cholesky(
     if sym is None:
         sym = symbolic_cholesky(a)
     eff_dtype = np.dtype(np.float32 if backend in DEVICE_BACKENDS else dtype)
+    _check_deadline(ctx, "factorization start")
     t0 = time.perf_counter()
     snode_ptr, snode_of = supernodes(sym, relax=relax)
     schedule = build_schedule(sym, snode_ptr, snode_of, pad=pad)
@@ -376,9 +402,10 @@ def multifrontal_cholesky(
     fronts, stacks = None, None
     if backend == "pipelined":
         timings, stacks = _factor_pipelined(a, schedule, routing, bs=bs,
-                                            device=dev)
+                                            device=dev, ctx=ctx)
     elif backend == "batched":
-        fronts, timings = _factor_batched(a, schedule, bs=bs, device=dev)
+        fronts, timings = _factor_batched(a, schedule, bs=bs, device=dev,
+                                          ctx=ctx)
     else:
         fronts, timings = _factor_sequential(a, schedule, backend, eff_dtype,
                                              dev)
@@ -429,7 +456,7 @@ def _factor_sequential(a: CSRMatrix, schedule: LevelSchedule, backend: str,
 
 
 def _factor_batched(a: CSRMatrix, schedule: LevelSchedule,
-                    bs: Optional[int], device: torch.device
+                    bs: Optional[int], device: torch.device, ctx=None
                     ) -> Tuple[List[_Front], dict]:
     """Level-scheduled factorization: per (level, bucket), assemble every
     member front into one padded f32 workspace stack on the host (A's
@@ -442,6 +469,7 @@ def _factor_batched(a: CSRMatrix, schedule: LevelSchedule,
         [] for _ in range(schedule.nsup)]
     t_asm = t_sync = 0.0
     for li in range(schedule.nlevels):
+        _check_deadline(ctx, f"batched level {li}/{schedule.nlevels}")
         for bucket in schedule.buckets[li]:
             t0 = pc()
             P = bucket.P
@@ -472,7 +500,7 @@ def _factor_batched(a: CSRMatrix, schedule: LevelSchedule,
 
 def _factor_pipelined(a: CSRMatrix, schedule: LevelSchedule,
                       routing: Tuple[ExtendAddRouting, dict],
-                      bs: Optional[int], device: torch.device
+                      bs: Optional[int], device: torch.device, ctx=None
                       ) -> Tuple[dict, Dict[Tuple[int, int], torch.Tensor]]:
     """Pipelined device-resident factorization.
 
@@ -495,6 +523,8 @@ def _factor_pipelined(a: CSRMatrix, schedule: LevelSchedule,
     ea_routing = ea_routing.to(device)
     t_asm, t_disp = 0.0, pc() - t0
     for li in range(schedule.nlevels):
+        _check_deadline(ctx, f"pipelined dispatch level "
+                             f"{li}/{schedule.nlevels}")
         for bj, bucket in enumerate(schedule.buckets[li]):
             t0 = pc()
             shape = (len(bucket.members), bucket.M, bucket.M)
@@ -513,10 +543,12 @@ def _factor_pipelined(a: CSRMatrix, schedule: LevelSchedule,
             t_disp += pc() - t0
     # drain: the only host↔device sync — by now the host has assembled and
     # dispatched every level, so this wait is whatever device work is left
+    _check_deadline(ctx, "pipelined drain")
     t0 = pc()
     if cuda:
         torch.cuda.synchronize(device)
     t_sync = pc() - t0
+    _check_deadline(ctx, "pipelined drain end")
     return _overlap_timings(t_asm, t_disp, t_sync), dev
 
 

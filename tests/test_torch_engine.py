@@ -5,9 +5,17 @@ fingerprints, identical selected names and plans, and solutions within
 1e-8 relative of the reference's host fp64 solve with residuals ≤ 1e-10.
 The port runs on the CPU (``device="cpu"``: the kernels' plain versions);
 the reference selects through its Pallas kernels in interpret mode. Also:
-the plan cache, the config's refusals, bundles through the engine, and the
-default device.
+the plan cache, the config's refusals and the serving fields it takes,
+bundles through the engine, the default device, and selection from two
+threads at once.
 """
+import copy
+import json
+import os
+import socket
+import sys
+import threading
+import time
 import warnings
 
 import numpy as np
@@ -23,8 +31,11 @@ from repro.sparse.dataset import generate_suite as ref_suite  # noqa: E402
 
 from repro_torch.core.labeling import LabeledDataset  # noqa: E402
 from repro_torch.core.plan import PlanBuilder, matrix_fingerprint  # noqa: E402
-from repro_torch.core.plan_cache import PlanCache  # noqa: E402
+from repro_torch.core.plan_cache import (PlanCache,  # noqa: E402
+                                         TwoTierPlanCache)
+from repro_torch.core.selector import ReorderSelector  # noqa: E402
 from repro_torch.engine import EngineConfig, EngineError, SolverEngine  # noqa: E402
+from repro_torch.launch.rpc import PlanRPCClient  # noqa: E402
 from repro_torch.sparse.dataset import generate_suite  # noqa: E402
 
 LABELS = "artifacts/labels_c36_s7_x0.35_r1.npz"
@@ -177,14 +188,156 @@ def test_config_solves_with_every_ported_path(engines, mats, kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache_dir="artifacts/plan_cache"),
     dict(serving_devices=2), dict(autotune_solve=True),
-    dict(max_queue=8), dict(metrics_jsonl="m.jsonl"), dict(rpc_port=9000),
-    dict(bundle_dir="bundles")],
+    dict(autotune_dir="at"), dict(bundle_dir="bundles"),
+    dict(promote_min_accuracy=0.9), dict(shadow_max_queue=8)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_config_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match=r"not ported yet \(ROADMAP\.md, slice queue: "):
         EngineConfig(**kw)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _takes_cache_dir(eng, tmp_path, mats):
+    plan = eng.plan(mats[1][0])
+    cache = eng.builder.cache
+    assert isinstance(cache, TwoTierPlanCache)
+    assert cache.version == eng.cache_version
+    assert os.path.exists(cache._path(plan.fingerprint))
+    assert cache._path(plan.fingerprint).startswith(str(tmp_path))
+
+
+def _takes_max_queue(eng, tmp_path, mats):
+    srv = eng.serve()
+    try:
+        assert srv.max_queue == 8 and srv._queue.maxsize == 8
+        assert srv.stats()["max_queue"] == 8
+    finally:
+        srv.close(timeout=60)
+
+
+def _takes_metrics_jsonl(eng, tmp_path, mats):
+    eng.metrics.emit("probe", n=1)
+    eng.metrics.close()
+    rec = json.loads(open(tmp_path / "m.jsonl").read().splitlines()[0])
+    assert rec["event"] == "probe" and rec["n"] == 1
+
+
+def _takes_rpc_port(eng, tmp_path, mats):
+    srv = eng.serve(rpc=True)
+    try:
+        assert srv.port == eng.config.rpc_port
+        with PlanRPCClient("127.0.0.1", srv.port, timeout=60) as c:
+            assert c.ping()["ok"]
+    finally:
+        srv.close(timeout=60)
+
+
+SERVING_FIELDS = {
+    "cache_dir": (lambda tmp: str(tmp / "pc"), _takes_cache_dir),
+    "max_queue": (lambda tmp: 8, _takes_max_queue),
+    "metrics_jsonl": (lambda tmp: str(tmp / "m.jsonl"), _takes_metrics_jsonl),
+    "rpc_port": (lambda tmp: _free_port(), _takes_rpc_port),
+}
+
+
+@pytest.mark.parametrize("field", sorted(SERVING_FIELDS))
+def test_config_serving_field_takes_effect(field, engines, mats, tmp_path):
+    """The serving fields the config once refused build an engine whose
+    cache, dispatcher, metrics or RPC front-end uses them."""
+    _, port = engines
+    value, check = SERVING_FIELDS[field]
+    eng = SolverEngine(EngineConfig(device="cpu", **{field: value(tmp_path)}),
+                       selector=port.selector)
+    check(eng, tmp_path, mats)
+
+
+def test_two_threads_select_through_one_builder(engines, mats, monkeypatch):
+    """Concurrent first selections through one PlanBuilder flatten and
+    upload the forest once and agree with a serial selection."""
+    from repro_torch.core.ml import forest_torch
+
+    _, port = engines
+    model = copy.deepcopy(port.selector.model)
+    model.__dict__.pop("_flat", None)
+    sel = ReorderSelector(model, port.selector.scaler,
+                          port.selector.algorithms)
+    builder = PlanBuilder(sel, batch_size=4, device="cpu")
+    uploads, real = [], forest_torch._upload
+
+    def slow_upload(fa, device):
+        uploads.append(device)
+        time.sleep(0.05)  # widen the window two unguarded threads race in
+        return real(fa, device)
+
+    monkeypatch.setattr(forest_torch, "_upload", slow_upload)
+    go = threading.Barrier(4)
+    out, errs = {}, []
+
+    def work(i):
+        try:
+            go.wait(60)
+            out[i] = builder.select_names(mats[1])
+        except Exception as exc:  # reported below
+            errs.append(exc)
+
+    ts = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60)
+    assert not any(t.is_alive() for t in ts) and not errs
+    want = port.select_batch(mats[1])
+    assert all(out[i] == want for i in range(4))
+    assert len(uploads) == 1 and list(model._flat[2]) == [torch.device("cpu")]
+    assert builder.select_calls == 4 * 3  # 12 matrices in chunks of 4
+
+
+def test_launch_counts_and_kernel_build_are_thread_safe(monkeypatch,
+                                                        tmp_path):
+    """``count_launch`` loses no update under contention, and racing first
+    calls of ``load_kernels`` build once."""
+    import torch.utils.cpp_extension
+
+    from repro_torch.kernels import _build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    builds = []
+
+    def fake_load(**kw):
+        builds.append(kw["name"])
+        time.sleep(0.05)
+
+    monkeypatch.setattr(_build, "_OPS", None)
+    monkeypatch.setattr(torch.utils.cpp_extension, "load", fake_load)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            _build.load_kernels()
+            for _ in range(5000):
+                _build.count_launch(wrapper)
+        ts = [threading.Thread(target=work) for _ in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == 40000 and len(builds) == 1
+    _build.reset_launches([wrapper])
+    assert wrapper.launches == 0
 
 
 def test_config_defaults_are_the_served_main_path():
