@@ -5,7 +5,7 @@ Run from the root of the repository, on a machine with one CUDA device:
     python3 chip_smoke.py
 
 It builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives eight paths, each with the kernels' launch counts zeroed just before
+drives nine paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve):
 
@@ -47,6 +47,22 @@ engine they serve):
   ``entry_stats`` launch; and one ``solve(ctx=...)`` at the residual gate;
   requests/s, client and per-stage p50/p99, hit rates per tier and the
   card's name and power limit printed;
+* **lifecycle**: the solve tuner, ``tune(device=cuda)`` over the
+  reference's default suite and grids (a line per candidate, the winner),
+  with ``frontal_factor_batch``, ``extend_add_batch`` and
+  ``tri_solve_batch`` held against their plain versions at every knob of
+  the grids on grid3d(20,20,20)/nd under both pad policies (those launches
+  not counted); an engine with ``autotune_solve=True`` that tunes and
+  solves grid3d(20,20,20) and two matrices of the engine path at the
+  residual gate with the policy in ``plan.meta``, and a second one that
+  loads the record and launches nothing; a labeling campaign with
+  ``backend="pipelined"`` on the card, cut at half its cells, resumed and
+  assembled into a dataset that trains a candidate; then the engine's
+  bundle behind ``serve()`` with a disk tier, 48 Zipf requests while the
+  candidate shadows (no shadow error), a promotion gate the candidate fails
+  and one it passes, the cache version moved and ``rollback()`` serving
+  the incumbent's plan from disk with no plan built; the four solve
+  kernels and the two ``csr_stats`` kernels launched;
 * **families**: a ``SolverEngine(EngineConfig(model=name,
   fast_grids=True, cv=3))`` for each of ``logistic_regression``, ``svm``,
   ``mlp`` (trained by Adam on the card; a fit that ran elsewhere fails),
@@ -265,6 +281,8 @@ FACTOR_STEMS = ("small_kernel", "diag_kernel", "panel_kernel",
 SERVING = dict(requests=150, zipf_alpha=1.1, burst=24, pause_ms=50.0,
                clients=4, batch=8, max_wait_ms=5.0, max_queue=256,
                build_workers=2, deadline_ms=60_000.0, seed=7)
+#: wall seconds of the phases the ``total`` line breaks out
+PHASE_S: dict = {}
 
 
 def log(*args) -> None:
@@ -1743,6 +1761,296 @@ def serving_phase(engine, mats, dev) -> None:
     tmp.cleanup()
 
 
+def lifecycle_holds(dev) -> dict:
+    """The solve kernels at the tuner's knobs, each against its plain
+    version (tolerances of ``TOL``), on grid3d(20,20,20)/nd factored by the
+    pipelined path under both pad policies: ``frontal_factor_batch`` at one
+    bucket of every pivot width of the ``pow2`` schedule and of every width
+    the ``mult8`` schedule adds (``width_cases``), at the panel
+    ``pick_block_size`` gives for every ``bs`` of the grid (64 → 32);
+    ``extend_add_batch`` at those buckets that are fed, launched as the
+    path launches it; ``tri_solve_batch``, both sweeps, at k = 4 at every
+    (``sweep_bs``, ``rt``) of the sweep grid. Returns each kernel's largest
+    error. These launches are not counted for the path."""
+    import torch
+
+    from repro_torch.autotune import solve_tuner as st
+    from repro_torch.core.plan import PlanBuilder
+    from repro_torch.kernels import frontal_cholesky as fc
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.csr import permute_symmetric
+    from repro_torch.sparse.dataset import grid3d
+    from repro_torch.sparse.multifrontal import (_route_contributions,
+                                                 multifrontal_cholesky)
+
+    a = grid3d(20, 20, 20, "grid3d_20")
+    plan = PlanBuilder().build(a, "nd")
+    pa = permute_symmetric(a, plan.perm)
+    rng = np.random.default_rng(5)
+    errs = dict(frontal_factor_batch=0.0, extend_add_batch=0.0,
+                tri_solve_batch=0.0)
+    seen_widths: set = set()
+    for pad in ("pow2", "mult8"):
+        f = multifrontal_cholesky(pa, sym=plan.sym, pad=pad, device=dev)
+        sched = f.schedule
+        routes = _route_contributions(sched)
+        for _, key in width_cases(sched, pick_buckets(sched, routes)):
+            P = sched.buckets[key[0]][key[1]].P
+            if P in seen_widths:
+                continue
+            seen_widths.add(P)
+            bk, w0, groups = bucket_inputs(pa, f, routes, key, dev)
+            ea = "-"
+            if key in routes:
+                wk, wp = w0.clone(), w0.clone()
+                extend_add_as_path(f, routes, key, dev)(wk)
+                for u, off, src, dst, rows in groups:
+                    fc.extend_add_batch_plain(wp, u, dst, rows, src, off)
+                err = compare("extend_add_batch", wk, wp)
+                errs["extend_add_batch"] = max(errs["extend_add_batch"], err)
+                ea = f"{err:.3e}"
+                w0 = wk
+            ff = []
+            for bs in st.DEFAULT_BS_GRID:
+                panel = ops.pick_block_size(P, bs)
+                wk, wp = w0.clone(), w0.clone()
+                fc.frontal_factor_batch(wk, P, bs=panel)
+                fc.frontal_factor_batch_plain(wp, P, panel)
+                err = compare("frontal_factor_batch", torch.tril(wk),
+                              torch.tril(wp))
+                errs["frontal_factor_batch"] = max(
+                    errs["frontal_factor_batch"], err)
+                ff.append(f"bs {bs}→{panel} {err:.3e}")
+            L = f.device_stacks[key][:, :P, :P]
+            x0 = torch.as_tensor(rng.standard_normal((len(bk.members), P, 4)),
+                                 dtype=torch.float32, device=dev)
+            ts = []
+            for sbs in st.DEFAULT_SWEEP_BS_GRID:
+                for rt in st.DEFAULT_RT_GRID:
+                    panel = ops.pick_block_size(P, sbs)
+                    kt = ops._kernel_tile(4, rt)
+                    for lower in (True, False):
+                        xk, xp = x0.clone(), x0.clone()
+                        fc.tri_solve_batch(L, xk, bs=panel, kt=kt,
+                                           lower=lower)
+                        fc.tri_solve_batch_plain(L, xp, panel, lower)
+                        err = compare("tri_solve_batch", xk, xp)
+                        errs["tri_solve_batch"] = max(
+                            errs["tri_solve_batch"], err)
+                        ts.append(err)
+            log(f"lifecycle hold {pad} B={len(bk.members)} P={P} M={bk.M}: "
+                f"extend_add {ea}; frontal_factor_batch "
+                + ", ".join(ff) + f"; tri_solve_batch k=4 at "
+                f"{len(ts)} (sweep_bs, rt, sweep) max_abs_err {max(ts):.3e}")
+    return errs
+
+
+def lifecycle_phase(engine, mats, dev) -> dict:
+    """The solve tuner and the bundle lifecycle on the card.
+
+    * **tuner**: ``tune(device=cuda)`` over the reference's default suite
+      and grids into a temporary directory, a line per candidate; then the
+      kernels at every knob of the grids (``lifecycle_holds``, not counted).
+    * **tuned engine**: ``EngineConfig(autotune_solve=True)`` on a fresh
+      directory tunes once and solves grid3d(20,20,20)/nd and two matrices
+      of ``mats`` at the residual gate, with ``plan.meta`` carrying the
+      policy; a second engine on the directory loads it (``cached``) and
+      launches nothing.
+    * **campaign**: ``run_campaign`` of ``generate_suite(6, seed=7,
+      size_scale=0.25)`` × the four labels with ``backend="pipelined"`` on
+      the card, cut at half its cells, resumed (the other half labeled,
+      the first skipped), assembled into a dataset that trains a candidate.
+    * **shadow → promote → rollback**: ``engine``'s bundle served behind
+      ``serve()`` with a disk tier, 48 Zipf requests over ``mats`` while
+      the candidate shadows; a gate the candidate fails (``GateRejected``,
+      nothing changed), then the configured one it passes; the cache
+      version moves, a plan under the candidate is built anew, and after
+      ``rollback()`` the incumbent's plan comes back from disk with no
+      plan built. The shadow's ``errors`` must be 0.
+
+    Returns the holds' largest error of each kernel."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.autotune import solve_tuner as st
+    from repro_torch.engine import EngineConfig, SolverEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.lifecycle import (CampaignConfig, GateRejected,
+                                       PromotionGate, assemble_dataset,
+                                       run_campaign)
+    from repro_torch.sparse.dataset import generate_suite, grid3d
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    errs = lifecycle_holds(dev)
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    reset_launch_counts()
+
+    # -- the tuner ------------------------------------------------------------
+    def on_candidate(stage, key, seconds):
+        what = ("pad {}, bs {}" if stage == "factor"
+                else "sweep_bs {}, rt {}").format(*key)
+        log(f"lifecycle tune {stage} candidate ({what}): summed best warm "
+            f"{seconds:.5f} s")
+
+    t0 = time.perf_counter()
+    pol = st.tune(device=dev, out_dir=os.path.join(root, "tune"),
+                  on_candidate=on_candidate)
+    log(f"lifecycle tune: {time.perf_counter() - t0:.3f} s, winner "
+        + json.dumps(pol.to_json()) + f"; {smi}")
+
+    # -- an engine that tunes, then one that loads ------------------------------
+    cfg = EngineConfig(fast_grids=True, cv=3, autotune_solve=True,
+                       autotune_dir=os.path.join(root, "autotune"))
+    tuned = SolverEngine(cfg, selector=engine.selector)
+    t0 = time.perf_counter()
+    tp = tuned.solve_policy
+    log(f"lifecycle tuned engine: policy {tp.source} in "
+        f"{time.perf_counter() - t0:.3f} s: " + json.dumps(tp.to_json()))
+    if tp.source != "tuned" or tp.device_kind != torch.cuda.get_device_name(
+            0):
+        raise AssertionError(f"lifecycle: the engine's policy {tp}")
+    rng = np.random.default_rng(4)
+    for a in [grid3d(20, 20, 20, "grid3d_20")] + list(mats[:2]):
+        b = rng.standard_normal(a.n)
+        r = tuned.solve(a, b)
+        meta = tuned.plan(a).meta
+        gate(f"lifecycle tuned solve {a.name} {r['algorithm']} (pad "
+             f"{meta['solve_pad']}, bs {meta['solve_bs']})", a, r, b)
+        if (meta["solve_bs"], meta["solve_pad"], r["rt"]) != (
+                tp.bs, tp.pad, tp.rt):
+            raise AssertionError(f"lifecycle: plan.meta {meta} does not "
+                                 f"carry the policy {tp}")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    again = SolverEngine(cfg, selector=engine.selector).solve_policy
+    t_load = time.perf_counter() - t0
+    if again.source != "cached" or launch_counts() != before or \
+            (again.bs, again.pad, again.sweep_bs, again.rt) != (
+                tp.bs, tp.pad, tp.sweep_bs, tp.rt):
+        raise AssertionError(f"lifecycle: a second engine measured or "
+                             f"missed: {again}")
+    log(f"lifecycle second engine: policy {again.source} in {t_load:.5f} "
+        f"s, no launch")
+
+    # -- a labeling campaign on the card ---------------------------------------
+    suite = list(generate_suite(6, seed=7, size_scale=0.25))
+    ccfg = dict(campaign_id="card", labels_dir=os.path.join(root, "labels"),
+                backend="pipelined", device="cuda")
+    total = len(suite) * 4
+    r1 = run_campaign(suite, CampaignConfig(max_cells=total // 2,
+                                            **ccfg)).report
+    r2 = run_campaign(suite, CampaignConfig(**ccfg)).report
+    for tag, r in (("cut", r1), ("resumed", r2)):
+        log(f"lifecycle campaign {tag}: " + json.dumps({k: r[k] for k in (
+            "workers", "backend", "cells_total", "cells_labeled",
+            "cells_skipped", "cells_incomplete", "wall_s", "cells_per_s",
+            "per_algorithm_wins", "label_time_breakdown", "complete")}))
+    if not (r1["cells_labeled"] == total // 2 and not r1["complete"]
+            and r2["cells_skipped"] == total // 2
+            and r2["cells_labeled"] == total - total // 2
+            and r2["complete"]):
+        raise AssertionError(f"lifecycle campaign: cut {r1}, resumed {r2}")
+    ds = assemble_dataset(suite, CampaignConfig(**ccfg))
+    cand = SolverEngine(EngineConfig(model="decision_tree", fast_grids=True,
+                                     cv=2, test_size=0.5))
+    rep = cand.train(ds)
+    cand_path = cand.save(os.path.join(root, "candidate.bundle"))
+    log(f"lifecycle candidate: decision_tree on {len(ds.names)} matrices, "
+        f"labels {np.bincount(ds.labels, minlength=4).tolist()}, held-out "
+        f"accuracy {rep['test_accuracy']:.4f}, fingerprint "
+        f"{cand.fingerprint}")
+
+    # -- shadow → promote → rollback behind serve() ----------------------------
+    inc_path = engine.save(os.path.join(root, "incumbent.bundle"))
+    icfg = EngineConfig(cache_dir=os.path.join(root, "plan_cache"),
+                        bundle_dir=os.path.join(root, "bundles"),
+                        promote_min_accuracy=0.0,
+                        promote_min_shadow_requests=1,
+                        promote_min_win_rate=0.0,
+                        batch_size=SERVING["batch"],
+                        max_wait_ms=SERVING["max_wait_ms"],
+                        build_workers=SERVING["build_workers"])
+    inc = SolverEngine.load(inc_path, icfg)
+    fp0, cv0 = inc.fingerprint, inc.cache_version
+    shadow = inc.start_shadow(cand_path)
+    pop = 1.0 / np.power(1.0 + np.arange(len(mats)), SERVING["zipf_alpha"])
+    stream = np.random.default_rng(SERVING["seed"]).choice(
+        len(mats), size=48, p=pop / pop.sum())
+    srv = inc.serve()
+    try:
+        t0 = time.perf_counter()
+        futs = [srv.submit(mats[int(i)]) for i in stream]
+        plans = [f.result(300) for f in futs]
+        t_serve = time.perf_counter() - t0
+    finally:
+        srv.close(timeout=120)
+    t0 = time.perf_counter()
+    if not shadow.drain(300):
+        raise AssertionError("lifecycle: the shadow did not drain")
+    t_drain = time.perf_counter() - t0
+    stats = shadow.stats()
+    snap = inc.metrics.snapshot()
+    log(f"lifecycle shadow: 48 requests ({len(set(stream.tolist()))} "
+        f"structures) served in {t_serve:.3f} s, then drained in "
+        f"{t_drain:.3f} s; " + json.dumps(stats) + "; per evaluation s: "
+        + json.dumps({k: snap[f"shadow.eval_s.{k}"]
+                      for k in ("count", "p50", "p99", "mean")}))
+    # the dispatcher mirrors every warm hit and each cold selection once
+    # (a request that joins a build in flight is not mirrored again)
+    if not (len(set(stream.tolist())) <= stats["requests"] <= len(stream)
+            and stats["evaluated"] == stats["requests"]
+            and stats["dropped"] == 0 and stats["errors"] == 0):
+        raise AssertionError(f"lifecycle shadow: {stats}")
+
+    try:
+        inc.promote(gate=PromotionGate(0.0, 1, 1.01))
+        raise AssertionError("lifecycle: a win rate of 1.01 passed the gate")
+    except GateRejected as e:
+        failed = [c["check"] for c in e.decision["checks"]
+                  if not c["passed"]]
+        log(f"lifecycle promote, failing gate: GateRejected on {failed}")
+    if inc.fingerprint != fp0 or len(inc.registry) != 0:
+        raise AssertionError("lifecycle: a rejected promote changed state")
+    t0 = time.perf_counter()
+    decision = inc.promote()
+    t_promote = time.perf_counter() - t0
+    cv1 = inc.cache_version
+    log(f"lifecycle promote: {t_promote:.4f} s, decision "
+        + json.dumps(decision, default=str))
+    a = mats[int(stream[0])]
+    inc.plan(a)
+    built = inc.builder.plans_built
+    t0 = time.perf_counter()
+    entry = inc.rollback()
+    t_rollback = time.perf_counter() - t0
+    inc.plan(a)
+    log(f"lifecycle rollback: {t_rollback:.4f} s to {entry['version']}; "
+        f"cache version {cv0} → {cv1} → {inc.cache_version}; {a.name} "
+        f"built {built} plan under the candidate, "
+        f"{inc.builder.plans_built} after rollback "
+        f"(disk hits {inc.builder.stats().get('disk_hits')}); {smi}")
+    if not (cv1 != cv0 and cv1 == cand.cache_version and built == 1
+            and inc.cache_version == cv0 and inc.fingerprint == fp0
+            and inc.builder.plans_built == 0
+            and inc.registry.serving_version() == entry["version"]):
+        raise AssertionError("lifecycle: promote/rollback did not swap the "
+                             "cache versions and plans")
+    if inc.shadow is not None or shadow.stats()["errors"]:
+        raise AssertionError(f"lifecycle: shadow {shadow.stats()}")
+    counts = launch_counts()
+    tmp.cleanup()
+    PHASE_S["lifecycle"] = time.perf_counter() - t_phase
+    log(f"lifecycle: {PHASE_S['lifecycle']:.1f} s")
+    launched("lifecycle", counts, SERVED_KERNELS)
+    return errs
+
+
 def gate(label: str, a, r, b) -> None:
     """Raise unless the solve reached the fp64 residual gate (and, where it
     refined, converged)."""
@@ -2254,7 +2562,8 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{key: dict(records[name], launches=counts[name])[key]
                 for key in keys} for name in names]
-    log(f"total: {time.perf_counter() - t0:.1f} s")
+    log(f"total: {time.perf_counter() - t0:.1f} s"
+        + "".join(f" ({k} {v:.1f} s)" for k, v in PHASE_S.items()))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -2287,6 +2596,7 @@ def all_paths(dev) -> tuple:
     solve_mats = list(generate_suite(16, seed=1, size_scale=4))
     counts = engine_phase(engine, solve_mats)
     serving_phase(engine, solve_mats, dev)
+    lifecycle_errs = lifecycle_phase(engine, solve_mats, dev)
     families_phase(served, solve_mats, dev)
     table2_phase(served, dev)
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
@@ -2295,6 +2605,8 @@ def all_paths(dev) -> tuple:
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)
+    for name, err in lifecycle_errs.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     csr_stats_checks(served, dev, records)
     attention_checks(dev, records)
     b = np.random.default_rng(2).standard_normal(a.n)

@@ -7,8 +7,12 @@ deliverable::
     engine.train(dataset)              # grid-search + refit, fingerprinted
     names = engine.select_batch(mats)  # featurize + classify on the card
     results = engine.solve_batch(mats, bs)  # select → plan → solve
+    server = engine.serve()            # AsyncPlanServer bound to the engine
     engine.save("selector.bundle")     # versioned SelectorBundle artifact
     engine = SolverEngine.load("selector.bundle")
+    engine.start_shadow("candidate.bundle")  # score a retrained candidate
+    engine.promote()                   # gated swap (repro_torch.lifecycle)
+    engine.rollback()                  # back to the previous bundle
 
 The registry surface imports eagerly (stdlib only); the facade classes load
 lazily on first attribute access, so core modules can import the registries

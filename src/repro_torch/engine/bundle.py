@@ -24,7 +24,8 @@ refused.
 test accuracy, per-algorithm recall, confusion matrix) and ``provenance``
 (what dataset the selector was trained on). Both are excluded from the
 fingerprint: they describe the fitted behaviour, they don't change it. v1
-bundles (no such sections) load with both set to ``None``.
+bundles (no such sections) load with both set to ``None``. ``describe()``
+is the compact summary the bundle registry indexes.
 """
 from __future__ import annotations
 
@@ -180,6 +181,22 @@ class SelectorBundle:
                     f"report card confusion matrix is not {k}x{k} for "
                     f"algorithms {list(self.algorithms)}")
         return self
+
+    def describe(self) -> Dict[str, Any]:
+        """Compact plain-data summary (what the bundle registry indexes):
+        identity + capability names + the headline quality numbers, never
+        the fitted state."""
+        return dict(
+            fingerprint=self.fingerprint,
+            schema_version=self.schema_version,
+            model=self.model_name,
+            scaler=self.scaler_name,
+            feature_set=self.feature_set,
+            algorithms=list(self.algorithms),
+            created_unix=self.created_unix,
+            test_accuracy=(self.report_card or {}).get("test_accuracy"),
+            n_samples=(self.provenance or {}).get("n_samples"),
+        )
 
     # -- persistence ---------------------------------------------------------
     def save(self, path: str) -> str:

@@ -12,19 +12,23 @@ so are the serving fields: the disk tier of the plan cache
 (``cache_dir`` and its budgets), the dispatcher (``max_wait_ms``,
 ``build_workers``, ``max_queue``, ``default_deadline_ms``), the metrics
 sink (``metrics_jsonl``) and the RPC bind address (``rpc_host``,
-``rpc_port``).
+``rpc_port``); the solve tuner's (``autotune_solve``, ``autotune_dir``) and
+the bundle lifecycle's (``bundle_dir``, the ``promote_*`` thresholds,
+``shadow_max_queue``).
 
-One default differs from the reference's: ``cache_dir`` is ``None`` (the
+Three defaults differ from the reference's. ``cache_dir`` is ``None`` (the
 plan cache stays in memory) where the reference's is its
 ``artifacts/plan_cache``, so an engine writes into its working directory
 only when asked; the port's own directory is
 :data:`repro_torch.core.plan_cache.DEFAULT_CACHE_DIR`
 (``artifacts/plan_cache_torch``), which the launchers default to.
+``autotune_dir`` is ``artifacts/autotune_torch`` and ``bundle_dir``
+``artifacts/bundles_torch``, the port's own directories, so that a policy
+or bundle registry written by the reference is never read as the port's.
 
-The fields of the parts not ported yet (the bundle lifecycle, the solve
-tuner) are kept so that a config reads as in the reference; any value but
-the default raises ``NotImplementedError`` naming the ROADMAP item, as
-does a serving mesh of more than one device. Nothing falls back.
+A serving mesh of more than one device (``serving_devices > 1``) is not
+ported yet and raises ``NotImplementedError`` naming the ROADMAP item.
+Nothing falls back.
 """
 from __future__ import annotations
 
@@ -34,15 +38,6 @@ import warnings
 from typing import Optional, Sequence
 
 __all__ = ["EngineConfig"]
-
-#: fields read by parts not ported yet, by ROADMAP slice-queue item: any
-#: value but the default raises
-_UNPORTED_FIELDS = {
-    "item 6, the bundle lifecycle": (
-        "bundle_dir", "promote_min_accuracy", "promote_min_shadow_requests",
-        "promote_min_win_rate", "shadow_max_queue"),
-    "item 6, the solve tuner": ("autotune_solve", "autotune_dir"),
-}
 
 
 @dataclasses.dataclass
@@ -100,8 +95,11 @@ class EngineConfig:
     backend: str = "pipelined"
     solve_dtype: str = "fp32_refine"
     sweep: str = "device"
+    # the solve tuner (repro_torch.autotune.solve_tuner): True tunes on a
+    # miss and persists the winner; a valid persisted policy for this
+    # device kind and backend is applied either way
     autotune_solve: bool = False
-    autotune_dir: str = os.path.join("artifacts", "autotune")
+    autotune_dir: str = os.path.join("artifacts", "autotune_torch")
 
     # training
     fast_grids: bool = False
@@ -109,8 +107,9 @@ class EngineConfig:
     test_size: float = 0.2
     seed: int = 0
 
-    # bundle lifecycle (not ported yet)
-    bundle_dir: str = os.path.join("artifacts", "bundles")
+    # bundle lifecycle (repro_torch.lifecycle): the registry promote() and
+    # rollback() swap, the default promotion gate, the shadow mirror queue
+    bundle_dir: str = os.path.join("artifacts", "bundles_torch")
     promote_min_accuracy: float = 0.5
     promote_min_shadow_requests: int = 10
     promote_min_win_rate: float = 0.5
@@ -140,12 +139,6 @@ class EngineConfig:
                 "a serving mesh (serving_devices > 1) is not ported yet "
                 "(ROADMAP.md, slice queue: item 4, the sharded serving "
                 "plane)")
-        for f in dataclasses.fields(self):
-            for item, names in _UNPORTED_FIELDS.items():
-                if f.name in names and getattr(self, f.name) != f.default:
-                    raise NotImplementedError(
-                        f"{f.name}={getattr(self, f.name)!r}: not ported yet "
-                        f"(ROADMAP.md, slice queue: {item})")
         if (self.solve_dtype == "fp64"
                 and (self.backend in ("pallas", "batched", "pipelined")
                      or self.sweep == "device")):

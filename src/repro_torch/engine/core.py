@@ -17,13 +17,22 @@ front-end, so a stale plan is never served by a newer model.
 sweeps and fp64 refinement. ``serve`` is the served plane: a
 :class:`~repro_torch.launch.serve_selector.AsyncPlanServer` (the deadline
 micro-batching dispatcher) on the engine's builder, optionally behind the
-RPC front-end. Not ported yet (ROADMAP): shadow / promote / rollback and
-the bundle registry, and the solve tuner (the engine passes the
-reference's conservative default policy, ``pad="pow2"``, ``bs=None``).
+RPC front-end. ``solve_policy`` is the solve tuner's policy
+(:mod:`repro_torch.autotune.solve_tuner`): a persisted, tuned record for
+this device kind and backend when ``autotune_dir`` holds one (tuned on a
+miss when ``autotune_solve`` is on), else the reference's conservative
+default (``pad="pow2"``, ``bs=None``); it supplies the bucket pad, panel
+and sweep knobs of every solve. The bundle lifecycle (:mod:`repro_torch
+.lifecycle`): ``start_shadow`` scores a candidate against the decisions
+that ``plan`` and the servers of ``serve`` mirror to it, ``promote`` swaps
+the serving bundle through the gate and the registry (``registry``, under
+``bundle_dir``), ``rollback`` swaps it back; the plan cache follows the
+fingerprint both ways.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,7 +65,8 @@ def _dataset_provenance(ds) -> Dict[str, Any]:
 
 
 class SolverEngine:
-    """One API for train → select → plan → solve → save/load.
+    """One API for train → select → plan → solve → serve → save/load, and
+    for the bundle lifecycle (shadow → promote → rollback).
 
     Build one from a config and train it, attach an existing fitted
     selector, or load a persisted :class:`SelectorBundle`::
@@ -75,10 +85,19 @@ class SolverEngine:
         self._fingerprint: Optional[str] = None
         self._builder = None
         self._metrics = None  # built on first use (sink config on config)
+        self._solve_policy = None  # resolved on first use (may tune once)
         self.last_report: Optional[Dict[str, Any]] = None
         # dataset provenance of the last train() — persisted into bundle
         # schema v2 by save() (None for attach()/load()-built engines)
         self.last_provenance: Optional[Dict[str, Any]] = None
+        # bundle lifecycle: the bundle the live selector came from (so a
+        # re-registration at the next promote reuses its report card
+        # instead of a stale last_report), the shadow evaluator mirroring
+        # the serving path, and the registry handle
+        self._attached_bundle: Optional[SelectorBundle] = None
+        self._shadow = None
+        self._registry = None
+        self._promote_lock = threading.Lock()
         if selector is not None:
             self.attach(selector)
 
@@ -103,6 +122,7 @@ class SolverEngine:
                 f"selector was trained on feature set {fs!r} but the engine "
                 f"is configured for {self.config.feature_set!r}")
         self._selector = selector
+        self._attached_bundle = None  # promote()/load() re-set it after
         self.refresh_fingerprint()
         return self
 
@@ -129,6 +149,7 @@ class SolverEngine:
         self._selector, report = train_selector(dataset, **kwargs)
         self.last_report = report
         self.last_provenance = _dataset_provenance(dataset)
+        self._attached_bundle = None  # the fit is newer than any bundle
         self.refresh_fingerprint()
         return report
 
@@ -224,9 +245,13 @@ class SolverEngine:
         """Cached :class:`ExecutionPlan` for one matrix. Mints a
         :class:`repro_torch.core.reqctx.RequestContext` when the caller
         brought none; either way it gets the spans ``cache`` and, on a miss,
-        ``select``, ``reorder`` and ``symbolic``."""
+        ``select``, ``reorder`` and ``symbolic``. With a shadow evaluator
+        active, the decision is mirrored to it once the plan is in hand."""
         self._ensure_serving_mesh()
         plan, _ = self._get_builder().get_or_build(a, ctx=self._mint(ctx))
+        if self._shadow is not None:
+            # O(enqueue), never raises: the response is untouched
+            self._shadow.observe(a, plan.algorithm, key=plan.fingerprint)
         return plan
 
     def plan_batch(self, mats: Sequence) -> List:
@@ -235,13 +260,32 @@ class SolverEngine:
         return self._get_builder().plan_batch(mats)
 
     # -- solving -------------------------------------------------------------
+    @property
+    def solve_policy(self):
+        """The :class:`repro_torch.autotune.solve_tuner.SolvePolicy` this
+        engine applies to the numeric backends. With ``autotune_solve`` off
+        this is the conservative default (kernel defaults, pow2 padding)
+        unless a tuned record for this device kind and backend is already
+        persisted in ``autotune_dir``; with it on, the first access runs
+        the tuner once on the config's device (persisting the result) and
+        every later engine just loads it."""
+        if self._solve_policy is None:
+            from ..autotune.solve_tuner import get_policy
+
+            cfg = self.config
+            self._solve_policy = get_policy(
+                cfg.autotune_dir, backend=cfg.backend,
+                autotune=cfg.autotune_solve, device=cfg.device)
+        return self._solve_policy
+
     def _solve_kwargs(self) -> Dict[str, Any]:
-        """The numeric knobs of ``execute_plan``: the config's path and the
-        reference's conservative default policy (no tuner yet)."""
+        """The numeric knobs of ``execute_plan``: the config's path and
+        the solve policy's pad, panel and sweep knobs."""
         cfg = self.config
+        pol = self.solve_policy
         return dict(solver=cfg.solver, backend=cfg.backend,
-                    solve_dtype=cfg.solve_dtype, pad="pow2", bs=None,
-                    sweep=cfg.sweep, sweep_bs=None, rt=None,
+                    solve_dtype=cfg.solve_dtype, pad=pol.pad, bs=pol.bs,
+                    sweep=cfg.sweep, sweep_bs=pol.sweep_bs, rt=pol.rt,
                     device=cfg.device, metrics=self.metrics)
 
     def solve(self, a, b: Optional[np.ndarray] = None,
@@ -252,7 +296,9 @@ class SolverEngine:
         :class:`~repro_torch.core.reqctx.RequestContext` (minted when the
         caller brought none) spans planning and the numeric tail: its
         deadline is checked between the factorization's levels, and its
-        spans land in the engine's metrics as ``stage.*`` histograms."""
+        spans land in the engine's metrics as ``stage.*`` histograms. The
+        solve policy (``solve_policy``) supplies the bucket pad, panel and
+        sweep knobs."""
         from ..core.plan import execute_plan
 
         ctx = self._mint(ctx)
@@ -302,7 +348,10 @@ class SolverEngine:
         returns it: its ``close()`` shuts the pipeline down too, and the
         bound port is ``server.port``. A failed bind closes the pipeline
         before it raises. Keyword overrides pass through to the pipeline
-        (``batch_size``, ``max_wait_ms``, ``build_workers``, ...)."""
+        (``batch_size``, ``max_wait_ms``, ``build_workers``, ...). The
+        dispatcher mirrors every resolved decision to the engine's shadow
+        evaluator, read afresh each time, so a ``start_shadow`` or
+        ``stop_shadow`` after ``serve`` takes effect at once."""
         from ..launch.serve_selector import AsyncPlanServer
 
         self._ensure_serving_mesh()
@@ -312,7 +361,8 @@ class SolverEngine:
                       build_workers=cfg.build_workers,
                       max_queue=cfg.max_queue,
                       default_deadline_ms=cfg.default_deadline_ms,
-                      metrics=self.metrics)
+                      metrics=self.metrics,
+                      shadow=lambda: self._shadow)
         kwargs.update(overrides)
         server = AsyncPlanServer(self._get_builder(), **kwargs)
         if not rpc:
@@ -328,6 +378,144 @@ class SolverEngine:
             # a failed bind must not leak the running batcher and builders
             server.close()
             raise
+
+    # -- bundle lifecycle: shadow → promote → rollback -----------------------
+    @property
+    def registry(self):
+        """The :class:`repro_torch.lifecycle.registry.BundleRegistry` rooted
+        at ``config.bundle_dir`` — the durable side of promote/rollback."""
+        if (self._registry is None
+                or self._registry.root != self.config.bundle_dir):
+            from ..lifecycle.registry import BundleRegistry
+
+            self._registry = BundleRegistry(self.config.bundle_dir)
+        return self._registry
+
+    @property
+    def shadow(self):
+        """The active :class:`repro_torch.lifecycle.shadow.ShadowEvaluator`,
+        or None. While set, every ``plan()``/``solve()`` decision (and every
+        decision of servers built by ``serve()``) is mirrored to it."""
+        return self._shadow
+
+    def start_shadow(self, candidate):
+        """Shadow-serve a candidate next to the incumbent.
+
+        ``candidate`` is a :class:`SelectorBundle`, a path to one, or a
+        fitted ``ReorderSelector``. Replaces any active shadow. The
+        evaluator reports into this engine's metrics (``shadow.*``) and
+        its ``stats()`` are the online evidence ``promote()`` gates on."""
+        from ..lifecycle.shadow import ShadowEvaluator
+
+        self.stop_shadow()
+        self._shadow = ShadowEvaluator(
+            candidate, metrics=self.metrics,
+            max_queue=self.config.shadow_max_queue)
+        return self._shadow
+
+    def stop_shadow(self, timeout: float = 10.0
+                    ) -> Optional[Dict[str, Any]]:
+        """Detach and stop the shadow evaluator; its final ``stats()``
+        (after draining the mirror queue), or None if none was active."""
+        shadow, self._shadow = self._shadow, None
+        if shadow is None:
+            return None
+        shadow.drain(timeout)
+        shadow.close(timeout)
+        return shadow.stats()
+
+    def promote(self, candidate=None, *, gate=None,
+                source: Optional[str] = None) -> Dict[str, Any]:
+        """Gated atomic swap of the serving bundle.
+
+        ``candidate`` defaults to the bundle the active shadow evaluator
+        is scoring. The gate (``PromotionGate.from_config(self.config)``
+        unless one is passed) checks the candidate's report card and — if
+        the shadow evaluator is scoring this exact candidate — its online
+        win rate; :class:`repro_torch.lifecycle.promote.NotPromotable` /
+        :class:`GateRejected` abort with nothing changed. On pass: the
+        incumbent and the candidate are registered (lineage edge incumbent
+        → candidate), the registry's serving pointer moves, the engine
+        adopts the candidate, and — via the fingerprint → cache-version
+        plumbing — every plan built under the incumbent becomes invisible
+        (restored intact by :meth:`rollback`). Returns the gate decision
+        extended with ``version``/``previous_version``."""
+        from ..lifecycle.promote import PromotionGate, evaluate_gate
+
+        with self._promote_lock:
+            shadow = self._shadow
+            if candidate is None:
+                if shadow is None or shadow.bundle is None:
+                    raise EngineError(
+                        "promote() has no candidate: pass a SelectorBundle "
+                        "(or path), or start_shadow() with a bundle first")
+                candidate = shadow.bundle
+            elif isinstance(candidate, str):
+                candidate = SelectorBundle.load(candidate)
+            candidate.validate()
+            if gate is None:
+                gate = PromotionGate.from_config(self.config)
+            shadow_stats = None
+            if (shadow is not None and shadow.candidate_fingerprint
+                    == candidate.fingerprint):
+                shadow.drain(10.0)  # settle the scorecard before gating
+                shadow_stats = shadow.stats()
+            decision = evaluate_gate(candidate, gate, shadow_stats)
+
+            reg = self.registry
+            incumbent = self._current_bundle()
+            inc_entry = None
+            if incumbent is not None:
+                inc_entry = reg.register(incumbent, source="incumbent")
+                if reg.serving_version() is None:
+                    # first promotion ever: record that the incumbent
+                    # *was* serving, so rollback has a target
+                    reg.mark_serving(inc_entry["version"])
+            cand_entry = reg.register(
+                candidate, source=source or "promote",
+                parent=None if inc_entry is None else inc_entry["version"])
+            entry = reg.mark_serving(cand_entry["version"])
+            self._adopt_bundle(candidate)
+            self.stop_shadow()
+            self.metrics.emit("lifecycle.promote",
+                              version=entry["version"],
+                              fingerprint=candidate.fingerprint)
+            return dict(decision, version=entry["version"],
+                        previous_version=(None if inc_entry is None
+                                          else inc_entry["version"]))
+
+    def rollback(self) -> Dict[str, Any]:
+        """Swap the serving bundle back to the registry's ``previous``
+        version. The engine re-adopts that bundle, and the fingerprint →
+        cache-version plumbing makes its previously persisted plans
+        visible again (nothing was deleted at promote time). Returns the
+        restored registry entry."""
+        with self._promote_lock:
+            entry = self.registry.rollback()
+            self._adopt_bundle(self.registry.load(entry["version"]))
+            self.metrics.emit("lifecycle.rollback",
+                              version=entry["version"],
+                              fingerprint=entry["fingerprint"])
+            return entry
+
+    def _adopt_bundle(self, bundle: SelectorBundle) -> None:
+        """Make ``bundle`` the serving state: sync the capability fields,
+        attach its selector (which re-versions the plan cache off the new
+        fingerprint), and remember the bundle for later registration."""
+        if bundle.feature_set != self.config.feature_set:
+            raise EngineError(
+                f"bundle was trained on feature set "
+                f"{bundle.feature_set!r} but the engine is configured for "
+                f"{self.config.feature_set!r}")
+        self.config = dataclasses.replace(
+            self.config, model=bundle.model_name,
+            scaling=bundle.scaler_name, algorithms=list(bundle.algorithms))
+        self.attach(bundle.to_selector())
+        self._attached_bundle = bundle
+        # last_report described the *previous* fit; the adopted bundle's
+        # own report card travels with it
+        self.last_report = None
+        self.last_provenance = None
 
     # -- persistence ---------------------------------------------------------
     def _report_card(self) -> Optional[Dict[str, Any]]:
@@ -347,6 +535,19 @@ class SolverEngine:
                        if conf is not None else None),
             test_support=rep.get("test_support"),
         )
+
+    def _current_bundle(self) -> Optional[SelectorBundle]:
+        """The serving state as a bundle: the attached bundle when the live
+        selector still matches it (so its report card survives), else a
+        fresh snapshot carrying this engine's training report (if any)."""
+        if self._selector is None:
+            return None
+        if (self._attached_bundle is not None
+                and self._attached_bundle.fingerprint == self._fingerprint):
+            return self._attached_bundle
+        return SelectorBundle.from_selector(
+            self.selector, report_card=self._report_card(),
+            provenance=self.last_provenance)
 
     def save(self, path: str, meta: Optional[Dict[str, Any]] = None) -> str:
         """Persist the fitted selector as a versioned SelectorBundle.
@@ -382,7 +583,9 @@ class SolverEngine:
         config = dataclasses.replace(config, model=bundle.model_name,
                                      scaling=bundle.scaler_name,
                                      algorithms=list(bundle.algorithms))
-        return cls(config).attach(bundle.to_selector())
+        engine = cls(config).attach(bundle.to_selector())
+        engine._attached_bundle = bundle  # keep its report card for
+        return engine                     # registration at promote time
 
     # -- introspection -------------------------------------------------------
     def feature_set(self):

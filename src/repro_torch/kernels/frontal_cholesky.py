@@ -40,11 +40,20 @@ __all__ = ["chol_tile", "chol_tile_plain", "tri_inv_tile",
            "extend_add_batch", "extend_add_batch_plain", "extend_add_routed",
            "extend_add_routed_plain", "extend_add_routing", "ExtendAddRouting",
            "extend_add_routing_arrays", "ExtendAddLaunch", "EA_MAX_GROUPS",
-           "tri_solve_batch", "tri_solve_batch_plain"]
+           "tri_solve_batch", "tri_solve_batch_plain", "MAX_PANEL"]
 
 
 #: widest tile ``chol_tile`` and ``tri_inv_tile`` take (the kernels' limit)
 MAX_TILE = 128
+#: widest panel ``frontal_factor_batch`` and ``tri_solve_batch`` take: the
+#: kernels' ``kMaxPanel`` (``csrc/kernels.h``); ``ops.pick_block_size`` caps
+#: every panel at it, and the wrappers refuse a wider one on every device
+MAX_PANEL = 32
+
+
+def _check_panel(bs: int) -> None:
+    if not 1 <= bs <= MAX_PANEL:
+        raise ValueError(f"bs must lie in [1, {MAX_PANEL}], got {bs}")
 
 
 def _check_tile(t: torch.Tensor, name: str) -> int:
@@ -188,10 +197,12 @@ def frontal_factor_batch_plain(w: torch.Tensor, npiv: int, bs: int
 def frontal_factor_batch(w: torch.Tensor, npiv: int, *, bs: int
                          ) -> torch.Tensor:
     """Partial Cholesky of the leading ``npiv`` columns of every front of
-    the (B, M, M) f32 stack ``w``, in place, in panels of ``bs`` (≤ 32)
+    the (B, M, M) f32 stack ``w``, in place, in panels of ``bs`` (≤ 32,
+    ``MAX_PANEL``; a wider one raises ``ValueError`` on every device)
     columns. Leaves L11 (lower; zeros above the diagonal of each diagonal
     tile) and L21 in the pivot columns and the Schur complement in the
     trailing block, lower triangle authoritative. Returns ``w``."""
+    _check_panel(bs)
     B, M, M2 = w.shape
     if M != M2 or not 0 < npiv <= M or npiv % bs:
         raise ValueError(f"bad front stack {tuple(w.shape)} for npiv={npiv}, "
@@ -559,6 +570,7 @@ def tri_solve_batch(l: torch.Tensor, x: torch.Tensor, *, bs: int,
     which may be a strided view such as ``W[:, :P, :P]`` of a factored stack
     (unit column stride). ``bs`` divides P and is at most 32; ``kt`` (≤ 32,
     default ``min(K, 32)``) is the RHS tile of one block. Returns ``x``."""
+    _check_panel(bs)
     B, P, P2 = l.shape
     if P != P2 or x.shape[:2] != (B, P) or x.dim() != 3 or P % bs:
         raise ValueError(f"bad shapes l={tuple(l.shape)} x={tuple(x.shape)} "

@@ -1,6 +1,7 @@
 """Port of ``repro/kernels/ops.py``: the attention entry point
 ``attention`` (:49) over the flash-attention kernel, the block-size policy
-(``pick_block_size`` :144, ``rhs_tile`` :248, copied) and the wrappers the
+(``pick_block_size`` :144, capped at the kernels' 32 columns, and
+``rhs_tile`` :248, copied) and the wrappers the
 solver calls: ``matmul_nt_padded`` (:74), the per-front ``frontal_factor``
 (:87) over the three tile kernels, ``frontal_factor_batch_ws`` (:164),
 ``extend_add_batch`` (:192) with ``extend_add_routed`` (the pipelined
@@ -58,8 +59,13 @@ def pick_block_size(npiv: int, bs: int | None = None) -> int:
     policy, next-multiple-of-8 under ``mult8``), so the descent over
     divisors terminates at 8 at the latest; tiny fronts (npiv < 8) run
     unblocked. 32 keeps the sequential chol-tile loop short while the
-    rank-bs updates stay matmul-shaped."""
-    cap = 32 if bs is None else max(1, int(bs))
+    rank-bs updates stay matmul-shaped.
+
+    Unlike the reference, the cap is itself capped at
+    :data:`~repro_torch.kernels.frontal_cholesky.MAX_PANEL` (32), the widest
+    panel the kernels take: a ``bs`` of 64 gives the panels of 32. The
+    panel split changes only the rounding of the factor."""
+    cap = fc.MAX_PANEL if bs is None else min(fc.MAX_PANEL, max(1, int(bs)))
     if npiv <= cap:
         return npiv
     for cand in range(cap, 0, -1):

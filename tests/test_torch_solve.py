@@ -275,3 +275,87 @@ def test_convert_round_trips_a_reference_plan(spd_grid):
         np.testing.assert_array_equal(back[key], value, err_msg=key)
     assert plan.sym.nnz_L == ref_plan.sym.nnz_L
     assert plan.predicted_flops == ref_plan.predicted_flops
+
+
+_PANEL_MATS = {}
+
+
+def _panel_case(name):
+    """grid2d(12, 12) and grid3d(7, 7, 7) (pivot widths up to 64 under
+    ``pow2`` and 48 under ``mult8``) with their ``nd`` plans, for both
+    packages."""
+    if name not in _PANEL_MATS:
+        a = (grid2d(12, 12, "g12") if name == "grid2d"
+             else grid3d(7, 7, 7, "g7"))
+        _PANEL_MATS[name] = (a, RefPlanBuilder().build(a, "nd"))
+    return _PANEL_MATS[name]
+
+
+@pytest.mark.parametrize("sweep_bs", [None, 16, 64])
+@pytest.mark.parametrize("pad", ["pow2", "mult8"])
+@pytest.mark.parametrize("bs", [16, 32, 64, None])
+def test_panel_cap_matches_the_kernels(monkeypatch, bs, pad, sweep_bs):
+    """``ops.pick_block_size`` caps every panel at ``fc.MAX_PANEL`` (the
+    kernels' 32): whatever ``bs``/``sweep_bs`` the reference accepts, the
+    factor and the sweeps hand the kernel wrappers a panel of at most 32,
+    and a wider one raises on the CPU as the binding does on the card. At
+    ``bs = sweep_bs = 64`` the port equals the reference under the same
+    knobs: factors within 1e-5 relative, refined solutions within 1e-8 of
+    the reference's host refinement (its device refinement runs in f32 on
+    this jax build)."""
+    from repro_torch.kernels import ops
+
+    panels = []
+    factor, sweep = fc.frontal_factor_batch, fc.tri_solve_batch
+
+    def rec_factor(w, npiv, *, bs):
+        panels.append(("factor", npiv, bs))
+        return factor(w, npiv, bs=bs)
+
+    def rec_sweep(l, x, *, bs, kt=None, lower=True):
+        panels.append(("sweep", l.shape[1], bs))
+        return sweep(l, x, bs=bs, kt=kt, lower=lower)
+
+    monkeypatch.setattr(fc, "frontal_factor_batch", rec_factor)
+    monkeypatch.setattr(fc, "tri_solve_batch", rec_sweep)
+    rng = np.random.default_rng(9)
+    for name in ("grid2d", "grid3d"):
+        a, ref_plan = _panel_case(name)
+        plan = plan_from_arrays(**plan_arrays(ref_plan))
+        b = rng.standard_normal(a.n)
+        got = execute_plan(_port(a), plan, b, pad=pad, bs=bs,
+                           sweep_bs=sweep_bs, device="cpu")
+        assert got["refine_converged"] and got["residual"] <= 1e-10
+        if bs == 64 and sweep_bs == 64:
+            pa = csr.permute_symmetric(_port(a), plan.perm)
+            ref_pa = RefCSRMatrix(pa.indptr, pa.indices, pa.data, pa.shape,
+                                  pa.name)
+            ref = ref_mf.multifrontal_cholesky(ref_pa, sym=ref_plan.sym,
+                                               backend="pipelined", pad=pad,
+                                               bs=64)
+            port = mf.multifrontal_cholesky(pa, sym=plan.sym, pad=pad,
+                                            bs=64, device="cpu")
+            for g, w in zip(port.fronts, ref.fronts, strict=True):
+                _close(g.L11, w.L11, 1e-5)
+                if w.L21.size:
+                    _close(g.L21, w.L21, 1e-5)
+            pb = b[plan.perm]
+            want, _ = ref_refine_solve(
+                ref_pa.matvec,
+                lambda r: ref_mf.multifrontal_solve(ref, r, mode="level"), pb)
+            x = np.empty_like(want)
+            x[plan.perm] = want
+            _close(got["x"], x, 1e-8)
+    widths = {(kind, P) for kind, P, _ in panels}
+    assert {("factor", 64), ("sweep", 64)} <= widths or pad == "mult8"
+    assert {("factor", 48), ("sweep", 48)} <= widths or pad == "pow2"
+    assert max(p for _, _, p in panels) <= fc.MAX_PANEL == 32
+    for kind, P, p in panels:
+        cap = bs if kind == "factor" else sweep_bs
+        assert p == ops.pick_block_size(P, min(cap or 32, 32)), (kind, P, p)
+
+    w = torch.from_numpy(np.eye(66, dtype=np.float32)[None].copy())
+    with pytest.raises(ValueError, match="bs must lie in"):
+        factor(w, 33, bs=33)
+    with pytest.raises(ValueError, match="bs must lie in"):
+        sweep(w, torch.zeros((1, 66, 1)), bs=33)
