@@ -4,10 +4,11 @@ Run from the root of the repository, on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-It builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives nine paths, each with the kernels' launch counts zeroed just before
+It builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
+(the ten ports of the TPU kernels and the flash-attention backward) and
+drives ten paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
-engine they serve):
+engine they serve, the training path once per step):
 
 * **solve** (``PlanBuilder.build`` → ``execute_plan`` with
   ``backend="pipelined"``, ``sweep="device"``, ``solve_dtype="fp32_refine"``)
@@ -95,7 +96,23 @@ engine they serve):
   ``flash_attention`` kernel (exactly 28 launches), held at ‖Δ‖/‖ref‖ ≤
   2e-2 against the same prefill on the plain chunked twin, then 16 greedy
   decode steps (finite logits); then a prompt of 64, where the plain branch
-  runs and the kernel launches 0 times.
+  runs and the kernel launches 0 times;
+* **lm_train**: llama3.2-1b at full width and depth (16 layers, d_model
+  2,048, vocab 128,256; random bf16 weights from a seeded generator)
+  trained through ``Trainer.step`` on train_4k's sequence of 4,096 at batch
+  4: 6 AdamW steps, each launching ``flash_attention`` 32 times (forward
+  and the per-layer checkpoint's recompute) and ``flash_attention_bwd`` 16
+  times; loss and grad norm finite, the step-0 loss within
+  ``TRAIN_LOSS_ATOL`` of the same model on the plain attention and within
+  ``LOSS0_BAND`` of ln V + σ²/2, the last loss below the first; step wall
+  ms, tokens/s and peak memory printed; the attention backward held at
+  the operands step 0 gave it (B 4, the model's strided views), one batch
+  element at a time against the plain gradients; one step profiled
+  (attention forward and backward, matrix products, optimizer, idle
+  share); then the
+  trainer's checkpoint/restart at full width and 2 layers (checkpoints
+  every 2 steps, a failure before step 3, ``run_with_restart`` over 4
+  steps) against an uninterrupted run, within one bf16 step.
 
 Then it holds each kernel against its plain PyTorch version (the solve
 kernels at shapes from the 32³ schedule; ``extend_add_batch`` at the
@@ -131,11 +148,17 @@ bits) and ``tri_inv_tile`` at bs 128, 100 and 33, then ``matmul_nt`` at
 stride, after a line of registers, shared memory and spills for each
 tile-kernel instantiation; the ``csr_stats`` kernels
 on the served batch, ``row_stats`` also on seeded batches (B = 1, N = 2^17
-+ 3, N = 5, a matrix with no valid row) and once under the profiler (one
-kernel on the card), ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
++ 3, N = 5, a matrix with no valid row) and in three profiled windows of
+20 calls (one kernel a call on the card; each window opens on ~5 ms of
+sleep kernels, since the profiler loses a window's start), ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
-spills) and times kernel,
+spills), ``flash_attention_bwd`` against ``torch.autograd.grad`` through
+the plain attention also on seeded inputs at llama3.2-1b's and
+qwen3-1.7b's shapes (B 1, S 4,096), a ragged S, rep 1, D 32 and 16 and
+float32 (each twice for
+the same bits; the kernels' registers, shared memory and spills first)
+and times kernel,
 plain version and, where one exists, the PyTorch library call computing
 the same function; it profiles the pipelined solve (with the summed device
 time of the tri-solve, the ``bell_spmv``, the extend-add and the factor
@@ -150,7 +173,9 @@ exits non-zero and prints no result; so does a machine without a CUDA
 device. Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 ``python3 chip_smoke.py --attention`` runs only the lm_serve path and the
-flash_attention checks (a few minutes less), with the same last line.
+flash_attention checks (a few minutes less), ``python3 chip_smoke.py
+--train`` only the lm_train path and the flash_attention_bwd checks, each
+with the same last line.
 """
 from __future__ import annotations
 
@@ -207,6 +232,13 @@ F32_ROUNDING = 1e-6
 #: the reference attention test's 2e-5·(1 + |plain|), sums in other orders.
 ATTN_TOL = {"bfloat16": dict(rtol=2 ** -7, atol=1e-4, rnorm=2e-3),
             "float32": dict(rtol=2e-5, atol=2e-5, rnorm=2e-5)}
+#: flash_attention_bwd vs the gradients of its plain version (autograd
+#: through flash_attention_plain, float32 throughout, rounded to the
+#: inputs' dtype at the end): max abs error over the plain gradient's
+#: largest magnitude. bf16: the kernel rounds P and dS to bf16 before their
+#: products, a relative error of ~2^-9 a term, and the result to bf16
+#: (2^-9); f32: the same function summed in other orders
+ATTN_BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
 #: the served model and its traffic: 4 requests of 4,096 prompt tokens (the
 #: chunked attention branch starts above 2,048), then 16 decode steps; a
 #: prompt of 64 takes the plain branch
@@ -219,6 +251,39 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_SHORT = "qwen3-1.7b", 4, 4096, 16, 64
 #: of ``lm_serve_phase`` is the check that sees a kernel fault; this one
 #: fails if the 1 % control passes it
 LM_PREFILL_RTOL = 2e-2
+
+#: the training path: llama3.2-1b at full width and depth (16 layers,
+#: d_model 2,048, 32 / 8 heads of 64, vocab 128,256; the reference
+#: launcher's default arch), on train_4k's sequence of 4,096 with its
+#: global batch of 256 cut to 4 (16,384 tokens a step), 6 optimizer steps
+#: (warmup 1 step, so step 0 moves nothing, then AdamW at TRAIN_LR); the
+#: checkpoint/restart check at full width and 2 layers
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "llama3.2-1b", 4096, 4, 6
+#: the peak learning rate of the 6 steps: AdamWConfig's default 3e-4 from
+#: step 1 on overshoots at this random init (its losses read 12.20, 12.09,
+#: 9.48, 14.89, 12.84, 13.72 on the card), as a run without a long warmup
+#: does; at 5e-5 four updates move each weight about as far as one at 3e-4
+TRAIN_LR = 5e-5
+TRAIN_CKPT_LAYERS = 2
+#: the step-0 loss on the kernels against the same model and batch with
+#: every layer's attention on the plain version (bf16 roundings of the
+#: attention through 16 layers move a mean of 16,384 cross entropies far
+#: less than this)
+TRAIN_LOSS_ATOL = 5e-3
+#: the step-0 loss against its expectation at this init, ln V + σ²/2: the
+#: tied embedding N(0, 0.02²) unembeds a unit-RMS feature into logits of
+#: variance σ² = 0.02² · d_model (0.8192 here), and E[logsumexp] over V
+#: such logits is ln V + σ²/2; the band covers the gold logit's
+#: dependence on the input (Zipf labels repeat few tokens; a 2-layer cut
+#: of this model read +0.067 on the CPU)
+LOSS0_BAND = 0.25
+
+#: a profiled window whose kernels are counted one by one opens on
+#: OPEN_SLEEPS sleep kernels of SLEEP_CYCLES cycles (~5 ms on the H100) and
+#: closes on CLOSE_SLEEPS: once the process has run a training step, the
+#: profiler loses the first 0.2-1.5 ms of every device-only window
+#: (scripts/profiler_window.py reproduces it)
+OPEN_SLEEPS, CLOSE_SLEEPS, SLEEP_CYCLES = 20, 5, 500_000
 
 LABELS = "artifacts/labels_c36_s7_x0.35_r1.npz"
 
@@ -247,6 +312,9 @@ REPLACES = {
     "tri_inv_tile": "src/repro/kernels/frontal_cholesky.py:133",
     "matmul_nt": "src/repro/kernels/frontal_cholesky.py:177",
     "flash_attention": "src/repro/kernels/flash_attention.py:91",
+    # no pallas_call: the reference trains through its XLA twin, and XLA
+    # differentiates it
+    "flash_attention_bwd": "src/repro/models/layers.py:108",
 }
 SOURCE = {
     "frontal_factor_batch": "src/repro_torch/kernels/csrc/frontal_factor.cu",
@@ -259,6 +327,7 @@ SOURCE = {
     "tri_inv_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "matmul_nt": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 #: the kernels each path must launch
 SOLVE_KERNELS = ("frontal_factor_batch", "extend_add_batch",
@@ -2152,9 +2221,9 @@ def hold_stats(name: str, shape: str, got, want, exact) -> tuple:
 def csr_stats_checks(mats, dev, out: dict) -> None:
     """entry_stats / row_stats against their plain versions on the served
     batch's arguments, as the featurizer builds them, with times and
-    bounds; then row_stats on seeded batches and one profiled call. Neither
-    has a single PyTorch call computing the same function: each statistic
-    is a masked reduction, and no library call masks."""
+    bounds; then row_stats on seeded batches and in profiled windows of 20
+    calls. Neither has a single PyTorch call computing the same function:
+    each statistic is a masked reduction, and no library call masks."""
     from repro_torch.core.features import csr_stats_args, pad_csr_batch
     from repro_torch.kernels import csr_stats as cs
 
@@ -2206,41 +2275,58 @@ def row_stats_seeded(dev) -> None:
             f"{err:.3e}, max rel err float stats {rel:.3e}, ms {ms:.5f}")
 
 
-def row_stats_profiled(args, calls: int = 20) -> None:
-    """``calls`` warm row_stats calls under the profiler: raise unless the
-    card ran exactly one row_stats kernel for each and nothing else. The
-    profiler can miss the first kernels of a window, so the window opens on
-    a few sleep kernels, which the count leaves out."""
+def row_stats_profiled(args, calls: int = 20, windows: int = 3) -> None:
+    """``calls`` warm row_stats calls in each of ``windows`` profiled
+    windows: raise unless the card ran exactly one row_stats kernel for
+    each and nothing else. The profiler loses the start of a window (see
+    OPEN_SLEEPS), so each window opens on sleep kernels and a sync, closes
+    on more, and counts only if the profiler recorded an opening one; the
+    line says how many of each side it recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import csr_stats as cs
 
+    def sleeps(n):
+        for _ in range(n):
+            torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda.synchronize()
+
     cs.row_stats(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            torch.cuda._sleep(100_000)
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            cs.row_stats(*args)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and "spin_kernel" not in e.name]
-    names = [e.name for e in evs]
-    kernels = sorted({n[:80] for n in names})
-    us = sum(e.time_range.end - e.time_range.start for e in evs) / max(
-        len(evs), 1)
-    log(f"profile row_stats (served batch), {calls} calls: {len(names)} "
-        f"device events besides the sleep kernels, names {kernels}, "
-        f"{us / 1e3:.5f} ms a kernel on the device; an empty kernel timed as "
-        f"the kernel lines time theirs: "
-        f"{device_ms(lambda: torch.cuda._sleep(0)):.5f} ms")
-    if len(names) != calls or any("row_stats" not in n for n in names):
-        raise AssertionError(f"{calls} row_stats calls ran {len(names)} "
-                             f"device events ({kernels}), want one "
-                             f"row_stats kernel a call")
+    for w in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sleeps(OPEN_SLEEPS)
+            for _ in range(calls):
+                cs.row_stats(*args)
+            torch.cuda.synchronize()
+            sleeps(CLOSE_SLEEPS)
+        evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        rows = [x for x in evs if "spin_kernel" not in x[2]]
+        first = rows[0][0] if rows else float("inf")
+        lead = sum(1 for x in evs if "spin_kernel" in x[2] and x[0] < first)
+        trail = len(evs) - len(rows) - lead
+        names = [x[2] for x in rows]
+        kernels = sorted({n[:80] for n in names})
+        us = sum(x[1] - x[0] for x in rows) / max(len(rows), 1)
+        log(f"profile row_stats (served batch), window {w}, {calls} calls: "
+            f"{len(names)} device events besides the sleep kernels, names "
+            f"{kernels}, {us / 1e3:.5f} ms a kernel on the device; the "
+            f"profiler recorded {lead} of the {OPEN_SLEEPS} opening and "
+            f"{trail} of the {CLOSE_SLEEPS} closing sleep kernels")
+        if lead == 0:
+            raise AssertionError(f"the profiler lost all {OPEN_SLEEPS} "
+                                 f"opening sleep kernels of window {w}, so "
+                                 f"its row_stats kernels cannot be counted")
+        if len(names) != calls or any("row_stats" not in n for n in names):
+            raise AssertionError(f"{calls} row_stats calls ran {len(names)} "
+                                 f"device events ({kernels}) in window {w}, "
+                                 f"want one row_stats kernel a call")
+    log(f"profile row_stats: an empty kernel timed as the kernel lines time "
+        f"theirs: {device_ms(lambda: torch.cuda._sleep(0)):.5f} ms")
 
 
 def hold_attention(tag: str, got, want) -> tuple:
@@ -2318,6 +2404,99 @@ def attention_checks(dev, out: dict) -> None:
                f"{kv_len}", err, ms, pms, lms, flops, nbytes, peak,
                tag == "qwen3-1.7b")
         del q, k, v, kr, vr, got, want
+        torch.cuda.empty_cache()
+
+
+def attention_bwd_checks(dev, out: dict) -> None:
+    """flash_attention_bwd against the gradients of its plain version
+    (``torch.autograd.grad`` through ``flash_attention_plain``) on the same
+    seeded inputs, each gradient within ATTN_BWD_RTOL of the plain
+    gradient's largest magnitude and the same bits on a second run, at the
+    training shapes at B 1: llama3.2-1b (Hq 32, Hkv 8, S 4,096, D 64, bf16,
+    causal), qwen3-1.7b (Hq 16, Hkv 8, D 128), a
+    ragged S of 4,097, rep 1, D 32 and 16 (the small head dims of the bf16
+    kernels) and float32; with times beside the backward of
+    ``scaled_dot_product_attention`` on k/v repeated to the query heads
+    beforehand (timed only), and the kernels' registers, shared memory and
+    spills first."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels._build import load_kernels
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+
+    ops = load_kernels()
+    for d in (16, 32, 64, 128):
+        for is_bf16 in (True, False):
+            i = ops.flash_attention_bwd_info(d, is_bf16)
+            log(f"flash_attention_bwd {'bf16 mma.sync' if is_bf16 else 'f32'}"
+                f" D={d}: dQ kernel {i[0]} registers, {i[1]} bytes of shared "
+                f"memory, {i[2]} bytes of local memory (spills) a thread, "
+                f"{i[3]} threads; dK/dV kernel {i[4]} registers, {i[5]} "
+                f"bytes of shared memory, {i[6]} bytes spilled, {i[7]} "
+                f"threads")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (("llama3.2-1b", 32, 8, 64, 4096, bf16),
+             ("qwen3-1.7b", 16, 8, 128, 4096, bf16),
+             ("llama3.2-1b ragged", 32, 8, 64, 4097, bf16),
+             ("rep 1", 16, 16, 128, 4096, bf16),
+             ("D 32", 16, 8, 32, 1000, bf16),
+             ("D 16", 8, 2, 16, 333, bf16),
+             ("qwen3-1.7b f32", 16, 8, 128, 4096, f32),
+             ("D 64 f32 ragged", 8, 4, 64, 130, f32))
+    for tag, hq, hkv, d, s, dtype in cases:
+        b = 1
+        q, k, v, dout = (torch.randn((b, h, s, d), generator=gen, device=dev
+                                     ).to(dtype) for h in (hq, hkv, hkv, hq))
+        o = flash_attention(q, k, v, causal=True)
+        got = flash_attention_bwd(q, k, v, o, dout)
+        again = flash_attention_bwd(q, k, v, o, dout)
+        want = flash_attention_bwd_plain(q, k, v, dout)
+        torch.cuda.synchronize()
+        tol = ATTN_BWD_RTOL[str(dtype).split(".")[1]]
+        errs, rels = [], []
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            same_bits("flash_attention_bwd", f"{tag} {name}", g, a)
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"flash_attention_bwd {tag} {name}: "
+                                     f"{g.shape} {g.dtype}, want {w.shape} "
+                                     f"{w.dtype}")
+            err = float((g.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            if not (bool(torch.isfinite(g).all()) and err <= tol * scale):
+                raise AssertionError(
+                    f"flash_attention_bwd {tag} {name}: max abs err "
+                    f"{err:.3e} vs scale {scale:.3e} exceeds rel tol {tol}")
+            errs.append(err)
+            rels.append(err / scale)
+        del got, again, want
+        torch.cuda.empty_cache()
+        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout))
+        pms = stream_ms(lambda: flash_attention_bwd_plain(q, k, v, dout))
+        qq = q.detach().requires_grad_(True)
+        kr, vr = (t.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+                  for t in (k, v))
+        os_ = F.scaled_dot_product_attention(qq, kr, vr, is_causal=True)
+        lms = device_ms(lambda: torch.autograd.grad(
+            os_, (qq, kr, vr), dout, retain_graph=True))
+        del qq, kr, vr, os_
+        pairs = s * (s + 1) // 2
+        # the least work: s recomputed, dP, dV, dQ, dK (2 D each a pair),
+        # 2.5 times the forward's 4 D
+        flops = 10 * b * hq * d * pairs
+        nbytes = q.element_size() * d * b * s * (4 * hq + 4 * hkv)
+        peak = PEAK_BF16 if dtype == bf16 else PEAK_FP32
+        log(f"flash_attention_bwd {tag}: max abs err dq/dk/dv "
+            f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}, relative to "
+            f"the plain gradient's largest "
+            f"{rels[0]:.3e} / {rels[1]:.3e} / {rels[2]:.3e} (limit {tol}); "
+            f"the same bits twice")
+        record(out, "flash_attention_bwd", f"{tag} B={b} Hq={hq} Hkv={hkv} "
+               f"S={s} D={d} {str(dtype).split('.')[1]} causal", max(errs),
+               ms, pms, lms, flops, nbytes, peak, False)
+        del q, k, v, dout, o
         torch.cuda.empty_cache()
 
 
@@ -2504,6 +2683,409 @@ def lm_serve_phase(dev) -> dict:
     return counts
 
 
+def _train_step_profile(trainer, params, opt, batch, step: int,
+                        wall_unprofiled: float) -> None:
+    """Profile one Trainer.step: device time of the attention forward and
+    backward kernels, the matrix products, the optimizer (the device time
+    of the kernels launched inside ``adamw_update``) and the rest, the
+    largest kernels by name, and the device's idle share of the profiled
+    step's wall time (which the profiler stretches) and of an unprofiled
+    step's (``wall_unprofiled``)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import trainer as trainer_mod
+
+    real = trainer_mod.adamw_update
+
+    def adamw_update(*a, **kw):
+        with record_function("optimizer"):
+            return real(*a, **kw)
+
+    trainer_mod.adamw_update = adamw_update
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.step(params, opt, batch, step)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.adamw_update = real
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # the range's device-side annotation: from the optimizer's first kernel
+    # to its last; the kernels inside it are the optimizer's
+    window = [(s0, s1) for s0, s1, name in spans if name == "optimizer"]
+    spans = [x for x in spans if x[2] != "optimizer"]
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end, by_name = 0.0, float("-inf"), {}
+    split = dict(attention_fwd=0.0, attention_bwd=0.0, matmul=0.0, other=0.0)
+    for s0, s1, name in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (s1 - s0) / 1e6
+        if re.search(r"flash_(wgmma|mma|simt)", name):
+            key = "attention_fwd"
+        elif re.search(r"bwd_(dq|dkdv)_", name):
+            key = "attention_bwd"
+        elif re.search(r"gemm|xmma|cutlass|nvjet|wgmma|Kernel2", name):
+            key = "matmul"
+        else:
+            key = "other"
+        split[key] += (s1 - s0) / 1e6
+    opt = "not measured (no device annotation recorded)"
+    if window:
+        inside = sum(s1 - s0 for s0, s1, _ in spans
+                     if any(w0 <= s0 and s1 <= w1 for w0, w1 in window))
+        opt = (f"{inside / 1e6:.6f} s in a window of "
+               f"{sum(w1 - w0 for w0, w1 in window) / 1e6:.6f} s")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"lm_train profile of one step: wall {wall:.4f} s, device busy "
+        f"{busy / 1e6:.4f} s, idle share {1 - busy / 1e6 / wall:.4f} of the "
+        f"profiled step, {max(0.0, 1 - busy / 1e6 / wall_unprofiled):.4f} "
+        f"of an unprofiled one ({wall_unprofiled * 1e3:.1f} ms), "
+        f"{len(spans)} device events; device s by kind: "
+        + json.dumps({k: round(v, 6) for k, v in split.items()})
+        + f"; of it the optimizer's kernels (adamw_update) {opt}; top "
+        f"kernels (s): "
+        + json.dumps({n: round(t, 6) for n, t in top}))
+
+
+def capture_attention_bwd():
+    """Patch ``FlashAttentionFn.backward`` to keep the operands and the
+    gradients of the first backward it runs (the last layer's attention,
+    the first that the backward reaches) as the training step passes
+    them. The patched backward does what the real one does (a checkpointed
+    layer's saved tensors unpack once, so it cannot call the real one after
+    reading them): one ``flash_attention_bwd`` call, launched and counted
+    as unpatched. Returns the dict it fills and a function that undoes the
+    patch."""
+    import importlib
+
+    # the module: the package's attribute of that name is the function
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    real = fa.FlashAttentionFn.__dict__["backward"]
+    cap = {}
+
+    def backward(ctx, dout):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, dout,
+                                            causal=ctx.causal)
+        if not cap:
+            # clone() keeps a dense tensor's strides, so the layouts stay
+            cap.update(q=q, k=k, v=v, o=o, dout=dout.clone(),
+                       grads=[g.clone() for g in (dq, dk, dv)])
+        return dq, dk, dv, None
+
+    fa.FlashAttentionFn.backward = staticmethod(backward)
+
+    def undo():
+        fa.FlashAttentionFn.backward = real
+    return cap, undo
+
+
+def attention_bwd_in_kernel_precision(q, k, v, dout):
+    """The backward's formulas in plain PyTorch, rounded where the bf16
+    kernel rounds: P and dS rounded to bf16 before their products, float32
+    sums (D = Σ_j P_ij dP_ij among them), the gradients rounded to bf16.
+    One batch element (B 1), causal, as many keys as queries."""
+    import torch
+
+    _, hq, s, d = q.shape
+    rep = hq // k.shape[1]
+    qf, kf, vf, df = (t[0].float() for t in (q, k, v, dout))
+    kr, vr = (t.repeat_interleave(rep, dim=0) for t in (kf, vf))
+    scale = d ** -0.5
+    sc = torch.matmul(qf, kr.transpose(-1, -2)) * scale
+    sc.masked_fill_(torch.ones(s, s, dtype=torch.bool, device=q.device
+                               ).triu_(1), -1e30)
+    p = torch.softmax(sc, dim=-1)
+    del sc
+    ds = torch.matmul(df, vr.transpose(-1, -2))
+    ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)
+    ds = ds.bfloat16().float()
+    p = p.bfloat16().float()
+    dq = torch.matmul(ds, kr) * scale
+    dk = (torch.matmul(ds.transpose(-1, -2), qf) * scale
+          ).view(-1, rep, s, d).sum(1)
+    dv = torch.matmul(p.transpose(-1, -2), df).view(-1, rep, s, d).sum(1)
+    return tuple(t[None].to(q.dtype) for t in (dq, dk, dv))
+
+
+def hold_step_attention_bwd(cap: dict, out: dict) -> None:
+    """flash_attention_bwd at the training step's own shape and layouts:
+    the operands that one Trainer.step passed it (``capture_attention_bwd``;
+    B 4, Hq 32, Hkv 8, S 4,096, D 64, bf16, with q, k, v, the output and
+    dO strided as the model's head-transposed views make them). A rerun
+    gives the step's bits, and so does the kernel on each batch element
+    alone (B 1), which holds its batch index at every b. Each element's
+    gradients are held against the plain gradients (the (Hq, S, S) float32
+    scores of one element fit), beside the same formulas carried out in
+    the kernel's precision (``attention_bwd_in_kernel_precision``). Timed
+    beside the plain version over the four elements and the backward of
+    SDPA on k/v repeated to the query heads (timed only): the kernels
+    line's figures for flash_attention_bwd."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, operand_error)
+
+    q, k, v, o, dout = (cap[n] for n in ("q", "k", "v", "o", "dout"))
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    names = ("dq", "dk", "dv")
+    layouts = "; ".join(
+        f"{n} strides {tuple(t.stride())}"
+        f"{'' if t.is_contiguous() else ' (a view)'}"
+        f"{'' if operand_error(t) is None else ' (copied: ' + operand_error(t) + ')'}"
+        for n, t in (("q", q), ("k", k), ("v", v), ("out", o), ("dO", dout)))
+    again = flash_attention_bwd(q, k, v, o, dout)
+    for name, g, a in zip(names, cap["grads"], again):
+        same_bits("flash_attention_bwd", f"training step {name}", g, a)
+    del again
+    tol = ATTN_BWD_RTOL[str(q.dtype).split(".")[1]]
+    errs, fails, rows = [0.0] * 3, [], []
+    for i in range(b):
+        one = [t[i:i + 1] for t in (q, k, v, o, dout)]
+        for name, g, a in zip(names, cap["grads"], flash_attention_bwd(*one)):
+            same_bits("flash_attention_bwd", f"training step b={i} alone "
+                      f"{name}", g[i:i + 1], a)
+        want = flash_attention_bwd_plain(*one[:3], one[4])
+        emul = attention_bwd_in_kernel_precision(*one[:3], one[4])
+        torch.cuda.synchronize()
+        row = []
+        for j, (name, g, w, e) in enumerate(zip(names, cap["grads"], want,
+                                                emul)):
+            g = g[i:i + 1]
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"flash_attention_bwd training step "
+                                     f"{name}: {g.shape} {g.dtype}, want "
+                                     f"{w.shape} {w.dtype}")
+            wf = w.float()
+            err = float((g.float() - wf).abs().max())
+            err_e = float((e.float() - wf).abs().max())
+            scale = float(wf.abs().max())
+            errs[j] = max(errs[j], err)
+            row.append(f"{name} {err / scale:.3e} (in the kernel's "
+                       f"precision {err_e / scale:.3e})")
+            if not (bool(torch.isfinite(g).all()) and scale > 0
+                    and err <= tol * scale):
+                fails.append(f"b={i} {name}: max abs err {err:.3e} vs "
+                             f"scale {scale:.3e}")
+        rows.append(f"b={i}: " + ", ".join(row))
+        del want, emul, one
+    torch.cuda.empty_cache()
+    log(f"flash_attention_bwd training step (the last layer): {layouts}; "
+        f"the same bits on a rerun and on each batch element alone; max abs "
+        f"err dq/dk/dv {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}; "
+        f"relative to each element's largest plain gradient: "
+        + "; ".join(rows) + f" (limit {tol})")
+    if fails:
+        raise AssertionError(f"flash_attention_bwd training step: "
+                             f"{'; '.join(fails)} exceed rel tol {tol}")
+    ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout))
+    pms = stream_ms(lambda: [flash_attention_bwd_plain(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], dout[i:i + 1]) for i in range(b)])
+    qq = q.detach().requires_grad_(True)
+    kr, vr = (t.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+              for t in (k, v))
+    os_ = F.scaled_dot_product_attention(qq, kr, vr, is_causal=True)
+    lms = device_ms(lambda: torch.autograd.grad(
+        os_, (qq, kr, vr), dout, retain_graph=True))
+    del qq, kr, vr, os_
+    pairs = s * (s + 1) // 2
+    flops = 10 * b * hq * d * pairs
+    nbytes = q.element_size() * d * b * s * (4 * hq + 4 * hkv)
+    record(out, "flash_attention_bwd", f"training step B={b} Hq={hq} "
+           f"Hkv={hkv} S={s} D={d} {str(q.dtype).split('.')[1]} causal, "
+           f"the step's layouts", max(errs), ms, pms, lms, flops, nbytes,
+           PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32, True)
+
+
+def lm_train_phase(dev, out: dict) -> dict:
+    """llama3.2-1b trained at full width and depth through Trainer.step on
+    the card, the attention backward held at the operands step 0 passed it
+    (``hold_step_attention_bwd``, into ``out``), and the trainer's
+    checkpoint/restart at 2 layers; returns the launch counts of the 6
+    steps."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers, loss_fn
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    tmp = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, shape, TrainerConfig(
+            ckpt_dir=os.path.join(tmp, "full"), total_steps=100,
+            warmup_steps=1, log_every=1), AdamWConfig(lr=TRAIN_LR),
+            device=dev)
+        params, opt = trainer.init_state()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in tree_leaves((params, opt))) / 1e9
+        log(f"lm_train {cfg.name}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim_}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+            f"{n_params} parameters; parameters and optimizer state "
+            f"{state_gb:.3f} GB; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+
+        # the step-0 loss on the plain attention, the same params and batch
+        batch0 = trainer.data.batch(0)
+        real = layers.ops.attention
+        layers.ops.attention = attention_as(
+            lambda q, k, v, causal: flash_attention_plain(q, k, v,
+                                                          causal=causal))
+        try:
+            with torch.no_grad():
+                plain_loss = float(loss_fn(trainer.cfg, params, batch0)[0])
+        finally:
+            layers.ops.attention = real
+
+        losses, gnorms, walls, totals = [], [], [], {}
+        for step in range(TRAIN_STEPS):
+            batch = batch0 if step == 0 else trainer.data.batch(step)
+            torch.cuda.synchronize()
+            if step == 0:
+                cap, undo = capture_attention_bwd()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                params, opt, m = trainer.step(params, opt, batch, step)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                torch.cuda.synchronize()
+            finally:
+                if step == 0:
+                    undo()
+            walls.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            losses.append(loss)
+            gnorms.append(gnorm)
+            log(f"lm_train step {step}: loss {loss:.6f}, grad norm "
+                f"{gnorm:.6f}, wall {walls[-1] * 1e3:.1f} ms "
+                f"({tokens / walls[-1]:.0f} tokens/s); flash_attention "
+                f"{counts['flash_attention']}, flash_attention_bwd "
+                f"{counts['flash_attention_bwd']} launches")
+            want = {"flash_attention": 2 * cfg.num_layers,
+                    "flash_attention_bwd": cfg.num_layers}
+            got = {k: counts[k] for k in want}
+            if got != want:
+                raise AssertionError(f"lm_train step {step}: launches {got}, "
+                                     f"want {want}")
+        launched("lm_train", totals, ("flash_attention",
+                                      "flash_attention_bwd"))
+        ln_v = math.log(cfg.vocab_size)
+        expect = ln_v + 0.02 ** 2 * cfg.d_model / 2
+        warm = walls[1:]
+        log(f"lm_train {TRAIN_STEPS} steps: loss0 {losses[0]:.6f} (ln V "
+            f"{ln_v:.6f}, |loss0 - ln V| {abs(losses[0] - ln_v):.4f}; "
+            f"expected at this init ln V + σ²/2 {expect:.6f}, band "
+            f"{LOSS0_BAND}); the plain attention's loss0 {plain_loss:.6f} "
+            f"(|Δ| {abs(losses[0] - plain_loss):.2e}, limit "
+            f"{TRAIN_LOSS_ATOL}); last loss {losses[-1]:.6f}; step wall ms "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; steps 1-"
+            f"{TRAIN_STEPS - 1} mean {sum(warm) / len(warm) * 1e3:.1f} ms, "
+            f"{tokens * len(warm) / sum(warm):.0f} tokens/s; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"lm_train: losses {losses}, grad norms "
+                                 f"{gnorms} not all finite")
+        if abs(losses[0] - plain_loss) > TRAIN_LOSS_ATOL:
+            raise AssertionError(f"lm_train: loss0 {losses[0]} on the kernels"
+                                 f" vs {plain_loss} on the plain attention")
+        if abs(losses[0] - expect) > LOSS0_BAND:
+            raise AssertionError(f"lm_train: loss0 {losses[0]} is not within "
+                                 f"{LOSS0_BAND} of {expect}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"lm_train: the loss did not fall: {losses}")
+        hold_step_attention_bwd(cap, out)
+        del cap
+        _train_step_profile(trainer, params, opt,
+                            trainer.data.batch(TRAIN_STEPS), TRAIN_STEPS,
+                            walls[-1])
+        torch.cuda.synchronize()
+        del params, opt, trainer, batch0, batch
+        torch.cuda.empty_cache()
+        lm_train_restart(dev, cfg, shape, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    PHASE_S["lm_train"] = time.perf_counter() - t_phase
+    return totals
+
+
+def lm_train_restart(dev, cfg, shape, tmp: str) -> None:
+    """Trainer.run_with_restart at full width and TRAIN_CKPT_LAYERS layers:
+    checkpoints every 2 steps, a failure injected before step 3, a restore
+    and 4 steps in all, against an uninterrupted run of 4 steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CKPT_LAYERS)
+    runs = {}
+    for tag, kw in (("uninterrupted", dict(ckpt_every=4)),
+                    ("restarted", dict(ckpt_every=2, fail_at_step=3))):
+        trainer = Trainer(cut, shape, TrainerConfig(
+            ckpt_dir=os.path.join(tmp, tag), total_steps=100,
+            warmup_steps=1, log_every=1, **kw), device=dev)
+        t0 = time.perf_counter()
+        runs[tag] = trainer.run_with_restart(4)
+        torch.cuda.synchronize()
+        d = os.path.join(tmp, tag)
+        sizes = {c: sum(os.path.getsize(os.path.join(d, c, f))
+                        for f in os.listdir(os.path.join(d, c)))
+                 for c in sorted(os.listdir(d))}
+        log(f"lm_train restart {tag} ({TRAIN_CKPT_LAYERS} layers): "
+            f"{time.perf_counter() - t0:.2f} s, checkpoints kept (bytes) "
+            f"{sizes}")
+    a, b = (tree_leaves(runs[t]) for t in ("uninterrupted", "restarted"))
+    unequal, worst = 0, 0.0
+    for x, y in zip(a, b):
+        if x.dtype == torch.int32:
+            if not torch.equal(x, y):
+                raise AssertionError("lm_train restart: the step counts "
+                                     "differ")
+            continue
+        x, y = x.detach().float(), y.detach().float()
+        diff = (x - y).abs()
+        unequal += int((diff > 0).sum())
+        # one bf16 step of y's magnitude at most: 2^-7 |y| bounds it
+        share = float((diff / (2 ** -7 * y.abs() + 1e-30)).max())
+        worst = max(worst, share)
+    log(f"lm_train restart: final parameters and optimizer state against "
+        f"the uninterrupted run: {unequal} unequal elements, largest "
+        f"difference {worst:.3f} of one bf16 step")
+    if worst > 1.0:
+        raise AssertionError(f"lm_train restart: the restarted run is off the "
+                             f"uninterrupted one by {worst:.3f} bf16 steps")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2521,6 +3103,10 @@ def main(argv=None) -> int:
     ap.add_argument("--attention", action="store_true",
                     help="only the lm_serve path and the flash_attention "
                          "checks (the kernels line then lists that kernel)")
+    ap.add_argument("--train", action="store_true",
+                    help="only the lm_train path and the "
+                         "flash_attention_bwd checks (the kernels line then "
+                         "lists that kernel)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2546,12 +3132,18 @@ def main(argv=None) -> int:
             f"bytes of shared memory a block, {local} bytes of local memory "
             f"(spills) a thread, {stages} stages")
 
-    names = ("flash_attention",) if args.attention else tuple(REPLACES)
+    names = tuple(REPLACES)
     if args.attention:
+        names = ("flash_attention",)
         counts = {"flash_attention":
                   lm_serve_phase(dev)["flash_attention"]}
         records = {}
         attention_checks(dev, records)
+    elif args.train:
+        names = ("flash_attention_bwd",)
+        records = {}
+        counts = lm_train_phase(dev, records)
+        attention_bwd_checks(dev, records)
     else:
         counts, records = all_paths(dev)
     smi = subprocess.run(
@@ -2602,9 +3194,13 @@ def all_paths(dev) -> tuple:
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
                    if k in TILE_KERNELS})
     counts["flash_attention"] = lm_serve_phase(dev)["flash_attention"]
+    train_records = {}
+    counts["flash_attention_bwd"] = lm_train_phase(
+        dev, train_records)["flash_attention_bwd"]
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)
+    records.update(train_records)
     for name, err in lifecycle_errs.items():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     csr_stats_checks(served, dev, records)
@@ -2625,6 +3221,7 @@ def all_paths(dev) -> tuple:
                                        for stem in TILE_STEMS}))
     profile_call("select_batch (16 served matrices)",
                  lambda: engine.select_batch(served))
+    attention_bwd_checks(dev, records)
     return counts, records
 
 

@@ -22,7 +22,10 @@ them, with the same fingerprint.
 
 :func:`lm_params_from_jax` builds the port's language-model parameters
 (:mod:`repro_torch.models.transformer`) from the reference's nested dict of
-numpy arrays, one entry per layer where the reference stacks layer groups.
+numpy arrays, one entry per layer where the reference stacks layer groups;
+:func:`lm_opt_state_from_jax` does the same for the reference's AdamW state
+(``repro.train.init_opt_state``: ``master``, ``m`` and ``v`` laid out like
+the parameters, and ``count``).
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from .sparse.symbolic import SymbolicFactor
 
 __all__ = ["plan_arrays", "plan_from_arrays", "classifier_state_arrays",
            "selector_bundle_arrays", "bundle_from_arrays",
-           "lm_params_from_jax"]
+           "lm_params_from_jax", "lm_opt_state_from_jax"]
 
 
 def plan_arrays(plan) -> dict:
@@ -131,4 +134,17 @@ def lm_params_from_jax(cfg: ModelConfig, params, device=None) -> dict:
     out["layers"] = [tree(params["groups"][f"s{j}"], g)
                      for g in range(cfg.num_groups)
                      for j in range(cfg.pattern_period)]
+    return out
+
+
+def lm_opt_state_from_jax(cfg: ModelConfig, opt_state, device=None) -> dict:
+    """The port's optimizer state (:mod:`repro_torch.train.optimizer`) from
+    the reference's: ``master``, ``m`` and ``v`` unstacked as
+    :func:`lm_params_from_jax` unstacks the parameters, ``count`` a 0-d
+    int32 tensor; values bit for bit, on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    out = {k: lm_params_from_jax(cfg, opt_state[k], dev)
+           for k in ("master", "m", "v")}
+    out["count"] = torch.tensor(int(np.asarray(opt_state["count"])),
+                                dtype=torch.int32, device=dev)
     return out

@@ -18,9 +18,11 @@ design:
 * its files end in :data:`PLAN_SUFFIX` (``{key}.{version}.torchplan.pkl``),
   so a reference file under the same key and version is not even seen;
 * it reads through :func:`restricted_load`, whose unpickler admits only
-  ``repro_torch.*``, ``numpy.*`` and builtin data types: a file naming any
-  other class (a reference plan names ``repro.core.plan``) is an
-  ``UnpicklingError`` and counts as a miss, as an unreadable file does in
+  the exact globals in :data:`ADMITTED`: builtin data types, the numpy
+  array, dtype and scalar constructors, and the port's ``ExecutionPlan``
+  and ``SymbolicFactor``. A file naming any other global (a reference plan
+  names ``repro.core.plan``) is an ``UnpicklingError`` before that global's
+  module is imported and counts as a miss, as an unreadable file does in
   the reference, and nothing of ``repro`` or JAX is imported.
 """
 from __future__ import annotations
@@ -40,32 +42,49 @@ from ..sparse.csr import CSRMatrix
 from .locking import FileLock
 
 __all__ = ["matrix_fingerprint", "PlanCache", "TwoTierPlanCache",
-           "DEFAULT_CACHE_DIR", "PLAN_SUFFIX", "RestrictedUnpickler",
+           "DEFAULT_CACHE_DIR", "PLAN_SUFFIX", "ADMITTED",
+           "RestrictedUnpickler",
            "restricted_load", "restricted_loads"]
 
 DEFAULT_CACHE_DIR = os.path.join("artifacts", "plan_cache_torch")
 #: file-name ending of the port's plan files (the reference's: ``.plan.pkl``)
 PLAN_SUFFIX = ".torchplan.pkl"
 
-#: builtins a plan, a request or a response frame may name: data types only
-_SAFE_BUILTINS = frozenset({
-    "bool", "int", "float", "complex", "str", "bytes", "bytearray",
-    "tuple", "list", "dict", "set", "frozenset", "slice", "range"})
+#: the (module, name) globals a plan file or an RPC frame may name, and no
+#: others. Listed by pickling every kind of each (a pickled
+#: ``ExecutionPlan``; the ``ping``, ``plan``, ``plan_batch``, ``select``,
+#: ``stats``, ``metrics`` and ``shutdown`` requests and their responses,
+#: and the error frames) at ``pickle.HIGHEST_PROTOCOL`` and recording what
+#: the unpickler looks up: builtin data types; numpy arrays
+#: (``_frombuffer``) with their ``dtype`` and numpy scalars (``scalar``),
+#: under numpy 2's module names and numpy 1's; the plan's two classes.
+#: The request and error frames, stats and metrics are plain dicts of
+#: builtin values and arrays.
+ADMITTED = frozenset(
+    {("builtins", n) for n in (
+        "bool", "int", "float", "complex", "str", "bytes", "bytearray",
+        "tuple", "list", "dict", "set", "frozenset", "slice", "range")}
+    | {("numpy", "dtype"),
+       ("numpy._core.numeric", "_frombuffer"),
+       ("numpy.core.numeric", "_frombuffer"),
+       ("numpy._core.multiarray", "scalar"),
+       ("numpy.core.multiarray", "scalar"),
+       ("repro_torch.core.plan", "ExecutionPlan"),
+       ("repro_torch.sparse.symbolic", "SymbolicFactor")})
 
 
 class RestrictedUnpickler(pickle.Unpickler):
-    """Unpickler that resolves only ``repro_torch.*`` and ``numpy.*``
-    globals and builtin data types; any other global raises
-    :class:`pickle.UnpicklingError` before its module is imported."""
+    """Unpickler that resolves only the exact globals of :data:`ADMITTED`;
+    any other global raises :class:`pickle.UnpicklingError` before its
+    module is imported."""
 
     def find_class(self, module: str, name: str):
-        top = module.split(".", 1)[0]
-        if top in ("repro_torch", "numpy") or (
-                module == "builtins" and name in _SAFE_BUILTINS):
+        if (module, name) in ADMITTED:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
-            f"global {module}.{name} is not admitted (only repro_torch.*, "
-            f"numpy.* and builtin data types)")
+            f"global {module}.{name} is not admitted (only the plan's "
+            f"classes, numpy arrays, dtypes and scalars, and builtin data "
+            f"types)")
 
 
 def restricted_load(f) -> Any:

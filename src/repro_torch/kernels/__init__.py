@@ -9,7 +9,7 @@ from typing import Dict
 
 from ._build import reset_launches
 from .csr_stats import entry_stats, row_stats
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .frontal_cholesky import (chol_tile, extend_add_batch,
                                frontal_factor_batch, matmul_nt, tri_inv_tile,
                                tri_solve_batch)
@@ -28,6 +28,7 @@ KERNELS = {
     "tri_inv_tile": tri_inv_tile,
     "matmul_nt": matmul_nt,
     "flash_attention": flash_attention,
+    "flash_attention_bwd": flash_attention_bwd,
 }
 
 

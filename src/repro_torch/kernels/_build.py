@@ -25,7 +25,8 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("bindings.cpp", "frontal_factor.cu", "extend_add.cu",
            "tri_solve.cu", "spmv_bell.cu", "csr_stats.cu", "tile_kernels.cu",
-           "flash_attention.cu", "flash_attention_sm90.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu",
+           "flash_attention_bwd.cu")
 
 
 _BUILD_LOCK = threading.Lock()

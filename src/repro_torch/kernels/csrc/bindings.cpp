@@ -481,6 +481,86 @@ std::vector<int64_t> flash_attention_info(int64_t d) {
   return {info[0], info[1], info[2], info[3]};
 }
 
+// dQ, dK, dV of the causal flash attention from dout (flash_attention_bwd.cu):
+// q, o, dout, dq (B, Hq, S, D); k, v, dk, dv (B, Hkv, S, D). The float32
+// (B, Hq, S) scratch of row log-sum-exps and D = sum_j P_ij dP_ij is allocated
+// here. The wrapper (flash_attention.py `flash_attention_bwd`) refuses
+// anything but causal attention with as many keys as queries before this.
+void flash_attention_bwd(const at::Tensor& q, const at::Tensor& k,
+                         const at::Tensor& v, const at::Tensor& o,
+                         const at::Tensor& dout, at::Tensor& dq,
+                         at::Tensor& dk, at::Tensor& dv, double sm_scale) {
+  const auto type = q.scalar_type();
+  TORCH_CHECK(type == at::kFloat || type == at::kBFloat16,
+              "q must be float32 or bfloat16, got ", type);
+  for (const at::Tensor* t : {&q, &k, &v, &o, &dout,
+                              static_cast<const at::Tensor*>(&dq),
+                              static_cast<const at::Tensor*>(&dk),
+                              static_cast<const at::Tensor*>(&dv)})
+    check_attention_operand(*t, q, "q/k/v/o/dout/dq/dk/dv");
+  const int64_t B = q.size(0), Hq = q.size(1), S = q.size(2), D = q.size(3);
+  const int64_t Hkv = k.size(1);
+  TORCH_CHECK(D == 16 || D == 32 || D == 64 || D == 128,
+              "head dim must be 16, 32, 64 or 128, got ", D);
+  TORCH_CHECK(k.sizes() == v.sizes() && k.size(0) == B && k.size(2) == S &&
+                  k.size(3) == D,
+              "k and v must be (B, Hkv, S, D) matching q");
+  TORCH_CHECK(Hkv > 0 && Hq % Hkv == 0, "Hq must be a multiple of Hkv");
+  TORCH_CHECK(o.sizes() == q.sizes() && dout.sizes() == q.sizes() &&
+                  dq.sizes() == q.sizes(),
+              "o, dout and dq must have q's shape");
+  TORCH_CHECK(dk.sizes() == k.sizes() && dv.sizes() == k.sizes(),
+              "dk and dv must have k's shape");
+  TORCH_CHECK(B <= 65535 && Hq <= 65535, "too many batches or heads");
+  if (B == 0 || Hq == 0 || S == 0) return;
+  const c10::cuda::CUDAGuard guard(q.device());
+  at::Tensor stats = q.new_empty({2, B, Hq, S}, q.options().dtype(at::kFloat));
+  FlashBwdParams p{};
+  p.q = q.data_ptr();
+  p.k = k.data_ptr();
+  p.v = v.data_ptr();
+  p.o = o.data_ptr();
+  p.dout = dout.data_ptr();
+  p.dq = dq.data_ptr();
+  p.dk = dk.data_ptr();
+  p.dv = dv.data_ptr();
+  p.lse = stats.data_ptr<float>();
+  p.delta = p.lse + B * Hq * S;
+  p.B = static_cast<int>(B);
+  p.Hq = static_cast<int>(Hq);
+  p.Hkv = static_cast<int>(Hkv);
+  p.S = as_int(S, "S");
+  p.D = static_cast<int>(D);
+  p.scale = static_cast<float>(sm_scale);
+  const auto strides = [](const at::Tensor& t, long long& sb, long long& sh,
+                          long long& ss) {
+    sb = t.stride(0);
+    sh = t.stride(1);
+    ss = t.stride(2);
+  };
+  strides(q, p.q_sb, p.q_sh, p.q_ss);
+  strides(k, p.k_sb, p.k_sh, p.k_ss);
+  strides(v, p.v_sb, p.v_sh, p.v_ss);
+  strides(o, p.o_sb, p.o_sh, p.o_ss);
+  strides(dout, p.do_sb, p.do_sh, p.do_ss);
+  strides(dq, p.dq_sb, p.dq_sh, p.dq_ss);
+  strides(dk, p.dk_sb, p.dk_sh, p.dk_ss);
+  strides(dv, p.dv_sb, p.dv_sh, p.dv_ss);
+  launch_flash_attention_bwd(p, type == at::kBFloat16,
+                             c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The two backward kernels' resources at head dim d, for the bf16 (mma.sync)
+// or the float32 kernels: flash_attention_bwd_info in kernels.h.
+std::vector<int64_t> flash_attention_bwd_info_op(int64_t d, bool bf16) {
+  TORCH_CHECK(d == 16 || d == 32 || d == 64 || d == 128,
+              "head dim must be 16, 32, 64 or 128, got ", d);
+  int info[8];
+  flash_attention_bwd_info(static_cast<int>(d), bf16, info);
+  return std::vector<int64_t>(info, info + 8);
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -520,6 +600,13 @@ TORCH_LIBRARY(repro_torch, m) {
       "bool causal, float sm_scale, int kv_len) -> ()",
       &flash_attention);
   m.def("flash_attention_info(int d) -> int[]", &flash_attention_info);
+  m.def(
+      "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+      "Tensor dout, Tensor(a!) dq, Tensor(b!) dk, Tensor(c!) dv, "
+      "float sm_scale) -> ()",
+      &flash_attention_bwd);
+  m.def("flash_attention_bwd_info(int d, bool bf16) -> int[]",
+        &flash_attention_bwd_info_op);
   m.def(
       "row_stats(Tensor row_nnz, Tensor row_valid, Tensor mean, int chunk, "
       "Tensor(a!) mx_part, Tensor(b!) mn_part, Tensor(c!) sq_part, "

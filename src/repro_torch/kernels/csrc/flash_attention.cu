@@ -53,6 +53,8 @@ namespace {
 
 using flash::kMinL;
 using flash::kNegInf;
+using flash::ldmatrix_x4_trans;
+using flash::mma_bf16;
 using flash::split_bf16;
 constexpr int kBQ = 64;            // queries a block
 constexpr int kBK = 64;            // keys a tile
@@ -235,29 +237,6 @@ flash_simt_kernel(FlashParams p) {
 // ---- bfloat16, tensor cores -------------------------------------------------
 
 constexpr int kMmaThreads = 128;  // four warps of 16 query rows
-
-// c += a b for one m16n8k16 tile: a the 16 x 16 row-major A fragment, (b0,
-// b1) the 16 x 8 column-major B fragment, c the 16 x 8 float32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed; lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* ptr) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)

@@ -172,3 +172,37 @@ const char* launch_flash_wgmma(const FlashParams& p, cudaStream_t stream);
 // dynamic shared memory per block (bytes), local memory per thread (bytes:
 // spills) and ring stages, for D = 64 or 128.
 void flash_wgmma_info(int D, int out[4]);
+
+// flash_attention_bwd.cu: the gradient of the causal flash attention with
+// Sq == Skv == S. q, o, dout, dq (B, Hq, S, D) and k, v, dk, dv (B, Hkv, S,
+// D), all float32 or all bfloat16, each with a unit stride along D and the
+// given element strides of its batch, head and sequence dims (the forward's
+// layout rule); lse and delta a float32 (B, Hq, S) contiguous scratch that
+// the first launch writes and the second reads.
+struct FlashBwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  void* dq;
+  void* dk;
+  void* dv;
+  float* lse;
+  float* delta;
+  int B, Hq, Hkv, S, D;
+  float scale;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+      o_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,
+      dv_sb, dv_sh, dv_ss;
+};
+
+// Two launches: dQ with the row statistics, then dK and dV. `bf16` picks
+// the mma.sync kernels (bfloat16 operands), else the float32 ones.
+void launch_flash_attention_bwd(const FlashBwdParams& p, bool bf16,
+                                cudaStream_t stream);
+
+// Registers per thread, shared memory per block (bytes), local memory per
+// thread (bytes: spills) and threads a block of the dQ kernel, then the same
+// four of the dK/dV kernel, at head dim D (16, 32, 64 or 128).
+void flash_attention_bwd_info(int D, bool bf16, int out[8]);

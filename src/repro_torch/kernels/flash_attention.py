@@ -26,6 +26,18 @@ it launches the kernel or raises, and counts its launches in
 ``flash_attention.launches``. The kernels read their operands in place, so
 each must have a layout they can address: :func:`operand_error` is that
 rule.
+
+The gradient. The reference has no ``custom_vjp`` around its kernel: its
+model trains through the XLA twin, which XLA differentiates. Here training
+launches the forward kernel, so :class:`FlashAttentionFn` gives it a
+backward: :func:`flash_attention_bwd`, the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (two launches, dQ then dK and dV, counted
+as one in ``flash_attention_bwd.launches``), whose plain version
+:func:`flash_attention_bwd_plain` is ``torch.autograd.grad`` through
+:func:`flash_attention_plain`. It takes what training needs, causal
+attention with as many keys as queries and no ``kv_len``, in float32 or
+bfloat16 at every head dim of the forward, and refuses the rest with
+``ValueError`` on every device.
 """
 from __future__ import annotations
 
@@ -37,7 +49,8 @@ from ..device import on_cuda
 from ._build import count_launch, load_kernels
 
 __all__ = ["flash_attention", "flash_attention_plain", "operand_error",
-           "NEG_INF"]
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "FlashAttentionFn", "check_bwd", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -134,3 +147,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def check_bwd(q: torch.Tensor, k: torch.Tensor, causal: bool,
+              kv_len: Optional[int] = None) -> None:
+    """Raise ``ValueError`` unless the backward kernel takes the call:
+    causal, as many keys as queries, no ``kv_len``."""
+    if not causal or kv_len is not None or k.shape[2] != q.shape[2]:
+        raise ValueError(
+            f"the flash-attention backward takes causal attention with as "
+            f"many keys as queries and no kv_len only, got causal={causal}, "
+            f"Sq={q.shape[2]}, Skv={k.shape[2]}, kv_len={kv_len}")
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True,
+                              sm_scale: Optional[float] = None):
+    """Plain version: ``torch.autograd.grad`` of :func:`flash_attention_plain`
+    at (q, k, v) against ``dout``. Returns (dq, dk, dv) in the inputs'
+    dtype."""
+    _check(q, k, v)
+    check_bwd(q, k, causal)
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_plain(qq, kk, vv, causal=causal,
+                                    sm_scale=sm_scale)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None):
+    """Gradient of :func:`flash_attention` at (q, k, v), whose output was
+    ``out``, against ``dout``: (dq, dk, dv), shaped and typed as q, k, v.
+    Causal attention with as many keys as queries only; anything else
+    raises ``ValueError`` before any launch. On the card, q, k, v must pass
+    :func:`operand_error`; ``out`` and ``dout`` that do not are copied to a
+    contiguous layout first. On the card the gradients are views whose
+    ``transpose(1, 2)`` is contiguous, like the forward's output."""
+    _check(q, k, v)
+    check_bwd(q, k, causal)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError(f"out and dout must have q's dtype {q.dtype}, got "
+                        f"{out.dtype}, {dout.dtype}")
+    d = q.shape[3]
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    if not on_cuda(q, k, v, out, dout):
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         sm_scale=scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        err = operand_error(t)
+        if err is not None:
+            raise ValueError(f"flash_attention_bwd: {name}: {err}")
+    out, dout = (t if operand_error(t) is None else t.contiguous()
+                 for t in (out, dout))
+
+    def grad_like(t):
+        bt, ht, st, dt = t.shape
+        return torch.empty((bt, st, ht, dt), dtype=t.dtype,
+                           device=t.device).transpose(1, 2)
+
+    dq, dk, dv = grad_like(q), grad_like(k), grad_like(v)
+    load_kernels().flash_attention_bwd(q, k, v, out, dout, dq, dk, dv, scale)
+    count_launch(flash_attention_bwd)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    gradient. A caller that will need the gradient checks the call with
+    :func:`check_bwd` first (``ops.attention`` does), so that a call the
+    backward refuses raises before the forward launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_attention(q, k, v, causal=causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

@@ -26,7 +26,7 @@ import torch
 
 from ..device import resolve_device, to_device
 from . import frontal_cholesky as fc
-from .flash_attention import flash_attention
+from .flash_attention import FlashAttentionFn, check_bwd
 from .spmv_bell import bell_spmv, csr_to_bell
 
 __all__ = ["attention", "pick_block_size", "rhs_tile", "matmul_nt_padded",
@@ -48,8 +48,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Pallas kernel; :func:`~repro_torch.kernels.flash_attention.flash_attention`
     maps query head h to kv head h // (Hq / Hkv) and masks ragged lengths
     itself, so this is a direct call and the block sizes are the kernel's
-    own."""
-    return flash_attention(q, k, v, causal=causal)
+    own. The call goes through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`, so a
+    gradient through it launches the backward kernel, and a call whose
+    gradient that kernel refuses raises ``ValueError`` before the forward
+    launches; under ``torch.no_grad()`` only the forward runs."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        check_bwd(q, k, causal)
+    return FlashAttentionFn.apply(q, k, v, causal)
 
 
 def pick_block_size(npiv: int, bs: int | None = None) -> int:

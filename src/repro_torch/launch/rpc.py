@@ -20,8 +20,11 @@ processes submit matrices over a socket and get
 and responses are plain dicts; matrices travel as their CSR arrays
 (:func:`matrix_to_wire`, the reference's dict), plans as pickled
 ``ExecutionPlan``\\ s. :func:`recv_frame` unpickles through the disk tier's
-:class:`~repro_torch.core.plan_cache.RestrictedUnpickler`, which admits only
-``repro_torch.*``, ``numpy.*`` and builtin data types.
+:class:`~repro_torch.core.plan_cache.RestrictedUnpickler`, which admits
+only the exact globals of :data:`~repro_torch.core.plan_cache.ADMITTED`:
+builtin data types, numpy arrays, dtypes and scalars, and the plan's two
+classes (``ExecutionPlan``, ``SymbolicFactor``). Every frame this module
+sends names nothing else.
 
 **Trust boundary.** Payloads are still pickles: listen only where clients
 are trusted (localhost or a private network), as for a shared cache

@@ -10,8 +10,9 @@ parameter shapes, layer pattern, and the prefill/decode paths in
 ``moe_period > 0`` makes every ``moe_period``-th layer's MLP a top-k MoE.
 The port builds models of 'a' layers with dense MLPs only; the others raise
 ``NotImplementedError`` (:func:`repro_torch.models.transformer.init_params`).
-The execution knobs ``remat`` and ``scan_layers`` are kept for the copy but
-read by nothing in the port.
+Of the execution knobs, ``remat`` is read by the training forward (a
+checkpoint a layer); ``scan_layers`` is kept for the copy and read by
+nothing in the port, which loops over its layers either way.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ expert-free architectures: parameter init (``init_params`` :114 with
 GELU), ``_embed_inputs`` (:252), ``_rope_tables`` (:258, M-RoPE included),
 ``_unembed`` (:270), and serving: ``init_cache`` (:351),
 ``_apply_group_serve`` (:372) for 'a' layers, ``prefill`` (:406) and
-``decode_step`` (:429).
+``decode_step`` (:429); and training: ``MOE_AUX_COEF`` (:39),
+``_apply_group_train`` (:227) for 'a' layers, ``_forward`` (:276) and
+``loss_fn`` (:315).
 
 Parameters are a plain dict with one entry per layer in ``"layers"``; the
 reference's ``scan`` over stacked groups is a Python loop here. Weights keep
@@ -16,26 +18,38 @@ buffers; ``prefill`` fills a new cache and ``decode_step`` writes the new
 key and value into the buffers in place and advances ``pos`` on the same
 dict (the reference returned a new cache).
 
+Training runs the same layers on one device. ``cfg.remat == "layer"``
+wraps each layer in ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, the reference's ``jax.checkpoint`` of a layer
+group; ``scan_layers`` changes nothing, since the port loops over its
+layers either way. The cross entropy runs in the reference's checkpointed
+sequence chunks, so the (B, S, V) float32 logits never exist at once. On
+the card the attention of a long sequence is the flash-attention kernel,
+whose gradient is the hand-written backward kernel
+(:class:`repro_torch.kernels.flash_attention.FlashAttentionFn`).
+
 Layers of kind 'm', 'M' or 's' (Mamba, mLSTM, sLSTM) and MoE MLPs are not
 ported: :func:`init_params`, :func:`lm_params_from_jax` and
-:func:`init_cache` raise ``NotImplementedError`` for such a config.
-``loss_fn`` and the training forward wait for training (ROADMAP §1, item
-3.1).
+:func:`init_cache` raise ``NotImplementedError`` for such a config, and so
+does :func:`loss_fn` (ROADMAP §1, item 3.2).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (apply_rope, gqa_attention, init_dense, init_norm,
                      mrope_cos_sin, rms_norm, rope_cos_sin, swiglu_mlp)
 
-__all__ = ["init_params", "prefill", "decode_step", "init_cache",
+__all__ = ["init_params", "loss_fn", "prefill", "decode_step", "init_cache",
            "model_dtype", "check_ported"]
+
+MOE_AUX_COEF = 0.01
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -164,6 +178,14 @@ def _mlp_apply(layer, x, cfg: ModelConfig):
     return x + u @ mlp["wd"]
 
 
+def _apply_group_train(layer, x, cos, sin, cfg: ModelConfig):
+    """One layer of the training forward (the reference's group of one 'a'
+    slot): attention, then the MLP. The reference also returns the group's
+    MoE aux loss, which is 0 without experts."""
+    x, _ = _attn_apply(layer, x, cos, sin, cfg)
+    return _mlp_apply(layer, x, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding / rope helpers
 # ---------------------------------------------------------------------------
@@ -188,6 +210,64 @@ def _unembed(cfg: ModelConfig, params, x):
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+def _forward(cfg: ModelConfig, params, batch):
+    """The training forward: embed, every layer (each under
+    ``checkpoint`` when ``cfg.remat == "layer"``), the final norm. Returns
+    (x (B, S, D), aux); aux, the MoE loss, is 0, since no ported layer has
+    experts."""
+    check_ported(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos, sin = _rope_tables(cfg, positions, batch)
+    for layer in params["layers"]:
+        if cfg.remat == "layer":
+            x = checkpoint(_apply_group_train, layer, x, cos, sin, cfg,
+                           use_reentrant=False)
+        else:
+            x = _apply_group_train(layer, x, cos, sin, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), device=x.device)
+
+
+def _chunk_ce(cfg: ModelConfig, params, xc, lc):
+    """Summed cross entropy of one chunk: its logits in float32, their
+    log-sum-exp, less the gold logit."""
+    logits = _unembed(cfg, params, xc).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def loss_fn(cfg: ModelConfig, params, batch
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ MoE aux). batch: ``tokens`` (B, S) or
+    ``embeds`` (B, S, D), ``labels`` (B, S), and for M-RoPE optionally
+    ``positions3`` (3, B, S). Returns (loss, {"ce", "aux"}), float32
+    scalars.
+
+    The CE is computed in 8 chunks along the sequence when ``S % 8 == 0 and
+    S >= 1024`` (else one), each under ``checkpoint``, so that only one
+    chunk's (B, S/8, V) float32 logits exist at a time, recomputed in the
+    backward, as in the reference."""
+    x, aux = _forward(cfg, params, batch)
+    labels = batch["labels"]
+    b, s, _ = x.shape
+    n_chunks = 8 if (s % 8 == 0 and s >= 1024) else 1
+    if n_chunks == 1:
+        total = _chunk_ce(cfg, params, x, labels)
+    else:
+        c = s // n_chunks
+        total = torch.zeros((), device=x.device)
+        for i in range(n_chunks):
+            total = total + checkpoint(
+                _chunk_ce, cfg, params, x[:, i * c:(i + 1) * c],
+                labels[:, i * c:(i + 1) * c], use_reentrant=False)
+    ce = total / (b * s)
+    loss = ce + MOE_AUX_COEF * aux
+    return loss, dict(ce=ce, aux=aux)
 
 
 # ---------------------------------------------------------------------------
