@@ -106,8 +106,9 @@ engine they serve, the training path once per step):
   ``TRAIN_LOSS_ATOL`` of the same model on the plain attention and within
   ``LOSS0_BAND`` of ln V + σ²/2, the last loss below the first; step wall
   ms, tokens/s and peak memory printed; the attention backward held at
-  the operands step 0 gave it (B 4, the model's strided views), one batch
-  element at a time against the plain gradients; one step profiled
+  the operands step 0 gave it (B 4, the model's strided views, the
+  forward's saved log-sum-exp and output remainder), one batch element at
+  a time against the plain gradients; one step profiled
   (attention forward and backward, matrix products, optimizer, idle
   share); then the
   trainer's checkpoint/restart at full width and 2 layers (checkpoints
@@ -153,10 +154,14 @@ on the served batch, ``row_stats`` also on seeded batches (B = 1, N = 2^17
 sleep kernels, since the profiler loses a window's start), ``flash_attention`` at qwen3-1.7b's and llama3.2-1b's
 attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
-spills), ``flash_attention_bwd`` against ``torch.autograd.grad`` through
+spills), the forward's training statistics (log-sum-exp, output
+remainder) against the plain forward's at llama3.2-1b's and qwen3-1.7b's
+training shapes (B 4, S 4,096), ``flash_attention_bwd`` against
+``torch.autograd.grad`` through
 the plain attention also on seeded inputs at llama3.2-1b's and
-qwen3-1.7b's shapes (B 1, S 4,096), a ragged S, rep 1, D 32 and 16 and
-float32 (each twice for
+qwen3-1.7b's shapes (B 1, S 4,096), a ragged S, rep 1 (the wgmma kernels
+of ``csrc/flash_attention_bwd_sm90.cu``), D 32 and 16 and
+float32 (the first design; each twice for
 the same bits; the kernels' registers, shared memory and spills first)
 and times kernel,
 plain version and, where one exists, the PyTorch library call computing
@@ -239,6 +244,13 @@ ATTN_TOL = {"bfloat16": dict(rtol=2 ** -7, atol=1e-4, rnorm=2e-3),
 #: products, a relative error of ~2^-9 a term, and the result to bf16
 #: (2^-9); f32: the same function summed in other orders
 ATTN_BWD_RTOL = {"bfloat16": 1e-2, "float32": 1e-4}
+#: the forward's training statistics vs the plain forward's (float32 scores,
+#: torch.logsumexp): the log-sum-exp within 1e-4 absolute (the kernel sums
+#: ex2.approx terms of the same scores in another order, ~1e-6 relative to
+#: a log-sum-exp near 10), and the output plus its bf16 remainder within
+#: 1e-4 of the largest float32 output (16 significant bits, 2^-17, plus
+#: P's split into two bf16 parts, ~1e-5)
+ATTN_STATS_TOL = {"lse": 1e-4, "out": 1e-4}
 #: the served model and its traffic: 4 requests of 4,096 prompt tokens (the
 #: chunked attention branch starts above 2,048), then 16 decode steps; a
 #: prompt of 64 takes the plain branch
@@ -327,7 +339,10 @@ SOURCE = {
     "tri_inv_tile": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "matmul_nt": "src/repro_torch/kernels/csrc/tile_kernels.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    # bf16 at D 64 / 128, the training path; float32 and D 16 / 32 run the
+    # first design, csrc/flash_attention_bwd.cu
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
 }
 #: the kernels each path must launch
 SOLVE_KERNELS = ("frontal_factor_batch", "extend_add_batch",
@@ -2407,6 +2422,56 @@ def attention_checks(dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def attention_stats_checks(dev) -> None:
+    """The forward's training statistics (``flash_attention(...,
+    stats=True)``: the rows' log-sum-exp and the output's bf16 remainder)
+    against the plain forward's, at the training shapes of llama3.2-1b (B 4,
+    Hq 32, Hkv 8, S 4,096, D 64) and qwen3-1.7b (Hq 16, D 128) on seeded
+    inputs, one batch element of the plain version at a time, within
+    ATTN_STATS_TOL; the output is the one the call without statistics
+    gives, bit for bit, and every stored row is finite."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for tag, hq, hkv, d in (("llama3.2-1b", 32, 8, 64),
+                            ("qwen3-1.7b", 16, 8, 128)):
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
+                               ).bfloat16() for h in (hq, hkv, hkv))
+        o, lse, o_lo = flash_attention(q, k, v, causal=True, stats=True)
+        same = torch.equal(o, flash_attention(q, k, v, causal=True))
+        rows = lse.as_strided((b, hq, lse.stride(1)), lse.stride())
+        lse_err = out_err = out_scale = 0.0
+        for i in range(b):
+            po, plse, plo = flash_attention_plain(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True, stats=True)
+            lse_err = max(lse_err, float((lse[i:i + 1] - plse).abs().max()))
+            want = po.float() + plo.float()
+            out_err = max(out_err, float(
+                (o[i:i + 1].float() + o_lo[i:i + 1].float() - want)
+                .abs().max()))
+            out_scale = max(out_scale, float(want.abs().max()))
+            del po, plse, plo, want
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(rows).all())
+        log(f"flash_attention stats {tag} B={b} Hq={hq} Hkv={hkv} S={s} "
+            f"D={d}: lse max abs err {lse_err:.3e} (limit "
+            f"{ATTN_STATS_TOL['lse']}); out + out_lo max abs err "
+            f"{out_err:.3e} of the largest {out_scale:.3e} (limit "
+            f"{ATTN_STATS_TOL['out']} of it); the output without statistics "
+            f"{'the same bits' if same else 'DIFFERS'}; the {rows.shape[2]} "
+            f"stored rows a head {'finite' if finite else 'NOT finite'}")
+        if not (same and finite and lse_err <= ATTN_STATS_TOL["lse"]
+                and out_err <= ATTN_STATS_TOL["out"] * out_scale):
+            raise AssertionError(f"flash_attention stats {tag}: failed the "
+                                 f"hold above")
+        del q, k, v, o, lse, o_lo, rows
+        torch.cuda.empty_cache()
+
+
 def attention_bwd_checks(dev, out: dict) -> None:
     """flash_attention_bwd against the gradients of its plain version
     (``torch.autograd.grad`` through ``flash_attention_plain``) on the same
@@ -2424,18 +2489,32 @@ def attention_bwd_checks(dev, out: dict) -> None:
 
     from repro_torch.kernels._build import load_kernels
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        uses_stats)
 
     ops = load_kernels()
-    for d in (16, 32, 64, 128):
-        for is_bf16 in (True, False):
-            i = ops.flash_attention_bwd_info(d, is_bf16)
-            log(f"flash_attention_bwd {'bf16 mma.sync' if is_bf16 else 'f32'}"
-                f" D={d}: dQ kernel {i[0]} registers, {i[1]} bytes of shared "
-                f"memory, {i[2]} bytes of local memory (spills) a thread, "
-                f"{i[3]} threads; dK/dV kernel {i[4]} registers, {i[5]} "
-                f"bytes of shared memory, {i[6]} bytes spilled, {i[7]} "
-                f"threads")
+    for d in (64, 128):
+        i = ops.flash_attention_bwd_sm90_info(d)
+        log(f"flash_attention_bwd bf16 wgmma D={d} (the training path's "
+            f"design): dQ kernel {i[0]} registers (before setmaxnreg), "
+            f"{i[1]} bytes of shared memory, {i[2]} bytes of local memory "
+            f"(spills) a thread, {i[3]} ring stages; dK/dV kernel {i[4]} "
+            f"registers, {i[5]} bytes of shared memory, {i[6]} bytes "
+            f"spilled, {i[7]} ring stages; 384 threads each")
+    for d in (16, 32):
+        i = ops.flash_attention_bwd_info(d, True)
+        log(f"flash_attention_bwd bf16 mma.sync D={d}: dQ kernel {i[0]} "
+            f"registers, {i[1]} bytes of shared memory, {i[2]} bytes of "
+            f"local memory (spills) a thread, {i[3]} threads; dK/dV kernel "
+            f"{i[4]} registers, {i[5]} bytes of shared memory, {i[6]} "
+            f"bytes spilled, {i[7]} threads")
+    for d in (64, 128):
+        i = ops.flash_attention_bwd_info(d, False)
+        log(f"flash_attention_bwd f32 D={d}: dQ kernel {i[0]} registers, "
+            f"{i[1]} bytes of shared memory, {i[2]} bytes spilled, {i[3]} "
+            f"threads; dK/dV kernel {i[4]} registers, {i[5]} bytes of "
+            f"shared memory, {i[6]} bytes spilled, {i[7]} threads")
+    attention_stats_checks(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = (("llama3.2-1b", 32, 8, 64, 4096, bf16),
@@ -2450,9 +2529,15 @@ def attention_bwd_checks(dev, out: dict) -> None:
         b = 1
         q, k, v, dout = (torch.randn((b, h, s, d), generator=gen, device=dev
                                      ).to(dtype) for h in (hq, hkv, hkv, hq))
-        o = flash_attention(q, k, v, causal=True)
-        got = flash_attention_bwd(q, k, v, o, dout)
-        again = flash_attention_bwd(q, k, v, o, dout)
+        # the forward's statistics where the backward runs from them
+        stats = {}
+        if uses_stats(q):
+            o, stats["lse"], stats["out_lo"] = flash_attention(
+                q, k, v, causal=True, stats=True)
+        else:
+            o = flash_attention(q, k, v, causal=True)
+        got = flash_attention_bwd(q, k, v, o, dout, **stats)
+        again = flash_attention_bwd(q, k, v, o, dout, **stats)
         want = flash_attention_bwd_plain(q, k, v, dout)
         torch.cuda.synchronize()
         tol = ATTN_BWD_RTOL[str(dtype).split(".")[1]]
@@ -2473,7 +2558,8 @@ def attention_bwd_checks(dev, out: dict) -> None:
             rels.append(err / scale)
         del got, again, want
         torch.cuda.empty_cache()
-        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout))
+        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout,
+                                                   **stats))
         pms = stream_ms(lambda: flash_attention_bwd_plain(q, k, v, dout))
         qq = q.detach().requires_grad_(True)
         kr, vr = (t.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
@@ -2494,9 +2580,10 @@ def attention_bwd_checks(dev, out: dict) -> None:
             f"{rels[0]:.3e} / {rels[1]:.3e} / {rels[2]:.3e} (limit {tol}); "
             f"the same bits twice")
         record(out, "flash_attention_bwd", f"{tag} B={b} Hq={hq} Hkv={hkv} "
-               f"S={s} D={d} {str(dtype).split('.')[1]} causal", max(errs),
+               f"S={s} D={d} {str(dtype).split('.')[1]} causal, "
+               f"{'wgmma' if stats else 'first design'}", max(errs),
                ms, pms, lms, flops, nbytes, peak, False)
-        del q, k, v, dout, o
+        del q, k, v, dout, o, stats
         torch.cuda.empty_cache()
 
 
@@ -2733,6 +2820,9 @@ def _train_step_profile(trainer, params, opt, batch, step: int,
         if re.search(r"flash_(wgmma|mma|simt)", name):
             key = "attention_fwd"
         elif re.search(r"bwd_(dq|dkdv)_", name):
+            # both designs: bwd_{dq,dkdv}_wgmma_kernel (the dQ kernel forms
+            # the rows' D itself: no pre-pass, no convert pass) and the
+            # first design's bwd_{dq,dkdv}_{mma,simt}_kernel
             key = "attention_bwd"
         elif re.search(r"gemm|xmma|cutlass|nvjet|wgmma|Kernel2", name):
             key = "matmul"
@@ -2763,9 +2853,10 @@ def capture_attention_bwd():
     the first that the backward reaches) as the training step passes
     them. The patched backward does what the real one does (a checkpointed
     layer's saved tensors unpack once, so it cannot call the real one after
-    reading them): one ``flash_attention_bwd`` call, launched and counted
-    as unpatched. Returns the dict it fills and a function that undoes the
-    patch."""
+    reading them): one ``flash_attention_bwd`` call from the saved
+    tensors (the forward's statistics among them, where the forward stored
+    them), launched and counted as unpatched. Returns the dict it fills and
+    a function that undoes the patch."""
     import importlib
 
     # the module: the package's attribute of that name is the function
@@ -2774,14 +2865,15 @@ def capture_attention_bwd():
     cap = {}
 
     def backward(ctx, dout):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, *st = ctx.saved_tensors
+        stats = dict(zip(("lse", "out_lo"), st))
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, dout,
-                                            causal=ctx.causal)
+                                            causal=ctx.causal, **stats)
         if not cap:
             # clone() keeps a dense tensor's strides, so the layouts stay
-            cap.update(q=q, k=k, v=v, o=o, dout=dout.clone(),
+            cap.update(q=q, k=k, v=v, o=o, dout=dout.clone(), stats=stats,
                        grads=[g.clone() for g in (dq, dk, dv)])
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
     fa.FlashAttentionFn.backward = staticmethod(backward)
 
@@ -2838,6 +2930,10 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         flash_attention_bwd, flash_attention_bwd_plain, operand_error)
 
     q, k, v, o, dout = (cap[n] for n in ("q", "k", "v", "o", "dout"))
+    stats = cap["stats"]
+    if not stats:
+        raise AssertionError("flash_attention_bwd training step: the "
+                             "forward saved no statistics")
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     names = ("dq", "dk", "dv")
@@ -2846,7 +2942,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         f"{'' if t.is_contiguous() else ' (a view)'}"
         f"{'' if operand_error(t) is None else ' (copied: ' + operand_error(t) + ')'}"
         for n, t in (("q", q), ("k", k), ("v", v), ("out", o), ("dO", dout)))
-    again = flash_attention_bwd(q, k, v, o, dout)
+    again = flash_attention_bwd(q, k, v, o, dout, **stats)
     for name, g, a in zip(names, cap["grads"], again):
         same_bits("flash_attention_bwd", f"training step {name}", g, a)
     del again
@@ -2854,7 +2950,9 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
     errs, fails, rows = [0.0] * 3, [], []
     for i in range(b):
         one = [t[i:i + 1] for t in (q, k, v, o, dout)]
-        for name, g, a in zip(names, cap["grads"], flash_attention_bwd(*one)):
+        one_stats = {n: t[i:i + 1] for n, t in stats.items()}
+        for name, g, a in zip(names, cap["grads"],
+                              flash_attention_bwd(*one, **one_stats)):
             same_bits("flash_attention_bwd", f"training step b={i} alone "
                       f"{name}", g[i:i + 1], a)
         want = flash_attention_bwd_plain(*one[:3], one[4])
@@ -2883,6 +2981,8 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         del want, emul, one
     torch.cuda.empty_cache()
     log(f"flash_attention_bwd training step (the last layer): {layouts}; "
+        f"from the forward's saved statistics (lse "
+        f"{tuple(stats['lse'].shape)}, out_lo); "
         f"the same bits on a rerun and on each batch element alone; max abs "
         f"err dq/dk/dv {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}; "
         f"relative to each element's largest plain gradient: "
@@ -2890,7 +2990,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
     if fails:
         raise AssertionError(f"flash_attention_bwd training step: "
                              f"{'; '.join(fails)} exceed rel tol {tol}")
-    ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout))
+    ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout, **stats))
     pms = stream_ms(lambda: [flash_attention_bwd_plain(
         q[i:i + 1], k[i:i + 1], v[i:i + 1], dout[i:i + 1]) for i in range(b)])
     qq = q.detach().requires_grad_(True)

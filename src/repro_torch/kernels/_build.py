@@ -26,7 +26,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kerne
 SOURCES = ("bindings.cpp", "frontal_factor.cu", "extend_add.cu",
            "tri_solve.cu", "spmv_bell.cu", "csr_stats.cu", "tile_kernels.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "flash_attention_bwd.cu")
+           "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu")
 
 
 _BUILD_LOCK = threading.Lock()

@@ -423,13 +423,22 @@ void check_attention_operand(const at::Tensor& t, const at::Tensor& like,
   TORCH_CHECK(t.stride(3) == 1, name, " must have unit stride along D");
 }
 
-void flash_attention(const at::Tensor& q, const at::Tensor& k,
-                     const at::Tensor& v, at::Tensor& o, bool causal,
-                     double sm_scale, int64_t kv_len) {
+void attention_strides(const at::Tensor& t, long long& sb, long long& sh,
+                       long long& ss) {
+  sb = t.stride(0);
+  sh = t.stride(1);
+  ss = t.stride(2);
+}
+
+// The forward's checks and parameters: q, k, v, o as flash_attention takes
+// them (training's statistics left out).
+FlashParams attention_params(const at::Tensor& q, const at::Tensor& k,
+                             const at::Tensor& v, const at::Tensor& o,
+                             bool causal, double sm_scale, int64_t kv_len) {
   const auto type = q.scalar_type();
   TORCH_CHECK(type == at::kFloat || type == at::kBFloat16,
               "q must be float32 or bfloat16, got ", type);
-  for (const at::Tensor* t : {&q, &k, &v, static_cast<const at::Tensor*>(&o)})
+  for (const at::Tensor* t : {&q, &k, &v, &o})
     check_attention_operand(*t, q, "q/k/v/o");
   const int64_t B = q.size(0), Hq = q.size(1), Sq = q.size(2), D = q.size(3);
   const int64_t Hkv = k.size(1), Skv = k.size(2);
@@ -440,7 +449,6 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k,
   TORCH_CHECK(Hkv > 0 && Hq % Hkv == 0, "Hq must be a multiple of Hkv");
   TORCH_CHECK(o.sizes() == q.sizes(), "o must have q's shape");
   TORCH_CHECK(B <= 65535 && Hq <= 65535, "too many batches or heads");
-  if (B == 0 || Hq == 0 || Sq == 0) return;
   FlashParams p{};
   p.q = q.data_ptr();
   p.k = k.data_ptr();
@@ -455,19 +463,64 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k,
   p.kv_end = kv_len < 0 ? p.Skv : static_cast<int>(std::min(kv_len, Skv));
   p.causal = causal;
   p.scale = static_cast<float>(sm_scale);
-  const auto strides = [](const at::Tensor& t, long long& sb, long long& sh,
-                          long long& ss) {
-    sb = t.stride(0);
-    sh = t.stride(1);
-    ss = t.stride(2);
-  };
-  strides(q, p.q_sb, p.q_sh, p.q_ss);
-  strides(k, p.k_sb, p.k_sh, p.k_ss);
-  strides(v, p.v_sb, p.v_sh, p.v_ss);
-  strides(o, p.o_sb, p.o_sh, p.o_ss);
+  attention_strides(q, p.q_sb, p.q_sh, p.q_ss);
+  attention_strides(k, p.k_sb, p.k_sh, p.k_ss);
+  attention_strides(v, p.v_sb, p.v_sh, p.v_ss);
+  attention_strides(o, p.o_sb, p.o_sh, p.o_ss);
+  return p;
+}
+
+void flash_attention(const at::Tensor& q, const at::Tensor& k,
+                     const at::Tensor& v, at::Tensor& o, bool causal,
+                     double sm_scale, int64_t kv_len) {
+  const FlashParams p = attention_params(q, k, v, o, causal, sm_scale, kv_len);
+  if (p.B == 0 || p.Hq == 0 || p.Sq == 0) return;
   const c10::cuda::CUDAGuard guard(q.device());
   const char* err = launch_flash_attention(
-      p, type == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+      p, q.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == nullptr, err);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Training's row statistics beside a (B, Hq, S, D) bf16 operand: a float32
+// (B, Hq, ld) contiguous tensor on its device, ld a multiple of 128 of at
+// least S (flash_attention.py `lse_rows`), on 16-byte aligned storage.
+int64_t check_stats_rows(const at::Tensor& lse, const at::Tensor& q,
+                         const char* name) {
+  check_cuda(lse, at::kFloat, name);
+  TORCH_CHECK(lse.device() == q.device(), name, " is on another device");
+  TORCH_CHECK(lse.dim() == 3 && lse.size(0) == q.size(0) &&
+                  lse.size(1) == q.size(1) && lse.is_contiguous(),
+              name, " must be a contiguous (B, Hq, ld) float32 tensor");
+  const int64_t ld = lse.size(2);
+  TORCH_CHECK(ld % 128 == 0 && ld >= q.size(2), name, "'s rows of ", ld,
+              " must be a multiple of 128 of at least S = ", q.size(2));
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(lse.data_ptr()) % 16 == 0, name,
+              " must start on a 16-byte boundary");
+  return ld;
+}
+
+// The forward that also stores training's statistics (the bf16 wgmma
+// kernel at D = 64 or 128): o_lo, the output's bf16 remainder, shaped as
+// o; lse, the rows' log-sum-exp (check_stats_rows).
+void flash_attention_stats(const at::Tensor& q, const at::Tensor& k,
+                           const at::Tensor& v, at::Tensor& o, at::Tensor& o_lo,
+                           at::Tensor& lse, bool causal, double sm_scale,
+                           int64_t kv_len) {
+  FlashParams p = attention_params(q, k, v, o, causal, sm_scale, kv_len);
+  TORCH_CHECK(q.scalar_type() == at::kBFloat16 && (p.D == 64 || p.D == 128),
+              "the forward stores its statistics for bfloat16 at D = 64 or "
+              "128 only");
+  check_attention_operand(o_lo, q, "o_lo");
+  TORCH_CHECK(o_lo.sizes() == q.sizes(), "o_lo must have q's shape");
+  p.lse_ld = check_stats_rows(lse, q, "lse");
+  if (p.B == 0 || p.Hq == 0 || p.Sq == 0) return;
+  p.o_lo = o_lo.data_ptr();
+  p.lse = lse.data_ptr<float>();
+  attention_strides(o_lo, p.olo_sb, p.olo_sh, p.olo_ss);
+  const c10::cuda::CUDAGuard guard(q.device());
+  const char* err =
+      launch_flash_wgmma(p, c10::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == nullptr, err);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -481,22 +534,19 @@ std::vector<int64_t> flash_attention_info(int64_t d) {
   return {info[0], info[1], info[2], info[3]};
 }
 
-// dQ, dK, dV of the causal flash attention from dout (flash_attention_bwd.cu):
-// q, o, dout, dq (B, Hq, S, D); k, v, dk, dv (B, Hkv, S, D). The float32
-// (B, Hq, S) scratch of row log-sum-exps and D = sum_j P_ij dP_ij is allocated
-// here. The wrapper (flash_attention.py `flash_attention_bwd`) refuses
-// anything but causal attention with as many keys as queries before this.
-void flash_attention_bwd(const at::Tensor& q, const at::Tensor& k,
-                         const at::Tensor& v, const at::Tensor& o,
-                         const at::Tensor& dout, at::Tensor& dq,
-                         at::Tensor& dk, at::Tensor& dv, double sm_scale) {
+// The backward's checks and parameters: q, o, dout, dq (B, Hq, S, D); k, v,
+// dk, dv (B, Hkv, S, D). The wrapper (flash_attention.py
+// `flash_attention_bwd`) refuses anything but causal attention with as
+// many keys as queries before this.
+FlashBwdParams bwd_params(const at::Tensor& q, const at::Tensor& k,
+                          const at::Tensor& v, const at::Tensor& o,
+                          const at::Tensor& dout, const at::Tensor& dq,
+                          const at::Tensor& dk, const at::Tensor& dv,
+                          double sm_scale) {
   const auto type = q.scalar_type();
   TORCH_CHECK(type == at::kFloat || type == at::kBFloat16,
               "q must be float32 or bfloat16, got ", type);
-  for (const at::Tensor* t : {&q, &k, &v, &o, &dout,
-                              static_cast<const at::Tensor*>(&dq),
-                              static_cast<const at::Tensor*>(&dk),
-                              static_cast<const at::Tensor*>(&dv)})
+  for (const at::Tensor* t : {&q, &k, &v, &o, &dout, &dq, &dk, &dv})
     check_attention_operand(*t, q, "q/k/v/o/dout/dq/dk/dv");
   const int64_t B = q.size(0), Hq = q.size(1), S = q.size(2), D = q.size(3);
   const int64_t Hkv = k.size(1);
@@ -512,9 +562,6 @@ void flash_attention_bwd(const at::Tensor& q, const at::Tensor& k,
   TORCH_CHECK(dk.sizes() == k.sizes() && dv.sizes() == k.sizes(),
               "dk and dv must have k's shape");
   TORCH_CHECK(B <= 65535 && Hq <= 65535, "too many batches or heads");
-  if (B == 0 || Hq == 0 || S == 0) return;
-  const c10::cuda::CUDAGuard guard(q.device());
-  at::Tensor stats = q.new_empty({2, B, Hq, S}, q.options().dtype(at::kFloat));
   FlashBwdParams p{};
   p.q = q.data_ptr();
   p.k = k.data_ptr();
@@ -524,40 +571,92 @@ void flash_attention_bwd(const at::Tensor& q, const at::Tensor& k,
   p.dq = dq.data_ptr();
   p.dk = dk.data_ptr();
   p.dv = dv.data_ptr();
-  p.lse = stats.data_ptr<float>();
-  p.delta = p.lse + B * Hq * S;
   p.B = static_cast<int>(B);
   p.Hq = static_cast<int>(Hq);
   p.Hkv = static_cast<int>(Hkv);
   p.S = as_int(S, "S");
   p.D = static_cast<int>(D);
   p.scale = static_cast<float>(sm_scale);
-  const auto strides = [](const at::Tensor& t, long long& sb, long long& sh,
-                          long long& ss) {
-    sb = t.stride(0);
-    sh = t.stride(1);
-    ss = t.stride(2);
-  };
-  strides(q, p.q_sb, p.q_sh, p.q_ss);
-  strides(k, p.k_sb, p.k_sh, p.k_ss);
-  strides(v, p.v_sb, p.v_sh, p.v_ss);
-  strides(o, p.o_sb, p.o_sh, p.o_ss);
-  strides(dout, p.do_sb, p.do_sh, p.do_ss);
-  strides(dq, p.dq_sb, p.dq_sh, p.dq_ss);
-  strides(dk, p.dk_sb, p.dk_sh, p.dk_ss);
-  strides(dv, p.dv_sb, p.dv_sh, p.dv_ss);
-  launch_flash_attention_bwd(p, type == at::kBFloat16,
+  attention_strides(q, p.q_sb, p.q_sh, p.q_ss);
+  attention_strides(k, p.k_sb, p.k_sh, p.k_ss);
+  attention_strides(v, p.v_sb, p.v_sh, p.v_ss);
+  attention_strides(o, p.o_sb, p.o_sh, p.o_ss);
+  attention_strides(dout, p.do_sb, p.do_sh, p.do_ss);
+  attention_strides(dq, p.dq_sb, p.dq_sh, p.dq_ss);
+  attention_strides(dk, p.dk_sb, p.dk_sh, p.dk_ss);
+  attention_strides(dv, p.dv_sb, p.dv_sh, p.dv_ss);
+  return p;
+}
+
+// The first design (flash_attention_bwd.cu): rebuilds the row statistics
+// itself, in the float32 (2, B, Hq, S) scratch allocated here.
+void flash_attention_bwd(const at::Tensor& q, const at::Tensor& k,
+                         const at::Tensor& v, const at::Tensor& o,
+                         const at::Tensor& dout, at::Tensor& dq,
+                         at::Tensor& dk, at::Tensor& dv, double sm_scale) {
+  FlashBwdParams p = bwd_params(q, k, v, o, dout, dq, dk, dv, sm_scale);
+  TORCH_CHECK(q.scalar_type() == at::kFloat || p.D <= 32,
+              "bfloat16 at D = 64 and 128 runs from the forward's statistics "
+              "(flash_attention_bwd_sm90)");
+  if (p.B == 0 || p.Hq == 0 || p.S == 0) return;
+  const c10::cuda::CUDAGuard guard(q.device());
+  at::Tensor stats =
+      q.new_empty({2, p.B, p.Hq, p.S}, q.options().dtype(at::kFloat));
+  p.lse = stats.data_ptr<float>();
+  p.delta = p.lse + static_cast<int64_t>(p.B) * p.Hq * p.S;
+  p.lse_ld = p.S;
+  launch_flash_attention_bwd(p, q.scalar_type() == at::kBFloat16,
                              c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// The two backward kernels' resources at head dim d, for the bf16 (mma.sync)
-// or the float32 kernels: flash_attention_bwd_info in kernels.h.
+// The Hopper design (flash_attention_bwd_sm90.cu), bf16 at D = 64 or 128,
+// from the forward's statistics: lse (check_stats_rows) and o_lo, the
+// output's bf16 remainder; the rows' D go through a float32 scratch of
+// lse's shape allocated here.
+void flash_attention_bwd_sm90(const at::Tensor& q, const at::Tensor& k,
+                              const at::Tensor& v, const at::Tensor& o,
+                              const at::Tensor& o_lo, const at::Tensor& dout,
+                              const at::Tensor& lse, at::Tensor& dq,
+                              at::Tensor& dk, at::Tensor& dv,
+                              double sm_scale) {
+  FlashBwdParams p = bwd_params(q, k, v, o, dout, dq, dk, dv, sm_scale);
+  TORCH_CHECK(q.scalar_type() == at::kBFloat16 && (p.D == 64 || p.D == 128),
+              "the Hopper backward takes bfloat16 at D = 64 or 128 only");
+  check_attention_operand(o_lo, q, "o_lo");
+  TORCH_CHECK(o_lo.sizes() == q.sizes(), "o_lo must have q's shape");
+  p.lse_ld = check_stats_rows(lse, q, "lse");
+  if (p.B == 0 || p.Hq == 0 || p.S == 0) return;
+  const c10::cuda::CUDAGuard guard(q.device());
+  at::Tensor delta = lse.new_empty(lse.sizes());
+  p.o_lo = o_lo.data_ptr();
+  p.lse = const_cast<float*>(lse.data_ptr<float>());
+  p.delta = delta.data_ptr<float>();
+  attention_strides(o_lo, p.olo_sb, p.olo_sh, p.olo_ss);
+  const char* err =
+      launch_flash_bwd_wgmma(p, c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == nullptr, err);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// The first design's two kernels' resources at head dim d, for the bf16
+// (mma.sync, d = 16 or 32) or the float32 kernels: flash_attention_bwd_info
+// in kernels.h.
 std::vector<int64_t> flash_attention_bwd_info_op(int64_t d, bool bf16) {
-  TORCH_CHECK(d == 16 || d == 32 || d == 64 || d == 128,
-              "head dim must be 16, 32, 64 or 128, got ", d);
+  TORCH_CHECK(d == 16 || d == 32 || (!bf16 && (d == 64 || d == 128)),
+              "the first design takes bf16 at D = 16 or 32 and float32 at "
+              "16, 32, 64 or 128, got D = ", d);
   int info[8];
   flash_attention_bwd_info(static_cast<int>(d), bf16, info);
+  return std::vector<int64_t>(info, info + 8);
+}
+
+// The Hopper design's two kernels' resources at d = 64 or 128:
+// flash_bwd_wgmma_info in kernels.h.
+std::vector<int64_t> flash_attention_bwd_sm90_info(int64_t d) {
+  TORCH_CHECK(d == 64 || d == 128, "the Hopper backward takes D = 64 or 128");
+  int info[8];
+  flash_bwd_wgmma_info(static_cast<int>(d), info);
   return std::vector<int64_t>(info, info + 8);
 }
 
@@ -601,12 +700,24 @@ TORCH_LIBRARY(repro_torch, m) {
       &flash_attention);
   m.def("flash_attention_info(int d) -> int[]", &flash_attention_info);
   m.def(
+      "flash_attention_stats(Tensor q, Tensor k, Tensor v, Tensor(a!) o, "
+      "Tensor(b!) o_lo, Tensor(c!) lse, bool causal, float sm_scale, "
+      "int kv_len) -> ()",
+      &flash_attention_stats);
+  m.def(
       "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
       "Tensor dout, Tensor(a!) dq, Tensor(b!) dk, Tensor(c!) dv, "
       "float sm_scale) -> ()",
       &flash_attention_bwd);
   m.def("flash_attention_bwd_info(int d, bool bf16) -> int[]",
         &flash_attention_bwd_info_op);
+  m.def(
+      "flash_attention_bwd_sm90(Tensor q, Tensor k, Tensor v, Tensor o, "
+      "Tensor o_lo, Tensor dout, Tensor lse, Tensor(a!) dq, Tensor(b!) dk, "
+      "Tensor(c!) dv, float sm_scale) -> ()",
+      &flash_attention_bwd_sm90);
+  m.def("flash_attention_bwd_sm90_info(int d) -> int[]",
+        &flash_attention_bwd_sm90_info);
   m.def(
       "row_stats(Tensor row_nnz, Tensor row_valid, Tensor mean, int chunk, "
       "Tensor(a!) mx_part, Tensor(b!) mn_part, Tensor(c!) sq_part, "

@@ -1,7 +1,11 @@
-// Flash attention backward: dQ, dK and dV of the forward's function
-// (flash_attention.cu) from dO, for causal attention over a grouped-query
-// layout with as many keys as queries, q (B, Hq, S, D) and k/v (B, Hkv, S,
-// D), query head h reading key/value head h / (Hq / Hkv).
+// Flash attention backward, the first design: dQ, dK and dV of the
+// forward's function (flash_attention.cu) from dO, for causal attention over
+// a grouped-query layout with as many keys as queries, q (B, Hq, S, D) and
+// k/v (B, Hkv, S, D), query head h reading key/value head h / (Hq / Hkv).
+// It runs float32 and bfloat16 at D = 16 and 32, which no model of the repo
+// trains with; bfloat16 at D = 64 and 128, the training path, runs the
+// Hopper design of flash_attention_bwd_sm90.cu from the forward's stored
+// statistics.
 //
 // Replaces: no Pallas kernel. The reference has no custom_vjp around its
 // attention kernel; its model trains through the XLA twin
@@ -35,7 +39,7 @@
 // (s, dP, dV, dK), against the forward's 4 D: at llama3.2-1b's training shape (S = 4,096, D = 64) it is
 // far above the line between memory and the tensor cores, so the bound is
 // operations. Kernels:
-//   * bfloat16, every head dim (16, 32, 64, 128): mma.sync m16n8k16 with
+//   * bfloat16 at D = 16 and 32: mma.sync m16n8k16 with
 //     bf16 operands and float32 accumulators, four warps of 16 rows (query
 //     rows in (a), key rows in (b)). In (a) Q and dO stay in registers as A
 //     fragments; the K and V tiles are staged in shared memory (rows padded
@@ -721,45 +725,64 @@ void run_simt(const FlashBwdParams& p, cudaStream_t stream) {
 }
 
 template <int D>
-void info_of(bool bf16_kernels, int out[8]) {
+void info_of_mma(int out[8]) {
   cudaFuncAttributes a{}, b{};
-  if (bf16_kernels) {
-    cudaFuncGetAttributes(&a, bwd_dq_mma_kernel<D>);
-    cudaFuncGetAttributes(&b, bwd_dkdv_mma_kernel<D>);
-  } else {
-    cudaFuncGetAttributes(&a, bwd_dq_simt_kernel<D>);
-    cudaFuncGetAttributes(&b, bwd_dkdv_simt_kernel<D>);
-  }
+  cudaFuncGetAttributes(&a, bwd_dq_mma_kernel<D>);
+  cudaFuncGetAttributes(&b, bwd_dkdv_mma_kernel<D>);
   out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.sharedSizeBytes) +
-           static_cast<int>(bf16_kernels ? 0 : dq_simt_smem<D>());
+  out[1] = static_cast<int>(a.sharedSizeBytes);
   out[2] = static_cast<int>(a.localSizeBytes);
-  out[3] = bf16_kernels ? kMmaThreads : kSimtThreads;
+  out[3] = kMmaThreads;
   out[4] = b.numRegs;
-  out[5] = static_cast<int>(bf16_kernels ? dkdv_mma_smem<D>()
-                                         : dkdv_simt_smem<D>());
+  out[5] = static_cast<int>(dkdv_mma_smem<D>());
   out[6] = static_cast<int>(b.localSizeBytes);
-  out[7] = bf16_kernels ? kMmaThreads : kSimtThreads;
+  out[7] = kMmaThreads;
+}
+
+template <int D>
+void info_of_simt(int out[8]) {
+  cudaFuncAttributes a{}, b{};
+  cudaFuncGetAttributes(&a, bwd_dq_simt_kernel<D>);
+  cudaFuncGetAttributes(&b, bwd_dkdv_simt_kernel<D>);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes + dq_simt_smem<D>());
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = kSimtThreads;
+  out[4] = b.numRegs;
+  out[5] = static_cast<int>(dkdv_simt_smem<D>());
+  out[6] = static_cast<int>(b.localSizeBytes);
+  out[7] = kSimtThreads;
 }
 
 }  // namespace
 
 void launch_flash_attention_bwd(const FlashBwdParams& p, bool bf16_kernels,
                                 cudaStream_t stream) {
+  // the binding accepts bf16 at 16 and 32 only, float32 at 16, 32, 64, 128
+  if (bf16_kernels) {
+    if (p.D == 16)
+      run_mma<16>(p, stream);
+    else
+      run_mma<32>(p, stream);
+    return;
+  }
   switch (p.D) {
-    case 16: bf16_kernels ? run_mma<16>(p, stream) : run_simt<16>(p, stream); break;
-    case 32: bf16_kernels ? run_mma<32>(p, stream) : run_simt<32>(p, stream); break;
-    case 64: bf16_kernels ? run_mma<64>(p, stream) : run_simt<64>(p, stream); break;
-    case 128: bf16_kernels ? run_mma<128>(p, stream) : run_simt<128>(p, stream); break;
-    default: break;  // the binding accepts 16, 32, 64 and 128 only
+    case 16: run_simt<16>(p, stream); break;
+    case 32: run_simt<32>(p, stream); break;
+    case 64: run_simt<64>(p, stream); break;
+    default: run_simt<128>(p, stream); break;
   }
 }
 
 void flash_attention_bwd_info(int D, bool bf16_kernels, int out[8]) {
+  if (bf16_kernels) {
+    D == 16 ? info_of_mma<16>(out) : info_of_mma<32>(out);
+    return;
+  }
   switch (D) {
-    case 16: info_of<16>(bf16_kernels, out); break;
-    case 32: info_of<32>(bf16_kernels, out); break;
-    case 64: info_of<64>(bf16_kernels, out); break;
-    default: info_of<128>(bf16_kernels, out); break;
+    case 16: info_of_simt<16>(out); break;
+    case 32: info_of_simt<32>(out); break;
+    case 64: info_of_simt<64>(out); break;
+    default: info_of_simt<128>(out); break;
   }
 }

@@ -57,6 +57,11 @@
 //     diagonal are never loaded. Query tiles run last-first (longest causal
 //     rows first). Ragged Sq and Skv: TMA fills rows past the tensor with
 //     zeros, and the mask drops keys at or past kv_end.
+//   * Training (FlashParams.o_lo set) runs a second instantiation whose
+//     epilogue also writes the output's bf16 remainder and each row's
+//     natural log-sum-exp, which the backward (flash_attention_bwd_sm90.cu)
+//     reads instead of rebuilding the statistics; serving's instantiation
+//     has no such epilogue.
 //   * Operands are read in place through 4-D tensor maps over (D, S, H, B)
 //     built per call from the sizes and strides, so the model's
 //     head-transposed views need no copy; TMA takes strides that are
@@ -69,6 +74,7 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 #include "kernels.h"
 
 namespace {
@@ -76,11 +82,27 @@ namespace {
 using flash::kMinL;
 using flash::kNegInf;
 using flash::split_bf16;
-constexpr float kLog2e = 1.4426950408889634f;
+using sm90::encode_operand;
+using sm90::ex2;
+using sm90::kBox;
+using sm90::kLn2;
+using sm90::kLog2e;
+using sm90::kRow;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::reg_fence;
+using sm90::smem_addr;
+using sm90::sw128_desc;
+using sm90::tma_load;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_rs;
+using sm90::wgmma_ss;
+using sm90::wgmma_wait;
 constexpr int kBM = 128;       // queries a block: two consumer warpgroups
 constexpr int kBN = 128;       // keys a tile
-constexpr int kBox = 64;       // columns of a TMA box: 128 bytes of bf16
-constexpr int kRow = 128;      // bytes of a box row in shared memory
 constexpr int kThreads = 384;  // producer + two consumer warpgroups
 
 template <int D>
@@ -95,202 +117,9 @@ struct Layout {
       kQBytes + 2 * kStages * kTileBytes + 8 * kBars + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA traffic on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box of `map` at coordinates (c0, c1, c2, c3) into shared memory
-// at dst, completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand at shared address addr:
-// lbo the byte stride between 64-column boxes (read for an MN-major
-// operand wider than one box), sbo between groups of 8 rows.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Waits until at most N of this warpgroup's commit groups are in flight
-// (they complete in order).
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x, the MUFU approximation (relative error ~2^-22, far inside a bf16
-// step); results below 2^-126 flush to 0, weights no sum can see.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Pins registers that a wgmma reads or writes asynchronously, so the
-// compiler neither moves their other accesses across the fences nor reuses
-// them while the product is in flight.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x 128, f32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 128), A and
-// B K-major in 128-byte-swizzled shared memory (descriptors da, db)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) B (16 x
-// 128), B MN-major in 128-byte-swizzled shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 fragments in registers) B (16 x
-// 64), B MN-major in 128-byte-swizzled shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
+// Stats: training's statistics in the epilogue (FlashParams: o_lo, lse); a
+// template parameter, so serving runs the kernel without that epilogue.
+template <int D, bool Stats>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -537,71 +366,55 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv0 = 1.f / fmaxf(l0, kMinL), inv1 = 1.f / fmaxf(l1, kMinL);
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                        h * p.o_sh;
+    if constexpr (!Stats) {
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const int col = 8 * i + c2;
-      if (r0 < p.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(o + (long long)r0 * p.o_ss + col) =
-            __floats2bfloat162_rn(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
-      if (r1 < p.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(o + (long long)r1 * p.o_ss + col) =
-            __floats2bfloat162_rn(acc[4 * i + 2] * inv1,
-                                  acc[4 * i + 3] * inv1);
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + c2;
+        if (r0 < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(o + (long long)r0 * p.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+        if (r1 < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(o + (long long)r1 * p.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(acc[4 * i + 2] * inv1,
+                                    acc[4 * i + 3] * inv1);
+      }
+    } else {
+      // training: the output's bf16 remainder beside it, and the rows'
+      // log-sum-exp, natural log: (m + log2 l) ln 2, m in the exponent's
+      // units (scale * log2 e folded in). Every row of the grid's last
+      // tile gets one (rows past Sq saw zero queries), so the backward's
+      // padded reads of the LSE find finite values.
+      __nv_bfloat16* olo = static_cast<__nv_bfloat16*>(p.o_lo) +
+                           b * p.olo_sb + h * p.olo_sh;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + c2;
+        uint32_t hi, lo;
+        if (r0 < p.Sq) {
+          split_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0, hi, lo);
+          *reinterpret_cast<uint32_t*>(o + (long long)r0 * p.o_ss + col) = hi;
+          *reinterpret_cast<uint32_t*>(olo + (long long)r0 * p.olo_ss + col) =
+              lo;
+        }
+        if (r1 < p.Sq) {
+          split_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1, hi, lo);
+          *reinterpret_cast<uint32_t*>(o + (long long)r1 * p.o_ss + col) = hi;
+          *reinterpret_cast<uint32_t*>(olo + (long long)r1 * p.olo_ss + col) =
+              lo;
+        }
+      }
+      if ((lane & 3) == 0) {
+        float* lse = p.lse + ((long long)b * p.Hq + h) * p.lse_ld;
+        lse[r0] = (m0 + log2f(fmaxf(l0, kMinL))) * kLn2;
+        lse[r1] = (m1 + log2f(fmaxf(l1, kMinL))) * kLn2;
+      }
     }
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so the build links
-// no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over a (B, H, S, D) bf16 operand with element strides (sb, sh,
-// ss, 1), seen as (D, S, H, B) innermost first; boxes of 64 columns x rows.
-// A dim of extent 1 never moves, so its stride is replaced by one TMA takes.
-bool encode_operand(CUtensorMap* map, const void* ptr, int B, int H, int S,
-                    int D, long long sb, long long sh, long long ss,
-                    int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  if (S == 1) ss = D;
-  if (H == 1) sh = ss * S;
-  if (B == 1) sb = sh * H;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBox, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D>
+template <int D, bool Stats>
 const char* run_wgmma(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!encode_operand(&tq, p.q, p.B, p.Hq, p.Sq, D, p.q_sb, p.q_sh, p.q_ss,
@@ -614,26 +427,31 @@ const char* run_wgmma(const FlashParams& p, cudaStream_t stream) {
            "takes strides that are multiples of 16 bytes on 16-byte aligned "
            "storage)";
   constexpr int smem = Layout<D>::kSmem;
-  cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+  cudaFuncSetAttribute(flash_wgmma_kernel<D, Stats>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cudaPeekAtLastError() != cudaSuccess) return nullptr;
   const dim3 grid((p.Sq + kBM - 1) / kBM, p.Hq, p.B);
-  flash_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_wgmma_kernel<D, Stats>
+      <<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return nullptr;
 }
 
 }  // namespace
 
 const char* launch_flash_wgmma(const FlashParams& p, cudaStream_t stream) {
-  return p.D == 128 ? run_wgmma<128>(p, stream) : run_wgmma<64>(p, stream);
+  if (p.o_lo != nullptr)
+    return p.D == 128 ? run_wgmma<128, true>(p, stream)
+                      : run_wgmma<64, true>(p, stream);
+  return p.D == 128 ? run_wgmma<128, false>(p, stream)
+                    : run_wgmma<64, false>(p, stream);
 }
 
 void flash_wgmma_info(int D, int out[4]) {
   cudaFuncAttributes a{};
   if (D == 128)
-    cudaFuncGetAttributes(&a, flash_wgmma_kernel<128>);
+    cudaFuncGetAttributes(&a, flash_wgmma_kernel<128, false>);
   else
-    cudaFuncGetAttributes(&a, flash_wgmma_kernel<64>);
+    cudaFuncGetAttributes(&a, flash_wgmma_kernel<64, false>);
   out[0] = a.numRegs;
   out[1] = D == 128 ? Layout<128>::kSmem : Layout<64>::kSmem;
   out[2] = static_cast<int>(a.localSizeBytes);

@@ -1,7 +1,8 @@
 // What the flash-attention sources share (flash_attention.cu,
-// flash_attention_sm90.cu and flash_attention_bwd.cu): the reference's
-// masking and flooring constants, P's split into two bf16 parts, and the
-// mma.sync tile product with its transposed shared-memory fragment load.
+// flash_attention_sm90.cu, flash_attention_bwd.cu and
+// flash_attention_bwd_sm90.cu): the reference's masking and flooring
+// constants, P's split into two bf16 parts, and the mma.sync tile product
+// with its transposed shared-memory fragment load.
 #pragma once
 
 #include <cuda_bf16.h>

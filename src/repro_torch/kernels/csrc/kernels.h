@@ -148,16 +148,25 @@ void matmul_nt_plan(int M, int N, int out[4]);
 // storage: the wrapper's rule, `operand_error` in flash_attention.py). Keys
 // at or past kv_end (<= Skv) are masked; causal masks keys past the query's
 // index.
+//
+// Training's statistics (the bf16 kernel at D = 64 and 128 only): where
+// o_lo is not null, the kernel also writes o_lo, the output's bf16
+// remainder o - bf16(o) (laid out as o, strides olo_*), and lse, the rows'
+// natural log-sum-exp as float32 (B, Hq, lse_ld), row (b, h) at (b Hq + h)
+// lse_ld, with lse_ld >= Sq rounded up to 128: every row of the grid's last
+// query tile is written.
 struct FlashParams {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  void* o_lo;
+  float* lse;
   int B, Hq, Hkv, Sq, Skv, D, kv_end;
   bool causal;
   float scale;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-      o_ss;
+      o_ss, olo_sb, olo_sh, olo_ss, lse_ld;
 };
 
 // Returns nullptr, or the reason it launched nothing (a tensor map that
@@ -178,12 +187,18 @@ void flash_wgmma_info(int D, int out[4]);
 // D), all float32 or all bfloat16, each with a unit stride along D and the
 // given element strides of its batch, head and sequence dims (the forward's
 // layout rule); lse and delta a float32 (B, Hq, S) contiguous scratch that
-// the first launch writes and the second reads.
+// the first launch writes and the second reads (lse_ld = S).
+//
+// flash_attention_bwd_sm90.cu (bf16, D = 64 and 128) reads lse, the
+// forward's log-sum-exp, and o_lo, its output's bf16 remainder (strides
+// olo_*), and writes delta; both float32 (B, Hq, lse_ld), lse_ld a multiple
+// of 128 at least S, on 16-byte aligned storage.
 struct FlashBwdParams {
   const void* q;
   const void* k;
   const void* v;
   const void* o;
+  const void* o_lo;
   const void* dout;
   void* dq;
   void* dk;
@@ -193,16 +208,32 @@ struct FlashBwdParams {
   int B, Hq, Hkv, S, D;
   float scale;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-      o_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,
-      dv_sb, dv_sh, dv_ss;
+      o_ss, olo_sb, olo_sh, olo_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss,
+      dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, lse_ld;
 };
 
 // Two launches: dQ with the row statistics, then dK and dV. `bf16` picks
-// the mma.sync kernels (bfloat16 operands), else the float32 ones.
+// the mma.sync kernels (bfloat16 operands, D = 16 or 32), else the float32
+// ones.
 void launch_flash_attention_bwd(const FlashBwdParams& p, bool bf16,
                                 cudaStream_t stream);
 
 // Registers per thread, shared memory per block (bytes), local memory per
 // thread (bytes: spills) and threads a block of the dQ kernel, then the same
-// four of the dK/dV kernel, at head dim D (16, 32, 64 or 128).
+// four of the dK/dV kernel, at head dim D (bf16: 16 or 32; float32: 16,
+// 32, 64 or 128).
 void flash_attention_bwd_info(int D, bool bf16, int out[8]);
+
+// flash_attention_bwd_sm90.cu: the bf16 backward at D = 64 or 128 from the
+// forward's statistics, two launches: dQ with each row's D = sum dO (o +
+// o_lo) into delta, then dK and dV. Returns nullptr, or the reason it
+// launched nothing (a tensor map that TMA refuses); a refused launch is
+// left for the caller's check.
+const char* launch_flash_bwd_wgmma(const FlashBwdParams& p,
+                                   cudaStream_t stream);
+
+// Registers per thread (as compiled, before setmaxnreg), dynamic shared
+// memory per block (bytes), local memory per thread (bytes: spills) and
+// ring stages of the dQ kernel, then the same four of the dK/dV kernel, at
+// D = 64 or 128.
+void flash_bwd_wgmma_info(int D, int out[8]);

@@ -26,7 +26,7 @@ import torch
 
 from ..device import resolve_device, to_device
 from . import frontal_cholesky as fc
-from .flash_attention import FlashAttentionFn, check_bwd
+from .flash_attention import FlashAttentionFn, check_bwd, uses_stats
 from .spmv_bell import bell_spmv, csr_to_bell
 
 __all__ = ["attention", "pick_block_size", "rhs_tile", "matmul_nt_padded",
@@ -52,11 +52,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`, so a
     gradient through it launches the backward kernel, and a call whose
     gradient that kernel refuses raises ``ValueError`` before the forward
-    launches; under ``torch.no_grad()`` only the forward runs."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    launches; under ``torch.no_grad()`` only the forward runs. Where the
+    gradient runs from the forward's statistics (bfloat16 at D = 64 or
+    128 on the card), the forward stores them when a gradient will be
+    taken, and never when serving."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if grad:
         check_bwd(q, k, causal)
-    return FlashAttentionFn.apply(q, k, v, causal)
+    return FlashAttentionFn.apply(q, k, v, causal, grad and uses_stats(q))
 
 
 def pick_block_size(npiv: int, bs: int | None = None) -> int:

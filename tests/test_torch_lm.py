@@ -156,6 +156,10 @@ def test_the_bf16_kernel_is_the_hopper_design():
     and consumer warpgroups; the dispatcher has no other route for it."""
     from repro_torch.kernels import _build
     sm90 = (_build._CSRC / "flash_attention_sm90.cu").read_text()
+    # its TMA, mbarrier and wgmma helpers live in the header it includes,
+    # which the backward's Hopper kernels share
+    assert '#include "flash_sm90.cuh"' in sm90
+    sm90 += (_build._CSRC / "flash_sm90.cuh").read_text()
     for ptx in ("cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
                 "mbarrier.arrive.expect_tx", "wgmma.mma_async",
                 "setmaxnreg.dec", "setmaxnreg.inc",
