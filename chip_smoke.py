@@ -6,7 +6,7 @@ Run from the root of the repository, on a machine with one CUDA device:
 
 It builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the ten ports of the TPU kernels and the flash-attention backward) and
-drives ten paths, each with the kernels' launch counts zeroed just before
+drives eleven paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve, the training path once per step):
 
@@ -113,7 +113,23 @@ engine they serve, the training path once per step):
   share); then the
   trainer's checkpoint/restart at full width and 2 layers (checkpoints
   every 2 steps, a failure before step 3, ``run_with_restart`` over 4
-  steps) against an uninterrupted run, within one bf16 step.
+  steps) against an uninterrupted run, within one bf16 step;
+* **lm_train_mesh**: the same model, batch, seed and learning rate trained
+  through a mesh: an NCCL process group of one rank (a file store in a
+  temporary directory, destroyed afterwards), a 1 × 1 (data, model)
+  ``DeviceMesh`` and ``Trainer(mesh=..., plan=ExecutionPlan(
+  fsdp_params=True))``, so every collective of the mesh path (the
+  tensor-parallel all-reduces, the FSDP gathers and reduce-scatters, the
+  ZeRO gathers, the data-axis reduction and the norm's sums) runs over
+  NCCL: 3 steps, each loss within ``MESH_LOSS_RTOL`` of the single-device
+  trainer's at that step, 32 / 16 attention launches a step; the two
+  attention kernels held at the operands the mesh path gave them (the
+  forward's output and the backward's gradients, per batch element) and
+  on the column-slice views a model rank gets at model width 2 (slicing
+  only); step ms of both paths, tokens/s, peak memory, the NCCL version,
+  the collective counters of a step and the NCCL kernels' device seconds
+  of one profiled step; then 3 steps with ``grad_compression``, finite and
+  within ``MESH_COMPRESSED_RTOL`` of the uncompressed steps.
 
 Then it holds each kernel against its plain PyTorch version (the solve
 kernels at shapes from the 32³ schedule; ``extend_add_batch`` at the
@@ -179,8 +195,8 @@ device. Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 ``python3 chip_smoke.py --attention`` runs only the lm_serve path and the
 flash_attention checks (a few minutes less), ``python3 chip_smoke.py
---train`` only the lm_train path and the flash_attention_bwd checks, each
-with the same last line.
+--train`` only the lm_train and lm_train_mesh paths and the
+flash_attention_bwd checks, each with the same last line.
 """
 from __future__ import annotations
 
@@ -289,6 +305,21 @@ TRAIN_LOSS_ATOL = 5e-3
 #: dependence on the input (Zipf labels repeat few tokens; a 2-layer cut
 #: of this model read +0.067 on the CPU)
 LOSS0_BAND = 0.25
+
+#: the mesh path: lm_train's model, batch, seed and learning rate over a 1 x
+#: 1 NCCL mesh with FSDP parameters; its losses against the single-device
+#: trainer's (the same float arithmetic, the collectives over one rank
+#: adding nothing: the limit covers the order of a few bf16 sums), then
+#: int8-compressed gradients against the uncompressed steps: three, since
+#: the one warmup step makes step 0's learning rate 0, so that step 2's
+#: loss is the first that a compressed update moves
+MESH_STEPS, MESH_COMPRESSED_STEPS = 3, 3
+MESH_LOSS_RTOL, MESH_COMPRESSED_RTOL = 2e-3, 2e-2
+#: the width of the model axis whose local heads the column-slice check
+#: takes (slicing only, on the one card), and the rank it takes them for
+MESH_SLICE_WIDTH, MESH_SLICE_RANK = 2, 1
+#: lm_train's losses and step walls, which the mesh phase compares against
+TRAIN_RUN: dict = {}
 
 #: a profiled window whose kernels are counted one by one opens on
 #: OPEN_SLEEPS sleep kernels of SLEEP_CYCLES cycles (~5 ms on the H100) and
@@ -2886,7 +2917,18 @@ def attention_bwd_in_kernel_precision(q, k, v, dout):
     """The backward's formulas in plain PyTorch, rounded where the bf16
     kernel rounds: P and dS rounded to bf16 before their products, float32
     sums (D = Σ_j P_ij dP_ij among them), the gradients rounded to bf16.
-    One batch element (B 1), causal, as many keys as queries."""
+    One batch element (B 1), causal, as many keys as queries. Without
+    autograd: the training step's saved operands require gradients, and a
+    graph built through the in-place updates below kept its (Hq, S, S)
+    float32 intermediates alive after the call (about 20 GB at the step's
+    shape)."""
+    import torch
+
+    with torch.no_grad():
+        return _attention_bwd_in_kernel_precision(q, k, v, dout)
+
+
+def _attention_bwd_in_kernel_precision(q, k, v, dout):
     import torch
 
     _, hq, s, d = q.shape
@@ -3064,6 +3106,10 @@ def lm_train_phase(dev, out: dict) -> dict:
             layers.ops.attention = real
 
         losses, gnorms, walls, totals = [], [], [], {}
+        # the steps' own peak, for lm_train_mesh; the phase's line keeps
+        # the peak since the phase began (the plain-attention loss above)
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         for step in range(TRAIN_STEPS):
             batch = batch0 if step == 0 else trainer.data.batch(step)
             torch.cuda.synchronize()
@@ -3109,7 +3155,9 @@ def lm_train_phase(dev, out: dict) -> dict:
             f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; steps 1-"
             f"{TRAIN_STEPS - 1} mean {sum(warm) / len(warm) * 1e3:.1f} ms, "
             f"{tokens * len(warm) / sum(warm):.0f} tokens/s; peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+            f"memory {max(before, torch.cuda.max_memory_allocated()) / 1e9:.3f} GB "
+            f"(the {TRAIN_STEPS} steps alone "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB)")
         if not all(math.isfinite(x) for x in losses + gnorms):
             raise AssertionError(f"lm_train: losses {losses}, grad norms "
                                  f"{gnorms} not all finite")
@@ -3121,6 +3169,8 @@ def lm_train_phase(dev, out: dict) -> dict:
                                  f"{LOSS0_BAND} of {expect}")
         if not losses[-1] < losses[0]:
             raise AssertionError(f"lm_train: the loss did not fall: {losses}")
+        TRAIN_RUN.update(losses=losses, walls=walls,
+                         peak=torch.cuda.max_memory_allocated())
         hold_step_attention_bwd(cap, out)
         del cap
         _train_step_profile(trainer, params, opt,
@@ -3186,6 +3236,231 @@ def lm_train_restart(dev, cfg, shape, tmp: str) -> None:
                              f"uninterrupted one by {worst:.3f} bf16 steps")
 
 
+def hold_mesh_attention(cap: dict) -> None:
+    """Both attention kernels at the operands the mesh path gave them
+    (``capture_attention_bwd`` of its step 0, the last layer): the
+    forward's output against ``flash_attention_plain`` and the step's own
+    gradients against ``flash_attention_bwd_plain``; then on the local
+    heads a rank of a model axis of MESH_SLICE_WIDTH gets (its q heads and
+    the kv heads they read as views of the step's tensors: head slices of q
+    and k, a column slice of v's projection), both kernels against the
+    plain versions. One batch element at a time: the plain versions'
+    float32 scores of all four would take ~35 GB."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain, operand_error)
+
+    tol = ATTN_BWD_RTOL[str(cap["q"].dtype).split(".")[1]]
+
+    def hold(tag, out, grads, q, k, v, dout):
+        fwd, bwd = (0.0, 0.0, 0.0), [0.0, 0.0, 0.0]
+        for i in range(q.shape[0]):
+            one = [t[i:i + 1] for t in (q, k, v)]
+            got = hold_attention(f"{tag} b={i}", out[i:i + 1],
+                                 flash_attention_plain(*one, causal=True))
+            fwd = tuple(max(a, b) for a, b in zip(fwd, got))
+            plain = flash_attention_bwd_plain(*one, dout[i:i + 1])
+            for j, (g, w) in enumerate(zip(grads, plain)):
+                g, w = g[i:i + 1].float(), w.float()
+                rel = float((g - w).abs().max() / w.abs().max())
+                bwd[j] = max(bwd[j], rel)
+                if not (bool(torch.isfinite(g).all()) and rel <= tol):
+                    raise AssertionError(f"flash_attention_bwd {tag} b={i}: "
+                                         f"{rel:.3e} of the largest plain "
+                                         f"gradient > {tol}")
+            del plain
+        torch.cuda.empty_cache()
+        log(f"lm_train_mesh {tag}: flash_attention max abs err {fwd[0]:.3e},"
+            f" ‖Δ‖/‖plain‖ {fwd[1]:.3e} (largest of an element), "
+            f"{fwd[2]:.3f} of the elementwise limit; flash_attention_bwd "
+            f"dq/dk/dv {bwd[0]:.3e} / {bwd[1]:.3e} / {bwd[2]:.3e} of the "
+            f"largest plain gradient (limit {tol})")
+
+    q, k, v, o, dout = (cap[n] for n in ("q", "k", "v", "o", "dout"))
+    hold(f"the step's operands {tuple(q.shape)}", o, cap["grads"], q, k, v,
+         dout)
+    n, r = MESH_SLICE_WIDTH, MESH_SLICE_RANK
+    hq, hkv = q.shape[1] // n, k.shape[1] // n
+    ql, kl, vl, dl = (t[:, r * h:(r + 1) * h] for t, h in (
+        (q, hq), (k, hkv), (v, hkv), (dout, hq)))
+    log(f"lm_train_mesh column-slice views, model width {n}, rank {r} ({hq} "
+        f"q heads, {hkv} kv heads): " + "; ".join(
+            f"{name} strides {tuple(t.stride())} offset {t.storage_offset()}"
+            + ("" if operand_error(t) is None else " (refused)")
+            for name, t in (("q", ql), ("k", kl), ("v", vl))))
+    out, lse, out_lo = flash_attention(ql, kl, vl, causal=True, stats=True)
+    grads = flash_attention_bwd(ql, kl, vl, out, dl, lse=lse, out_lo=out_lo)
+    hold(f"model width {n} rank {r} slice", out, grads, ql, kl, vl, dl)
+
+
+def _mesh_step_profile(trainer, params, opt, batch, step: int) -> None:
+    """Profile one mesh Trainer.step: the device seconds and count of the
+    NCCL kernels, the device busy time and the step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(params, opt, batch, step)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end, nccl, by_name = 0.0, float("-inf"), [0, 0.0], {}
+    for s0, s1, name in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+        if "nccl" in name.lower():
+            nccl[0] += 1
+            nccl[1] += (s1 - s0) / 1e6
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + (s1 - s0) / 1e6
+    log(f"lm_train_mesh profile of one step: wall {wall:.4f} s, device busy "
+        f"{busy / 1e6:.4f} s, {len(spans)} device events; NCCL kernels "
+        f"{nccl[0]}, device s {nccl[1]:.6f}: "
+        + json.dumps({k: round(v, 6) for k, v in by_name.items()}))
+
+
+def lm_train_mesh_phase(dev) -> dict:
+    """lm_train's model, batch, seed and learning rate trained over a 1 x 1
+    NCCL mesh (``Trainer(mesh=..., plan=ExecutionPlan(fsdp_params=True))``):
+    MESH_STEPS steps against lm_train's losses, the attention kernels at
+    the mesh path's operands and on a model rank's column-slice views, one
+    profiled step, then MESH_COMPRESSED_STEPS with gradient compression.
+    Returns the launch counts of the MESH_STEPS steps."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import (collective_counts,
+                                                     reset_collective_counts)
+    from repro_torch.distributed.sharding import ExecutionPlan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    single, single_walls = TRAIN_RUN["losses"], TRAIN_RUN["walls"]
+    tmp = tempfile.mkdtemp(prefix="lm_train_mesh_")
+    init_ranks(0, 1, os.path.join(tmp, "store"), dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        log(f"lm_train_mesh: process group backend {dist.get_backend()}, "
+            f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, {mesh}")
+
+        def trainer(**knobs):
+            return Trainer(cfg, shape, TrainerConfig(
+                ckpt_dir=os.path.join(tmp, "ck"), total_steps=100,
+                warmup_steps=1, log_every=1), AdamWConfig(lr=TRAIN_LR),
+                mesh=mesh, plan=ExecutionPlan(fsdp_params=True, **knobs),
+                device=dev)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        log(f"lm_train_mesh: device memory allocated before the phase "
+            f"{held / 1e9:.3f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        t = trainer()
+        params, opt = t.init_state()
+        losses, walls, totals = [], [], {}
+        want = {"flash_attention": 2 * cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers}
+        for step in range(MESH_STEPS):
+            batch = t.batch(step)
+            torch.cuda.synchronize()
+            if step == 0:
+                cap, undo = capture_attention_bwd()
+            reset_launch_counts()
+            reset_collective_counts()
+            t0 = time.perf_counter()
+            try:
+                params, opt, m = t.step(params, opt, batch, step)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                torch.cuda.synchronize()
+            finally:
+                if step == 0:
+                    undo()
+            walls.append(time.perf_counter() - t0)
+            counts, coll = launch_counts(), collective_counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            losses.append(loss)
+            rel = abs(loss - single[step]) / abs(single[step])
+            log(f"lm_train_mesh step {step}: loss {loss:.6f} (single device "
+                f"{single[step]:.6f}, relative {rel:.3e}, limit "
+                f"{MESH_LOSS_RTOL}), grad norm {gnorm:.6f}, wall "
+                f"{walls[-1] * 1e3:.1f} ms ({tokens / walls[-1]:.0f} "
+                f"tokens/s); flash_attention {counts['flash_attention']}, "
+                f"flash_attention_bwd {counts['flash_attention_bwd']} "
+                f"launches; collectives " + json.dumps(coll))
+            got = {k: counts[k] for k in want}
+            if got != want:
+                raise AssertionError(f"lm_train_mesh step {step}: launches "
+                                     f"{got}, want {want}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)
+                    and rel <= MESH_LOSS_RTOL):
+                raise AssertionError(f"lm_train_mesh step {step}: loss "
+                                     f"{loss} vs single device "
+                                     f"{single[step]}")
+        launched("lm_train_mesh", totals, ("flash_attention",
+                                           "flash_attention_bwd"))
+        warm, swarm = walls[1:], single_walls[1:MESH_STEPS]
+        log(f"lm_train_mesh {MESH_STEPS} steps: step wall ms "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; steps 1-"
+            f"{MESH_STEPS - 1} mean {sum(warm) / len(warm) * 1e3:.1f} ms, "
+            f"{tokens * len(warm) / sum(warm):.0f} tokens/s (single device, "
+            f"the same steps: {sum(swarm) / len(swarm) * 1e3:.1f} ms, "
+            f"{tokens * len(swarm) / sum(swarm):.0f} tokens/s); peak device "
+            f"memory of the phase {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB "
+            f"above the {held / 1e9:.3f} GB held before it, its state's "
+            f"initialization included (single device, its steps alone: "
+            f"{TRAIN_RUN['peak'] / 1e9:.3f} GB)")
+        _mesh_step_profile(t, params, opt, t.batch(MESH_STEPS), MESH_STEPS)
+        del params, opt, t, batch
+        torch.cuda.empty_cache()
+        hold_mesh_attention(cap)
+        del cap
+        torch.cuda.empty_cache()
+
+        tc = trainer(grad_compression=True)
+        params, opt = tc.init_state()
+        closs = []
+        for step in range(MESH_COMPRESSED_STEPS):
+            params, opt, m = tc.step(params, opt, tc.batch(step), step)
+            closs.append(float(m["loss"]))
+        log(f"lm_train_mesh grad_compression {MESH_COMPRESSED_STEPS} steps: "
+            f"losses {', '.join(f'{x:.6f}' for x in closs)} (uncompressed "
+            f"{', '.join(f'{x:.6f}' for x in losses[:len(closs)])}, limit "
+            f"{MESH_COMPRESSED_RTOL} relative)")
+        for x, y in zip(closs, losses):
+            if not (math.isfinite(x) and abs(x - y) <= MESH_COMPRESSED_RTOL
+                    * abs(y)):
+                raise AssertionError(f"lm_train_mesh grad_compression: "
+                                     f"losses {closs} vs {losses}")
+        del params, opt, tc
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    PHASE_S["lm_train_mesh"] = time.perf_counter() - t_phase
+    return totals
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3204,7 +3479,7 @@ def main(argv=None) -> int:
                     help="only the lm_serve path and the flash_attention "
                          "checks (the kernels line then lists that kernel)")
     ap.add_argument("--train", action="store_true",
-                    help="only the lm_train path and the "
+                    help="only the lm_train and lm_train_mesh paths and the "
                          "flash_attention_bwd checks (the kernels line then "
                          "lists that kernel)")
     args = ap.parse_args(argv)
@@ -3243,6 +3518,7 @@ def main(argv=None) -> int:
         names = ("flash_attention_bwd",)
         records = {}
         counts = lm_train_phase(dev, records)
+        lm_train_mesh_phase(dev)
         attention_bwd_checks(dev, records)
     else:
         counts, records = all_paths(dev)
@@ -3297,6 +3573,7 @@ def all_paths(dev) -> tuple:
     train_records = {}
     counts["flash_attention_bwd"] = lm_train_phase(
         dev, train_records)["flash_attention_bwd"]
+    lm_train_mesh_phase(dev)
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)

@@ -1,0 +1,204 @@
+"""Counted collectives over process groups, and the autograd-aware ones
+that the model's mesh path is written with.
+
+The reference lets GSPMD insert its collectives; the port names each one,
+so that they can be counted like the kernels' launches:
+:func:`collective_counts` gives, by kind, the calls and the bytes of the
+buffer each call reduces or gathers (the full tensor: an all-gather's
+output, a reduce-scatter's input), since :func:`reset_collective_counts`.
+
+Over a group, a CUDA tensor runs NCCL and a CPU tensor gloo; any other
+pairing raises, so a mesh on the card never falls back to gloo or the CPU.
+
+The model's three autograd-aware collectives (Megatron's f and g, and
+FSDP's gather):
+
+* :func:`copy_to` — identity forward, all-reduce (sum) backward: the input
+  of a column-parallel product, whose gradient each rank forms only in
+  part.
+* :func:`reduce_from` — all-reduce (sum) forward, identity backward: the
+  output of a row-parallel product, or a sum of per-rank parts.
+* :func:`gather_from` — all-gather along a dimension forward,
+  reduce-scatter (sum) backward: a parameter sharded over data ranks
+  (FSDP), gathered where it is used.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_reduce", "all_gather", "reduce_scatter",
+           "all_reduce_coalesced", "all_gather_coalesced", "copy_to",
+           "reduce_from", "gather_from", "collective_counts",
+           "reset_collective_counts"]
+
+_COUNTS: Dict[str, Dict[str, int]] = {}
+
+
+def collective_counts() -> Dict[str, Dict[str, int]]:
+    """{kind: {"calls", "bytes"}} since the last reset; kinds
+    ``all_reduce_sum``, ``all_reduce_max``, ``all_gather``,
+    ``reduce_scatter``."""
+    return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
+    c["calls"] += 1
+    c["bytes"] += t.numel() * t.element_size()
+
+
+def _check(t: torch.Tensor, group) -> None:
+    backend = dist.get_backend(group)
+    want = "nccl" if t.is_cuda else ("gloo" if t.device.type == "cpu"
+                                     else None)
+    if backend != want:
+        raise RuntimeError(f"a collective over {t.device.type} tensors runs "
+                           f"{want or 'nothing'}; the group runs {backend}")
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (``op``: sum or max); returns
+    ``t``."""
+    _check(t, group)
+    _count(f"all_reduce_{op}", t)
+    dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The shards of ``group``'s ranks concatenated along ``dim`` in rank
+    order. The ranks' shards land stacked on a new leading dimension, which
+    then moves to ``dim``: a view when ``dim`` is 0 or the group has one
+    rank, else one copy of whole shard rows (no transposition)."""
+    _check(t, group)
+    n = dist.get_world_size(group)
+    x = t.contiguous()
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _count("all_gather", out)
+    dist.all_gather_into_tensor(out.flatten(0, 1), x, group=group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``t`` summed over ``group`` and split along ``dim``: this rank's
+    part. The parts are stacked on a new leading dimension first, which
+    copies nothing when ``dim`` is 0 or the group has one rank."""
+    _check(t, group)
+    n = dist.get_world_size(group)
+    shape = list(t.shape)
+    if shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split over {n} ranks")
+    x = t.reshape(shape[:dim] + [n, shape[dim] // n] + shape[dim + 1:]
+                  ).movedim(dim, 0).contiguous()
+    out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    _count("reduce_scatter", x)
+    dist.reduce_scatter_tensor(out, x.flatten(0, 1), group=group)
+    return out
+
+
+#: the largest flat buffer a coalesced collective packs (bytes)
+BUCKET_BYTES = 1 << 27
+
+
+def _buckets(ts):
+    """Runs of consecutive tensors of one dtype holding up to BUCKET_BYTES
+    (a larger tensor is a run of its own), as lists of indices."""
+    runs, size = [], 0
+    for i, t in enumerate(ts):
+        nbytes = t.numel() * t.element_size()
+        if (not runs or t.dtype != ts[runs[-1][-1]].dtype
+                or size + nbytes > BUCKET_BYTES):
+            runs.append([])
+            size = 0
+        runs[-1].append(i)
+        size += nbytes
+    return runs
+
+
+def all_reduce_coalesced(ts, group) -> None:
+    """Sum each tensor of ``ts`` over ``group`` in place, packed into flat
+    buffers (one all-reduce a buffer of up to BUCKET_BYTES)."""
+    for run in _buckets(ts):
+        flat = all_reduce(torch.cat([ts[i].reshape(-1) for i in run]), group)
+        for i, part in zip(run, flat.split([ts[i].numel() for i in run])):
+            ts[i].copy_(part.view_as(ts[i]))
+
+
+def all_gather_coalesced(ts, dims, group) -> list:
+    """``all_gather(ts[i], group, dims[i])`` for every i, packed into flat
+    buffers (one all-gather a buffer of up to BUCKET_BYTES)."""
+    n = dist.get_world_size(group)
+    out = [None] * len(ts)
+    for run in _buckets(ts):
+        flat = all_gather(torch.cat([ts[i].reshape(-1) for i in run]),
+                          group).view(n, -1)
+        off = 0
+        for i in run:
+            t, d = ts[i], dims[i]
+            part = flat[:, off:off + t.numel()].reshape((n,) + tuple(t.shape))
+            shape = list(t.shape)
+            shape[d] *= n
+            out[i] = part.movedim(0, d).reshape(shape)
+            off += t.numel()
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity; the gradient is summed over ``group``."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``; the gradient passes through."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x``'s shards over ``group`` concatenated along ``dim``; the
+    gradient is summed over ``group`` and split back."""
+    return _GatherFrom.apply(x, group, dim)

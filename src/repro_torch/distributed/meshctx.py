@@ -1,15 +1,29 @@
-"""Port of the serving-mesh half of ``repro/distributed/meshctx.py``
-(:88-207): :class:`ServingMesh`, the device layout of the selection-serving
-plane, and the per-shard utilization report that
-``PlanBuilder.select_names`` writes into the metrics registry.
+"""Port of ``repro/distributed/meshctx.py``: the two mesh contexts that
+model and serving code read.
 
-In the reference the padded-CSR featurizer and the forest inference
-shard_map over a 1-D mesh on the request-batch axis. The port serves on one
-card: a :class:`ServingMesh` here is a list of ``torch.device``\\ s,
-:func:`make_serving_mesh` raises for more devices than there are CUDA
-devices (and ``EngineConfig`` refuses ``serving_devices > 1``), and the
-degenerate one-device mesh is what :func:`get_serving_mesh` gives when none
-is installed. The training half (``MeshContext``) is not ported.
+* :class:`MeshContext` (:35), with ``set_mesh_context``,
+  ``get_mesh_context`` and ``mesh_context`` (:58-81): the *training* mesh
+  (a ``torch.distributed.device_mesh.DeviceMesh`` with the reference's
+  axis names), its data axes and its model axis. The reference's model
+  reads it only to keep the MoE dispatch local; the port's model runs on
+  each rank's local shards with explicit collectives, so it reads the
+  context to find its groups and the parameters' layout (``specs``, the
+  layout the trainer gave them: :mod:`repro_torch.distributed.sharding`).
+  With no mesh set (``mesh=None``, the default) every function computes
+  exactly what it computes on one device. The reference's other fields
+  wait for the code that reads them: ``attn_dp_axes`` and
+  ``shard_activation_ckpt`` (set only by ``launch/dryrun.py``, ROADMAP
+  item 3.3) and ``decode_seq_axes`` (sharded decode, item 4).
+* :class:`ServingMesh` (:88-207), the device layout of the
+  selection-serving plane, and the per-shard utilization report that
+  ``PlanBuilder.select_names`` writes into the metrics registry. In the
+  reference the padded-CSR featurizer and the forest inference shard_map
+  over a 1-D mesh on the request-batch axis. The port serves on one card:
+  a :class:`ServingMesh` here is a list of ``torch.device``\\ s,
+  :func:`make_serving_mesh` raises for more devices than there are CUDA
+  devices (and ``EngineConfig`` refuses ``serving_devices > 1``), and the
+  degenerate one-device mesh is what :func:`get_serving_mesh` gives when
+  none is installed.
 """
 from __future__ import annotations
 
@@ -21,8 +35,114 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["ServingMesh", "make_serving_mesh", "set_serving_mesh",
-           "get_serving_mesh", "record_shard_utilization"]
+__all__ = ["MeshContext", "set_mesh_context", "get_mesh_context",
+           "mesh_context", "register_groups", "ServingMesh",
+           "make_serving_mesh", "set_serving_mesh", "get_serving_mesh",
+           "record_shard_utilization"]
+
+
+# ---------------------------------------------------------------------------
+# Training mesh
+# ---------------------------------------------------------------------------
+
+#: id(mesh) → (mesh, {axes: this rank's group over those axes}), filled by
+#: ``repro_torch.launch.mesh.make_mesh``
+_GROUPS: Dict[int, Tuple[object, Dict[Tuple[str, ...], object]]] = {}
+
+
+def register_groups(mesh, groups: Dict[Tuple[str, ...], object]) -> None:
+    """Record this rank's process group over each set of ``mesh``'s axes
+    (keys: axis names in the mesh's order)."""
+    _GROUPS[id(mesh)] = (mesh, dict(groups))
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """The axis names of a spec entry: ``None``, a name, or a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass
+class MeshContext:
+    """The training mesh threaded through model code. ``specs`` is the
+    layout of the parameters the model is given (the trainer's spec tree,
+    laid out like the parameters); ``None`` means every parameter is
+    whole."""
+    mesh: Optional[object]
+    data_axes: Tuple[str, ...] = ("data",)   # ('pod', 'data') multi-pod
+    model_axis: str = "model"
+    specs: Optional[dict] = None
+
+    def _ordered(self, axes) -> Tuple[str, ...]:
+        names = tuple(self.mesh.mesh_dim_names)
+        axes = _axes(axes)
+        unknown = [a for a in axes if a not in names]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not in the mesh {names}")
+        return tuple(a for a in names if a in axes)
+
+    def size(self, axes) -> int:
+        """The number of ranks along ``axes`` (a name or a tuple; 1 for
+        none)."""
+        n = 1
+        for a in self._ordered(axes):
+            n *= self.mesh.size(self.mesh.mesh_dim_names.index(a))
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's coordinate along ``axes``, row-major in the mesh's
+        order (the order a tuple entry of a spec shards in)."""
+        i = 0
+        for a in self._ordered(axes):
+            i = i * self.size(a) + self.mesh.get_local_rank(a)
+        return i
+
+    def group(self, axes):
+        """This rank's process group over ``axes`` (in the mesh's order);
+        raises unless the mesh was made by ``launch.mesh.make_mesh`` or
+        ``axes`` is one axis."""
+        axes = self._ordered(axes)
+        entry = _GROUPS.get(id(self.mesh))
+        if entry is not None and entry[0] is self.mesh:
+            return entry[1][axes]
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        raise ValueError(f"no process group over {axes}: make the mesh with "
+                         f"repro_torch.launch.mesh.make_mesh")
+
+
+_CURRENT = MeshContext(mesh=None)
+
+
+def set_mesh_context(ctx: MeshContext) -> None:
+    global _CURRENT
+    _CURRENT = ctx
+
+
+def get_mesh_context() -> MeshContext:
+    return _CURRENT
+
+
+class mesh_context:
+    """with mesh_context(MeshContext(mesh, ...)): ..."""
+
+    def __init__(self, ctx: MeshContext):
+        self.ctx = ctx
+
+    def __enter__(self):
+        self.prev = get_mesh_context()
+        set_mesh_context(self.ctx)
+        return self.ctx
+
+    def __exit__(self, *exc):
+        set_mesh_context(self.prev)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Serving mesh
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,10 +35,15 @@ __all__ = ["rms_norm", "rope_cos_sin", "apply_rope", "mrope_cos_sin",
            "init_dense", "init_norm"]
 
 
-def init_dense(gen: torch.Generator, shape, scale: Optional[float] = None,
+def init_dense(gen: Optional[torch.Generator], shape,
+               scale: Optional[float] = None,
                dtype=torch.bfloat16) -> torch.Tensor:
     """Normal(0, scale²) weights (scale = fan_in^-½ by default, fan_in =
-    shape[0]) drawn in float32 from ``gen`` on its device, then cast."""
+    shape[0]) drawn in float32 from ``gen`` on its device, then cast;
+    ``gen=None`` gives a ``device="meta"`` tensor of that shape and
+    dtype."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     s = scale if scale is not None else shape[0] ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)

@@ -116,11 +116,12 @@ def _rebuild(template: Any, leaf_fn, prefix: Tuple[str, ...] = ()):
 
 
 def restore_checkpoint(ckpt_dir: str, templates: Dict[str, Any],
-                       step: Optional[int] = None
+                       step: Optional[int] = None, device=None
                        ) -> Tuple[int, Dict[str, Any], dict]:
     """templates: name → nested dict/list with the target structure; each
     leaf gives its shape and, when it is a tensor, the device its restored
-    value goes to (the CPU otherwise). Returns (step, trees, extra)."""
+    value goes to (the CPU otherwise), unless ``device`` is given, which
+    then takes every leaf. Returns (step, trees, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -136,7 +137,8 @@ def restore_checkpoint(ckpt_dir: str, templates: Dict[str, Any],
                 arr = z[key]
                 assert tuple(arr.shape) == tuple(tmpl.shape), (
                     key, arr.shape, tuple(tmpl.shape))
-                dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
+                dev = device if device is not None else (
+                    tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu")
                 return _from_numpy(arr, meta[key]["dtype"], dev)
 
             out[name] = _rebuild(template, leaf)

@@ -86,14 +86,16 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 @torch.no_grad()
 def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any,
-                 ocfg: AdamWConfig, lr_scale
+                 ocfg: AdamWConfig, lr_scale, gnorm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step. ``grads`` is laid out like ``params``; ``lr_scale``
     a number or a 0-d tensor. Updates ``opt_state`` and the parameter
     tensors in place and returns (params, opt_state, {"grad_norm"}): the
     new parameters are the new master weights cast to each parameter's
-    dtype."""
-    gnorm = global_norm(grads)
+    dtype. ``gnorm``: the gradient's global norm where ``grads`` is a
+    shard of it (the trainer over a mesh), else ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip_scale = torch.clamp(ocfg.grad_clip / (gnorm + 1e-12), max=1.0)
     count = opt_state["count"] + 1
     countf = count.float()

@@ -259,16 +259,27 @@ def test_loss_decreases(smoke_trainer):
 
 
 def test_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(get_smoke_config("llama3.2-1b"), ShapeSpec("t", 8, 2,
-                                                           "train"),
-                mesh=object(), device="cpu")
+    """What stays refused now that a mesh is ported: a mesh that is not a
+    ``DeviceMesh``, and a knob that only a mesh reads without a mesh (it
+    would be passed and then ignored)."""
+    shape = ShapeSpec("t", 8, 2, "train")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        Trainer(get_smoke_config("llama3.2-1b"), shape, mesh=object(),
+                device="cpu")
+    from repro_torch.distributed.sharding import ExecutionPlan
+
+    for knob in ("fsdp_params", "pure_dp", "grad_compression"):
+        with pytest.raises(ValueError, match="need a mesh"):
+            Trainer(get_smoke_config("llama3.2-1b"), shape,
+                    plan=ExecutionPlan(**{knob: True}), device="cpu")
 
 
 def test_the_plan_applies_what_one_device_reads_and_nothing_else():
     """``apply`` sets remat and the attention chunks as the reference's
-    does; a knob that only a mesh reads is no field, so it cannot be
-    passed and then ignored."""
+    does; the mesh knobs (``fsdp_params``, ``grad_compression``,
+    ``pure_dp``) are fields with the reference's defaults, and a knob that
+    nothing in the port reads yet is no field, so it cannot be passed and
+    then ignored."""
     from repro.distributed.sharding import ExecutionPlan as RefPlan
     from repro_torch.distributed.sharding import ExecutionPlan
 
@@ -277,8 +288,10 @@ def test_the_plan_applies_what_one_device_reads_and_nothing_else():
     want = RefPlan(**knobs).apply(ref_smoke_config("llama3.2-1b"))
     for name in knobs:
         assert getattr(got, name) == getattr(want, name)
-    for name in ("fsdp_params", "grad_compression", "pure_dp",
-                 "attn_batch_reshard", "shard_activation_ckpt",
+    for name in ("fsdp_params", "grad_compression", "pure_dp"):
+        assert getattr(ExecutionPlan(), name) == getattr(RefPlan(), name)
+        assert getattr(ExecutionPlan(**{name: True}), name) is True
+    for name in ("attn_batch_reshard", "shard_activation_ckpt",
                  "seq_shard_decode", "moe_impl", "scan_layers"):
         with pytest.raises(TypeError):
             ExecutionPlan(**{name: True})
@@ -400,14 +413,22 @@ def test_the_function_gives_the_plain_gradient_on_the_cpu(dtype):
 
 def test_train_launcher_runs_on_the_cpu_and_refuses_a_mesh(tmp_path,
                                                            capsys):
+    """The single-device path in this process; then what a mesh launch
+    still refuses: a split that is not ``--devices``, and more ranks than
+    the machine has cards (``tests/test_torch_mesh_launch.py`` runs a mesh
+    of four gloo ranks)."""
     params, opt = train_launcher.main([
         "--smoke", "--device", "cpu", "--steps", "3", "--seq-len", "16",
         "--batch", "2", "--ckpt-dir", str(tmp_path)])
     assert int(opt["count"]) == 3 and latest_step(str(tmp_path)) == 3
     assert "[train] done" in capsys.readouterr().out
-    for flags in (["--devices", "2"], ["--fsdp"], ["--grad-compression"],
-                  ["--model-par", "2"], ["--data-par", "2"]):
+    refused = [["--device", "cpu", "--devices", "2", "--model-par", "4"],
+               ["--device", "cpu", "--devices", "3", "--data-par", "2"]]
+    many = max(2, torch.cuda.device_count() + 1)
+    refused.append(["--devices", str(many), "--data-par", str(many)])
+    for flags in refused:
         with pytest.raises(SystemExit) as e:
-            train_launcher.main(["--smoke", "--device", "cpu"] + flags)
+            train_launcher.main(["--smoke"] + flags)
         assert e.value.code == 2
-        assert "ROADMAP" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "must = devices" in err or "CUDA devices" in err
