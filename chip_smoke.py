@@ -6,7 +6,7 @@ Run from the root of the repository, on a machine with one CUDA device:
 
 It builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the ten ports of the TPU kernels and the flash-attention backward) and
-drives eleven paths, each with the kernels' launch counts zeroed just before
+drives twelve paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve, the training path once per step):
 
@@ -97,6 +97,22 @@ engine they serve, the training path once per step):
   2e-2 against the same prefill on the plain chunked twin, then 16 greedy
   decode steps (finite logits); then a prompt of 64, where the plain branch
   runs and the kernel launches 0 times;
+* **lm_serve_mixers**: the archs with Mamba, MoE and xLSTM layers at full
+  width (``MIXER_RUNS``; random bf16 weights from a seeded generator):
+  jamba-v0.1-52b cut to one Jamba period of 8 layers (7 Mamba, 1
+  attention; 4 MoE of 16 experts top 2, 4 dense MLPs; ~26.6 GB), a
+  prefill of 1 × 4,096 (the MoE capacity path, the chunked attention
+  branch: ``flash_attention`` launched exactly once, held against the
+  plain version on its inputs, and the logits within ``LM_PREFILL_RTOL``
+  of the same prefill on the plain attention), 16 greedy decode steps
+  (the dense experts path, the O(1) Mamba step; finite logits), prefill
+  seconds, decode ms a step beside its bound (every weight read once a
+  step), the cache's bytes and peak memory, a profiled prefill and decode,
+  and the kernel at jamba's attention shape against its plain version and
+  SDPA; moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b at 2 layers the same
+  way with 4 decode steps (2 launches each); xlstm-125m whole at a prompt
+  of 1,024 and 16 decode steps, a decode step from the prefill's state held
+  against a prefill one token longer on a float32 copy of the weights;
 * **lm_train**: llama3.2-1b at full width and depth (16 layers, d_model
   2,048, vocab 128,256; random bf16 weights from a seeded generator)
   trained through ``Trainer.step`` on train_4k's sequence of 4,096 at batch
@@ -195,6 +211,7 @@ device. Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 ``python3 chip_smoke.py --attention`` runs only the lm_serve path and the
 flash_attention checks (a few minutes less), ``python3 chip_smoke.py
+--mixers`` only the lm_serve_mixers path, ``python3 chip_smoke.py
 --train`` only the lm_train and lm_train_mesh paths and the
 flash_attention_bwd checks, each with the same last line.
 """
@@ -279,6 +296,28 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_SHORT = "qwen3-1.7b", 4, 4096, 16, 64
 #: of ``lm_serve_phase`` is the check that sees a kernel fault; this one
 #: fails if the 1 % control passes it
 LM_PREFILL_RTOL = 2e-2
+
+#: the mixers path: (arch, layers or None for the full depth, batch,
+#: prompt, decode steps). Widths are the configs' own. jamba-v0.1-52b is
+#: cut to one Jamba period of 8 layers (7 Mamba, 1 attention; 4 MoE and 4
+#: dense MLPs; ~26.6 GB of bf16 weights: its 32 layers, ~104 GB, do not fit
+#: one 80 GB card); the two MoE transformers to 2 layers; xlstm-125m runs
+#: whole, at a prompt of 1,024 since its sLSTM steps through the prompt a
+#: token at a time on the host. A prompt of 4,096 takes the chunked
+#: attention branch and the MoE capacity path; decode the dense experts
+#: and each mixer's O(1) step
+MIXER_RUNS = (("jamba-v0.1-52b", 8, 1, 4096, 16),
+              ("moonshot-v1-16b-a3b", 2, 1, 4096, 4),
+              ("phi3.5-moe-42b-a6.6b", 2, 1, 4096, 4),
+              ("xlstm-125m", None, 1, 1024, 16))
+#: xlstm-125m: the logits of a decode step from the prefill's state
+#: against a prefill over the prompt and that token (the chunkwise mLSTM
+#: and the sequential sLSTM against their recurrent steps), relative norm,
+#: on a float32 copy of the weights: the two paths sum in other orders
+#: (3e-6 through the 12 layers on the CPU). In bf16 the two round at other
+#: places, a floor of ~2e-2 at these widths (2.1-2.5e-2 on the CPU), which
+#: is printed, not held
+MIXER_CONTINUE_RTOL = 1e-4
 
 #: the training path: llama3.2-1b at full width and depth (16 layers,
 #: d_model 2,048, 32 / 8 heads of 64, vocab 128,256; the reference
@@ -2407,10 +2446,6 @@ def attention_checks(dev, out: dict) -> None:
     and in float32, on seeded random inputs, with times; SDPA (on k/v
     repeated to the query heads beforehand) is the library yardstick."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2422,35 +2457,49 @@ def attention_checks(dev, out: dict) -> None:
              ("rep 1", 16, 16, 128, 4096, True, None, bf16),
              ("D 32", 16, 8, 32, 4096, True, None, bf16),
              ("qwen3-1.7b f32", 16, 8, 128, 4096, True, None, f32))
-    for tag, hq, hkv, d, s, causal, kv_len, dtype in cases:
-        b = LM_BATCH
-        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
-                               ).to(dtype) for h in (hq, hkv, hkv))
-        kw = dict(causal=causal, kv_len=kv_len)
-        got = flash_attention(q, k, v, **kw)
-        want = flash_attention_plain(q, k, v, **kw)
-        err, rnorm, share = hold_attention(tag, got, want)
-        kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-        mask = None if kv_len is None else \
-            (torch.arange(s, device=dev) < kv_len)[None, None, None, :]
-        ms = device_ms(lambda: flash_attention(q, k, v, **kw))
-        pms = stream_ms(lambda: flash_attention_plain(q, k, v, **kw))
-        lms = device_ms(lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=mask, is_causal=causal))
-        pairs = s * (s + 1) // 2 if causal else s * min(s, kv_len or s)
-        flops = 4 * b * hq * d * pairs
-        nbytes = q.element_size() * d * b * 2 * (hq * s
-                                                 + hkv * min(s, kv_len or s))
-        peak = PEAK_BF16 if dtype == bf16 else PEAK_FP32
-        log(f"flash_attention {tag}: ‖Δ‖/‖plain‖ {rnorm:.3e}, "
-            f"{share:.3f} of the elementwise limit; bound at the fp32 "
-            f"CUDA-core peak {flops / PEAK_FP32 * 1e3:.4f} ms")
-        record(out, "flash_attention", f"{tag} B={b} Hq={hq} Hkv={hkv} S={s}"
-               f" D={d} {str(dtype).split('.')[1]} causal={causal} kv_len="
-               f"{kv_len}", err, ms, pms, lms, flops, nbytes, peak,
-               tag == "qwen3-1.7b")
-        del q, k, v, kr, vr, got, want
-        torch.cuda.empty_cache()
+    for case in cases:
+        attention_case(gen, dev, out, LM_BATCH, *case,
+                       headline=case[0] == "qwen3-1.7b")
+
+
+def attention_case(gen, dev, out: dict, b: int, tag: str, hq: int, hkv: int,
+                   d: int, s: int, causal: bool, kv_len, dtype,
+                   headline: bool) -> None:
+    """flash_attention against its plain version on inputs drawn from
+    ``gen`` at one shape, timed beside the plain version and SDPA (on k/v
+    repeated to the query heads beforehand); recorded in ``out``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
+                           ).to(dtype) for h in (hq, hkv, hkv))
+    kw = dict(causal=causal, kv_len=kv_len)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    err, rnorm, share = hold_attention(tag, got, want)
+    kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    mask = None if kv_len is None else \
+        (torch.arange(s, device=dev) < kv_len)[None, None, None, :]
+    ms = device_ms(lambda: flash_attention(q, k, v, **kw))
+    pms = stream_ms(lambda: flash_attention_plain(q, k, v, **kw))
+    lms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, attn_mask=mask, is_causal=causal))
+    pairs = s * (s + 1) // 2 if causal else s * min(s, kv_len or s)
+    flops = 4 * b * hq * d * pairs
+    nbytes = q.element_size() * d * b * 2 * (hq * s
+                                             + hkv * min(s, kv_len or s))
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    log(f"flash_attention {tag}: ‖Δ‖/‖plain‖ {rnorm:.3e}, "
+        f"{share:.3f} of the elementwise limit; bound at the fp32 "
+        f"CUDA-core peak {flops / PEAK_FP32 * 1e3:.4f} ms")
+    record(out, "flash_attention", f"{tag} B={b} Hq={hq} Hkv={hkv} S={s}"
+           f" D={d} {str(dtype).split('.')[1]} causal={causal} kv_len="
+           f"{kv_len}", err, ms, pms, lms, flops, nbytes, peak, headline)
+    del q, k, v, kr, vr, got, want
+    torch.cuda.empty_cache()
 
 
 def attention_stats_checks(dev) -> None:
@@ -2642,6 +2691,43 @@ def twin_attention(q, k, v, causal, q_chunk: int, kv_chunk: int):
     return out.reshape(b, hq, s, d)
 
 
+def prefill_on_attention(cfg, params, batch, max_seq: int, fn):
+    """The prefill's logits with ``fn(q, k, v, causal)`` standing in for
+    ``ops.attention`` (synced)."""
+    import torch
+
+    from repro_torch.models import layers, prefill
+
+    real = layers.ops.attention
+    layers.ops.attention = attention_as(fn)
+    try:
+        out, _ = prefill(cfg, params, batch, max_seq)
+    finally:
+        layers.ops.attention = real
+    torch.cuda.synchronize()
+    return out
+
+
+def held_prefill(label: str, cfg, params, batch, max_seq: int) -> list:
+    """A prefill whose every attention layer runs the kernel and holds it
+    against the plain version on the same inputs (these launches are not a
+    counted run's); returns each layer's ``hold_attention`` reading."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    held = []
+
+    def kernel_then_plain(q, k, v, causal):
+        got = flash_attention(q, k, v, causal=causal)
+        held.append(hold_attention(f"{label} layer {len(held)}", got,
+                                   flash_attention_plain(q, k, v,
+                                                         causal=causal)))
+        return got
+
+    prefill_on_attention(cfg, params, batch, max_seq, kernel_then_plain)
+    return held
+
+
 def lm_serve_phase(dev) -> dict:
     """qwen3-1.7b at full width served as ``repro_torch.launch.serve``
     serves it; returns the launch counts of the 4 × 4,096 prefill."""
@@ -2682,28 +2768,11 @@ def lm_serve_phase(dev) -> dict:
     # each layer's kernel output against the plain version on the same
     # inputs, in a second prefill (these launches are not the counted run's)
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.models import layers
-
-    held = []
-
-    def kernel_then_plain(q, k, v, causal):
-        got = flash_attention(q, k, v, causal=causal)
-        held.append(hold_attention(f"lm_serve layer {len(held)}", got,
-                                   flash_attention_plain(q, k, v,
-                                                         causal=causal)))
-        return got
 
     def prefill_on(fn):
-        real = layers.ops.attention
-        layers.ops.attention = attention_as(fn)
-        try:
-            out, _ = prefill(cfg, params, batch, max_seq)
-        finally:
-            layers.ops.attention = real
-        torch.cuda.synchronize()
-        return out
+        return prefill_on_attention(cfg, params, batch, max_seq, fn)
 
-    prefill_on(kernel_then_plain)
+    held = held_prefill("lm_serve", cfg, params, batch, max_seq)
     log(f"lm_serve prefill, each layer's attention vs the plain version on "
         f"its inputs ({len(held)} layers): max abs err "
         f"{max(h[0] for h in held):.3e}, ‖Δ‖/‖plain‖ up to "
@@ -2799,6 +2868,165 @@ def lm_serve_phase(dev) -> dict:
         raise AssertionError(f"lm_serve: a {LM_SHORT}-token prompt launched "
                              f"the kernel {n} times or gave non-finite logits")
     return counts
+
+
+def lm_serve_mixers_phase(dev, out: dict, headline: bool) -> dict:
+    """The archs with Mamba, MoE and xLSTM layers served at full width
+    (``MIXER_RUNS``); returns the summed ``flash_attention`` launches of
+    the counted prefills, and records the kernel at jamba's attention
+    shape in ``out`` (as the kernels line's headline when ``headline``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.launch.serve import make_batch, serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    t_phase = time.perf_counter()
+    total = 0
+    for arch, n_layers, b, s, steps in MIXER_RUNS:
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=n_layers)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        n_attn = len(cfg.attn_layers)
+        kinds = "".join(cfg.layer_kind(i) for i in range(cfg.num_layers))
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+        log(f"lm_serve_mixers {cfg.name}: {cfg.num_layers} layers "
+            f"({kinds}; {n_moe} MoE of {cfg.num_experts} experts top "
+            f"{cfg.experts_per_token}), d_model {cfg.d_model}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}; {wbytes / 1e9:.3f} GB of "
+            f"weights")
+        batch = make_batch(cfg, b, s, dev)
+        max_seq = s + steps
+
+        reset_launch_counts()
+        logits, cache = prefill(cfg, params, batch, max_seq)
+        torch.cuda.synchronize()
+        n = launch_counts()["flash_attention"]
+        total += n
+        log(f"lm_serve_mixers {cfg.name} prefill {b}x{s}: flash_attention "
+            f"launches {n} ({n_attn} attention layers)")
+        if n != n_attn:
+            raise AssertionError(f"lm_serve_mixers {cfg.name}: the prefill "
+                                 f"launched the attention kernel {n} times, "
+                                 f"want {n_attn}")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for lc in cache["layers"] for t in lc.values())
+        del cache
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"lm_serve_mixers {cfg.name}: non-finite "
+                                 f"prefill logits")
+
+        if n_attn:
+            held = held_prefill(f"lm_serve_mixers {cfg.name}", cfg, params,
+                                batch, max_seq)
+            if len(held) != n_attn:
+                raise AssertionError(f"lm_serve_mixers {cfg.name}: "
+                                     f"{len(held)} layers held, want {n_attn}")
+            plain = prefill_on_attention(
+                cfg, params, batch, max_seq,
+                lambda q, k, v, causal: flash_attention_plain(
+                    q, k, v, causal=causal))
+            rel = float((logits - plain).norm() / plain.norm())
+            log(f"lm_serve_mixers {cfg.name} prefill: each attention layer "
+                f"vs the plain version on its inputs: ‖Δ‖/‖plain‖ up to "
+                f"{max(h[1] for h in held):.3e}, up to "
+                f"{max(h[2] for h in held):.3f} of the elementwise limit; "
+                f"logits vs the model on the plain version ‖Δ‖/‖ref‖ "
+                f"{rel:.3e} (limit {LM_PREFILL_RTOL}), argmax equal "
+                f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{b}")
+            if rel > LM_PREFILL_RTOL:
+                raise AssertionError(f"lm_serve_mixers {cfg.name}: prefill "
+                                     f"logits off the plain version's by "
+                                     f"{rel:.3e} relative")
+            del plain
+        else:
+            # the prefill's state carried into decode: one step from it
+            # against a prefill over the prompt and that token
+            tok = logits.argmax(-1)[:, None]
+            longer = {"tokens": torch.cat([batch["tokens"], tok], dim=1)}
+            rels = {}
+            for dtype in ("float32", cfg.dtype):
+                c = dataclasses.replace(cfg, dtype=dtype)
+                p = params if dtype == cfg.dtype else _to_float(params)
+                _, cache = prefill(c, p, batch, max_seq)
+                stepped, _ = decode_step(c, p, cache, tok)
+                whole, _ = prefill(c, p, longer, max_seq)
+                rels[dtype] = float((stepped - whole).norm() / whole.norm())
+                del cache, p
+            log(f"lm_serve_mixers {cfg.name}: a decode step from the "
+                f"prefill's state vs a prefill of {s + 1}: ‖Δ‖/‖ref‖ "
+                f"{rels['float32']:.3e} on float32 weights (limit "
+                f"{MIXER_CONTINUE_RTOL}), {rels[cfg.dtype]:.3e} in "
+                f"{cfg.dtype} (not held)")
+            if not rels["float32"] <= MIXER_CONTINUE_RTOL:
+                raise AssertionError(f"lm_serve_mixers {cfg.name}: decode "
+                                     f"from the prefill's state off by "
+                                     f"{rels['float32']:.3e}")
+        del logits
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = serve(cfg, params, batch, steps)
+        if not (bool(torch.isfinite(r["logits"]).all())
+                and r["tokens"].shape == (b, steps)
+                and 0 <= r["tokens"].min()
+                and r["tokens"].max() < cfg.vocab_size):
+            raise AssertionError(f"lm_serve_mixers {cfg.name}: decode gave "
+                                 f"non-finite logits or tokens out of range")
+        tp, td = r["t_prefill"], r["t_decode"]
+        # each step reads every weight once (the dense experts path runs
+        # every expert), and each state or k/v cache
+        bound = (wbytes + cache_bytes) / PEAK_BYTES * 1e3
+        log(f"lm_serve_mixers {cfg.name} serve {b}x{s} + {steps} steps: "
+            f"prefill {tp:.4f} s ({b * s / tp:.0f} prompt tokens/s), decode "
+            f"{td:.4f} s = {td / steps * 1e3:.3f} ms/step (bound "
+            f"{bound:.3f} ms/step: {(wbytes + cache_bytes) / 1e9:.3f} GB at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s); cache {cache_bytes / 1e9:.4f} "
+            f"GB, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; tokens "
+            f"(seq 0) {r['tokens'][0].tolist()}")
+        if arch == MIXER_RUNS[0][0]:
+            profile_call(f"lm_serve_mixers {cfg.name} prefill {b}x{s}",
+                         lambda: prefill(cfg, params, batch, max_seq))
+            _, cache = prefill(cfg, params, batch, max_seq)
+            tok = r["prefill_logits"].argmax(-1)[:, None]
+
+            def decode_all():
+                nonlocal cache
+                t = tok
+                for _ in range(steps):
+                    lg, cache = decode_step(cfg, params, cache, t)
+                    t = lg.argmax(-1)[:, None]
+
+            profile_call(f"lm_serve_mixers {cfg.name} {steps} decode steps "
+                         f"at {s}", decode_all)
+            del cache
+            # the kernel at jamba's attention shape, on seeded inputs
+            attention_case(torch.Generator(device=dev).manual_seed(5), dev,
+                           out, b, cfg.name, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim_, s, True, None, torch.bfloat16,
+                           headline)
+        del params, r
+    PHASE_S["lm_serve_mixers"] = time.perf_counter() - t_phase
+    log(f"lm_serve_mixers: {PHASE_S['lm_serve_mixers']:.1f} s")
+    return {"flash_attention": total}
+
+
+def _to_float(tree):
+    """A float32 copy of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _to_float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_float(v) for v in tree]
+    return tree.float()
 
 
 def _train_step_profile(trainer, params, opt, batch, step: int,
@@ -3478,6 +3706,9 @@ def main(argv=None) -> int:
     ap.add_argument("--attention", action="store_true",
                     help="only the lm_serve path and the flash_attention "
                          "checks (the kernels line then lists that kernel)")
+    ap.add_argument("--mixers", action="store_true",
+                    help="only the lm_serve_mixers path (the kernels line "
+                         "then lists flash_attention)")
     ap.add_argument("--train", action="store_true",
                     help="only the lm_train and lm_train_mesh paths and the "
                          "flash_attention_bwd checks (the kernels line then "
@@ -3514,6 +3745,10 @@ def main(argv=None) -> int:
                   lm_serve_phase(dev)["flash_attention"]}
         records = {}
         attention_checks(dev, records)
+    elif args.mixers:
+        names = ("flash_attention",)
+        records = {}
+        counts = lm_serve_mixers_phase(dev, records, headline=True)
     elif args.train:
         names = ("flash_attention_bwd",)
         records = {}
@@ -3570,6 +3805,8 @@ def all_paths(dev) -> tuple:
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
                    if k in TILE_KERNELS})
     counts["flash_attention"] = lm_serve_phase(dev)["flash_attention"]
+    mixer_records = {}
+    lm_serve_mixers_phase(dev, mixer_records, headline=False)
     train_records = {}
     counts["flash_attention_bwd"] = lm_train_phase(
         dev, train_records)["flash_attention_bwd"]
@@ -3582,6 +3819,9 @@ def all_paths(dev) -> tuple:
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     csr_stats_checks(served, dev, records)
     attention_checks(dev, records)
+    records["flash_attention"]["max_abs_err"] = max(
+        records["flash_attention"]["max_abs_err"],
+        mixer_records["flash_attention"]["max_abs_err"])
     b = np.random.default_rng(2).standard_normal(a.n)
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                          lambda: execute_plan(a, plan, b, device=dev))

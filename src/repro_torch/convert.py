@@ -39,7 +39,6 @@ from .core.plan import ExecutionPlan
 from .device import resolve_device
 from .engine.bundle import SelectorBundle
 from .models.config import ModelConfig
-from .models.transformer import check_ported
 from .sparse.symbolic import SymbolicFactor
 
 __all__ = ["plan_arrays", "plan_from_arrays", "classifier_state_arrays",
@@ -119,9 +118,8 @@ def lm_params_from_jax(cfg: ModelConfig, params, device=None) -> dict:
     stacked over ``cfg.num_groups`` groups of ``cfg.pattern_period`` slots
     ``s0``, ``s1``, ... — unstacked so that layer g · period + j is group g's
     slot j. Values are copied bit for bit, on ``device`` (default: the
-    card). Raises ``NotImplementedError`` for a config that is not
-    attention-only and expert-free."""
-    check_ported(cfg)
+    card). Every leaf of every slot crosses as it is: attention, MLPs
+    (dense or MoE), Mamba, mLSTM and sLSTM."""
     dev = resolve_device(device)
 
     def tree(node, g):

@@ -29,8 +29,8 @@ port does not).
 
 ``cache_specs`` and the knobs ``attn_batch_reshard``,
 ``shard_activation_ckpt``, ``seq_shard_decode``, ``moe_impl`` and
-``scan_layers`` wait for the code that reads them (ROADMAP §1, items 3.2,
-3.3 and 4): a knob is a field once code reads it.
+``scan_layers`` wait for the code that reads them (ROADMAP §1, items
+3.2b, 3.3 and 4): a knob is a field once code reads it.
 """
 from __future__ import annotations
 

@@ -8,11 +8,14 @@ parameter shapes, layer pattern, and the prefill/decode paths in
 ``block_pattern`` gives the per-layer *mixer* kind:
   'a' — GQA attention,  'm' — Mamba SSM,  'M' — mLSTM,  's' — sLSTM.
 ``moe_period > 0`` makes every ``moe_period``-th layer's MLP a top-k MoE.
-The port builds models of 'a' layers with dense MLPs only; the others raise
-``NotImplementedError`` (:func:`repro_torch.models.transformer.init_params`).
-Of the execution knobs, ``remat`` is read by the training forward (a
-checkpoint a layer); ``scan_layers`` is kept for the copy and read by
-nothing in the port, which loops over its layers either way.
+The port builds and serves every kind; it trains models of 'a' layers with
+dense MLPs only (:func:`repro_torch.models.transformer.check_trainable`).
+``moe_impl`` and ``capacity_factor`` are kept for the copy and read by
+nothing in the port, whose one-device MoE is the reference's capacity
+path at its fixed factor of 1.25. Of the execution knobs, ``remat`` is
+read by the training forward (a checkpoint a layer); ``scan_layers`` is
+kept for the copy and read by nothing in the port, which loops over its
+layers either way.
 """
 from __future__ import annotations
 

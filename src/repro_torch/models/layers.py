@@ -32,7 +32,13 @@ from ..kernels.flash_attention import NEG_INF
 
 __all__ = ["rms_norm", "rope_cos_sin", "apply_rope", "mrope_cos_sin",
            "gqa_attention", "flash_attention_xla", "swiglu_mlp",
-           "init_dense", "init_norm"]
+           "init_dense", "init_norm", "gen_device"]
+
+
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """The device of ``gen``'s draws; ``meta`` for ``gen=None`` (shapes
+    and dtypes only, nothing allocated)."""
+    return torch.device("meta") if gen is None else gen.device
 
 
 def init_dense(gen: Optional[torch.Generator], shape,

@@ -1,23 +1,33 @@
-"""Port of ``repro/models/transformer.py`` for the attention-only,
-expert-free architectures: parameter init (``init_params`` :114 with
-``_init_attn_slot`` :50 and ``_init_mlp_slot`` :66), ``_attn_apply``
-(:137; its sharded-decode and DP-reshard branches wait for items 4 and
-3.3), ``_mlp_apply`` (:208, dense gated and
-GELU), ``_embed_inputs`` (:252), ``_rope_tables`` (:258, M-RoPE included),
-``_unembed`` (:270), and serving: ``init_cache`` (:351),
-``_apply_group_serve`` (:372) for 'a' layers, ``prefill`` (:406) and
-``decode_step`` (:429); and training: ``MOE_AUX_COEF`` (:39),
-``_apply_group_train`` (:227) for 'a' layers, ``_forward`` (:276) and
+"""Port of ``repro/models/transformer.py``: parameter init
+(``init_params`` :114 with ``_init_attn_slot`` :50, ``_init_mlp_slot``
+:66 and ``_init_group`` :83, every block kind and MoE MLPs),
+``_attn_apply`` (:137; its sharded-decode and DP-reshard branches wait
+for items 4 and 3.3), ``_mlp_apply`` (:208, dense gated, GELU and MoE),
+``_embed_inputs`` (:252), ``_rope_tables`` (:258, M-RoPE included),
+``_unembed`` (:270), and serving: ``init_cache`` (:351, every slot kind),
+``_apply_group_serve`` (:372), ``prefill`` (:406) and ``decode_step``
+(:429); and training: ``MOE_AUX_COEF`` (:39), ``_apply_group_train``
+(:227) for 'a' layers with dense MLPs, ``_forward`` (:276) and
 ``loss_fn`` (:315).
 
 Parameters are a plain dict with one entry per layer in ``"layers"``; the
-reference's ``scan`` over stacked groups is a Python loop here. Weights keep
-the reference's (in, out) layout (``x @ w``), so that carrying them across
-(:func:`repro_torch.convert.lm_params_from_jax`) is a copy. The cache is
-``{"pos": int, "layers": [{"k", "v"}, ...]}`` with (B, Hkv, S_max, hd)
-buffers; ``prefill`` fills a new cache and ``decode_step`` writes the new
-key and value into the buffers in place and advances ``pos`` on the same
-dict (the reference returned a new cache).
+reference's ``scan`` over stacked groups is a Python loop here. Layer i is
+slot i mod ``pattern_period`` of a group: its kind is
+``cfg.layer_kind(i)``, and its MLP is MoE where ``cfg.layer_is_moe``
+says so of that slot, as the reference asks it of the slot. A layer holds
+``norm1`` and its mixer (``attn``, ``mamba``, ``mlstm`` or ``slstm``);
+'a' and 'm' layers also ``norm2`` and an ``mlp`` (dense, or MoE with a
+``router``). Weights keep the reference's (in, out) layout (``x @ w``),
+so that carrying them across (:func:`repro_torch.convert.
+lm_params_from_jax`) is a copy. The cache is ``{"pos": int, "layers":
+[...]}``: (B, Hkv, S_max, hd) ``k``/``v`` buffers for an attention layer,
+the Mamba (``conv``, ``ssm``), mLSTM (``C``, ``n``, ``conv``) or sLSTM
+(``c``, ``n``, ``h``, ``m``) state for the others; ``prefill`` fills a new
+cache and ``decode_step`` writes the new key and value into the buffers
+and the new states into the layers' dicts in place and advances ``pos``
+on the same dict (the reference returned a new cache). A mixer input of
+length 1 takes the mixer's decode step from the cache, in a prefill too,
+as in the reference; serving drops the MoE aux loss.
 
 Training runs the same layers on one device. ``cfg.remat == "layer"``
 wraps each layer in ``torch.utils.checkpoint.checkpoint(...,
@@ -40,10 +50,10 @@ axis, with the attention kernels running on each rank's local heads. The
 loss is the mean over this rank's rows; the trainer reduces the gradients
 over the data axes.
 
-Layers of kind 'm', 'M' or 's' (Mamba, mLSTM, sLSTM) and MoE MLPs are not
-ported: :func:`init_params`, :func:`lm_params_from_jax` and
-:func:`init_cache` raise ``NotImplementedError`` for such a config, and so
-does :func:`loss_fn` (ROADMAP §1, item 3.2).
+Training a config with layers of kind 'm', 'M' or 's' (Mamba, mLSTM,
+sLSTM) or with MoE MLPs is not ported: :func:`loss_fn` (and the
+``Trainer``) raise ``NotImplementedError`` for it (:func:`check_trainable`,
+ROADMAP §1, item 3.2b).
 """
 from __future__ import annotations
 
@@ -57,11 +67,18 @@ from ..device import resolve_device
 from ..distributed import collectives as C
 from ..distributed.meshctx import MeshContext, get_mesh_context
 from .config import ModelConfig
-from .layers import (apply_rope, gqa_attention, init_dense, init_norm,
-                     mrope_cos_sin, rms_norm, rope_cos_sin, swiglu_mlp)
+from .layers import (apply_rope, gen_device, gqa_attention, init_dense,
+                     init_norm, mrope_cos_sin, rms_norm, rope_cos_sin,
+                     swiglu_mlp)
+from .moe import init_moe_params, moe_ffn
+from .ssm import (init_mamba_params, init_mamba_state, mamba_decode_step,
+                  mamba_forward)
+from .xlstm import (init_mlstm_params, init_mlstm_state, init_slstm_params,
+                    init_slstm_state, mlstm_decode_step, mlstm_forward,
+                    slstm_decode_step, slstm_forward)
 
 __all__ = ["init_params", "loss_fn", "prefill", "decode_step", "init_cache",
-           "model_dtype", "check_ported"]
+           "model_dtype", "check_trainable"]
 
 MOE_AUX_COEF = 0.01
 
@@ -70,16 +87,29 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def check_ported(cfg: ModelConfig) -> None:
+def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
-    attention with a dense MLP."""
+    attention with a dense MLP: the port builds, converts and serves every
+    config, and trains those."""
     other = sorted(set(cfg.block_pattern) - {"a"})
     if other or cfg.num_experts:
         what = ", ".join([f"{k!r} layers" for k in other]
                          + (["MoE MLPs"] if cfg.num_experts else []))
         raise NotImplementedError(
-            f"{cfg.name}: {what} are not ported yet (ROADMAP §1, item 3.2: "
-            f"the MoE, Mamba and xLSTM mixers)")
+            f"{cfg.name}: training a model with {what} is not ported yet "
+            f"(ROADMAP §1, item 3.2b: training of the MoE, Mamba and xLSTM "
+            f"mixers)")
+
+
+#: the mixers other than attention: the layer's key, its forward (a
+#: prefill asks it for the decode state) and its decode step
+_MIXERS = {
+    "m": ("mamba", mamba_forward, mamba_decode_step),
+    "M": ("mlstm", mlstm_forward, mlstm_decode_step),
+    "s": ("slstm", slstm_forward, slstm_decode_step),
+}
+_INIT_MIXER = {"m": init_mamba_params, "M": init_mlstm_params,
+               "s": init_slstm_params}
 
 
 # ---------------------------------------------------------------------------
@@ -94,13 +124,20 @@ def _init_attn_slot(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
              wv=init_dense(gen, (d, hkv * hd), dtype=dtype),
              wo=init_dense(gen, (hq * hd, d), dtype=dtype))
     if cfg.qk_norm:
-        p["q_norm"] = init_norm((hd,), dtype, _dev(gen))
-        p["k_norm"] = init_norm((hd,), dtype, _dev(gen))
+        p["q_norm"] = init_norm((hd,), dtype, gen_device(gen))
+        p["k_norm"] = init_norm((hd,), dtype, gen_device(gen))
     return p
 
 
-def _init_mlp_slot(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
+def _init_mlp_slot(gen, cfg: ModelConfig, slot: int, dtype
+                   ) -> Optional[Dict[str, Any]]:
+    """Slot ``slot``'s MLP: MoE where ``cfg.layer_is_moe(slot)``, else
+    dense, or ``None`` without a hidden width."""
+    if cfg.layer_is_moe(slot):
+        return init_moe_params(gen, cfg, dtype)
     d, f = cfg.d_model, cfg.d_ff
+    if not f:
+        return None
     if not cfg.mlp_gated:
         return dict(wi=init_dense(gen, (d, f), dtype=dtype),
                     wd=init_dense(gen, (f, d), dtype=dtype))
@@ -109,32 +146,32 @@ def _init_mlp_slot(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
                 wd=init_dense(gen, (f, d), dtype=dtype))
 
 
-def _dev(gen: Optional[torch.Generator]) -> torch.device:
-    return torch.device("meta") if gen is None else gen.device
-
-
 def init_params(cfg: ModelConfig, gen: Optional[torch.Generator]
                 ) -> Dict[str, Any]:
     """Random weights with the reference's distributions, drawn in order
     from ``gen`` and placed on its device: the embedding N(0, 0.02²), every
-    projection N(0, 1/fan_in), norms 1. ``gen=None`` gives the same tree of
-    ``device="meta"`` tensors (shapes and dtypes, nothing allocated). Raises
-    ``NotImplementedError`` for a config with layers other than attention
-    or with MoE MLPs."""
-    check_ported(cfg)
-    dtype, dev = model_dtype(cfg), _dev(gen)
+    projection N(0, 1/fan_in), norms 1, and each mixer's leaves as its
+    module draws them. ``gen=None`` gives the same tree of
+    ``device="meta"`` tensors (shapes and dtypes, nothing allocated)."""
+    dtype, dev = model_dtype(cfg), gen_device(gen)
     params: Dict[str, Any] = {}
     if cfg.input_mode == "tokens" or cfg.tie_embeddings:
         params["embed"] = init_dense(gen, (cfg.vocab_size, cfg.d_model),
                                      scale=0.02, dtype=dtype)
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
+        j, kind = i % cfg.pattern_period, cfg.layer_kind(i)
         layer: Dict[str, Any] = dict(
-            norm1=init_norm((cfg.d_model,), dtype, dev),
-            attn=_init_attn_slot(gen, cfg, dtype))
-        if cfg.d_ff:
+            norm1=init_norm((cfg.d_model,), dtype, dev))
+        if kind == "a":
+            layer["attn"] = _init_attn_slot(gen, cfg, dtype)
+        else:
+            layer[_MIXERS[kind][0]] = _INIT_MIXER[kind](gen, cfg, dtype)
+        mlp = _init_mlp_slot(gen, cfg, j, dtype) if kind in ("a", "m") \
+            else None
+        if mlp is not None:
             layer["norm2"] = init_norm((cfg.d_model,), dtype, dev)
-            layer["mlp"] = _init_mlp_slot(gen, cfg, dtype)
+            layer["mlp"] = mlp
         layers.append(layer)
     params["layers"] = layers
     params["final_norm"] = init_norm((cfg.d_model,), dtype, dev)
@@ -225,17 +262,20 @@ def _local_kv(k, v, r: int, hq_l: int, rep: int):
 
 
 def _mlp_apply(layer, x, cfg: ModelConfig, par=None):
-    """Post-mixer dense MLP (gated SwiGLU or tanh-approximate GELU). Under
-    a mesh whose layout splits the hidden width (``par.mlp``): ``wg``,
-    ``wu``, ``wi`` column-parallel, ``wd`` row-parallel with its partial
-    products summed over the model group."""
+    """Post-mixer MLP: dense (gated SwiGLU or tanh-approximate GELU), or
+    MoE (:func:`~repro_torch.models.moe.moe_ffn`, its aux loss dropped:
+    only serving reaches it). Under a mesh whose layout splits the hidden
+    width (``par.mlp``): ``wg``, ``wu``, ``wi`` column-parallel, ``wd``
+    row-parallel with its partial products summed over the model group."""
     if "mlp" not in layer:
         return x
     h = rms_norm(x, layer["norm2"], cfg.norm_eps)
+    mlp = layer["mlp"]
+    if "router" in mlp:
+        return x + moe_ffn(mlp, h, cfg)[0]
     tp = par is not None and par.mlp
     if tp:
         h = C.copy_to(h, par.group)
-    mlp = layer["mlp"]
     if cfg.mlp_gated:
         y = swiglu_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"])
     else:
@@ -352,6 +392,8 @@ def _owned(ids: torch.Tensor, r: int, width: int):
 
 
 def _rope_tables(cfg: ModelConfig, positions, batch):
+    if "a" not in cfg.block_pattern:
+        return None, None
     if cfg.mrope:
         pos3 = batch.get("positions3")
         if pos3 is None:
@@ -371,8 +413,9 @@ def _forward(cfg: ModelConfig, params, batch, par=None):
     """The training forward: embed, every layer (each under
     ``checkpoint`` when ``cfg.remat == "layer"``), the final norm. Returns
     (x (B, S, D), aux); aux, the MoE loss, is 0, since no ported layer has
-    experts. ``par``: the mesh path (:class:`_Par`), or ``None``."""
-    check_ported(cfg)
+    experts. ``par``: the mesh path (:class:`_Par`), or ``None``. Raises
+    ``NotImplementedError`` for a config :func:`check_trainable` refuses."""
+    check_trainable(cfg)
     x = _embed_inputs(cfg, params, batch, par)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -466,23 +509,44 @@ def loss_fn(cfg: ModelConfig, params, batch
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Dict[str, Any]:
-    """Zeroed k/v buffers (B, Hkv, max_seq, hd) for every layer, ``pos``
-    0. ``device`` defaults to the card."""
-    check_ported(cfg)
+    """``pos`` 0 and, for each layer, zeroed k/v buffers (B, Hkv,
+    max_seq, hd) of an attention layer or the initial state of another
+    mixer. ``device`` defaults to the card."""
     dev = resolve_device(device)
-    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim_)
     dtype = model_dtype(cfg)
-    return dict(pos=0, layers=[
-        dict(k=torch.zeros(shape, dtype=dtype, device=dev),
-             v=torch.zeros(shape, dtype=dtype, device=dev))
-        for _ in range(cfg.num_layers)])
+    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim_)
+
+    def layer_cache(kind):
+        if kind == "a":
+            return dict(k=torch.zeros(shape, dtype=dtype, device=dev),
+                        v=torch.zeros(shape, dtype=dtype, device=dev))
+        if kind == "m":
+            return init_mamba_state(cfg, batch, dtype, dev)
+        if kind == "M":
+            return init_mlstm_state(cfg, batch, dev)
+        return init_slstm_state(cfg, batch, dev)
+
+    return dict(pos=0, layers=[layer_cache(cfg.layer_kind(i))
+                               for i in range(cfg.num_layers)])
 
 
 def _apply_layer_serve(layer, lcache, x, cos, sin, pos: int,
-                       cfg: ModelConfig):
-    """One layer of ``_apply_group_serve``: attention on the layer's cache,
-    then the MLP."""
-    x, _ = _attn_apply(layer, x, cos, sin, cfg, cache=lcache, pos=pos)
+                       cfg: ModelConfig, kind: str):
+    """One layer of ``_apply_group_serve``: its mixer on the layer's cache
+    (attention writes k/v at ``pos``; another mixer runs its decode step
+    on an input of length 1 and its forward otherwise, and its new state
+    replaces the cache's), then the MLP."""
+    if kind == "a":
+        x, _ = _attn_apply(layer, x, cos, sin, cfg, cache=lcache, pos=pos)
+    else:
+        name, forward, step = _MIXERS[kind]
+        h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+        if x.shape[1] == 1:
+            y, state = step(layer[name], lcache, h, cfg)
+        else:
+            y, state = forward(layer[name], h, cfg, return_state=True)
+        lcache.update(state)
+        x = x + y
     return _mlp_apply(layer, x, cfg)
 
 
@@ -495,8 +559,10 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int):
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos, sin = _rope_tables(cfg, positions, batch)
     cache = init_cache(cfg, b, max_seq, device=x.device)
-    for layer, lcache in zip(params["layers"], cache["layers"]):
-        x = _apply_layer_serve(layer, lcache, x, cos, sin, 0, cfg)
+    for i, (layer, lcache) in enumerate(zip(params["layers"],
+                                            cache["layers"])):
+        x = _apply_layer_serve(layer, lcache, x, cos, sin, 0, cfg,
+                               cfg.layer_kind(i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x[:, -1:])[:, 0].float()
     cache["pos"] = s
@@ -514,8 +580,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_or_embeds):
     pos = cache["pos"]
     positions = torch.full((b, 1), pos, device=x.device)
     cos, sin = _rope_tables(cfg, positions, batch)
-    for layer, lcache in zip(params["layers"], cache["layers"]):
-        x = _apply_layer_serve(layer, lcache, x, cos, sin, pos, cfg)
+    for i, (layer, lcache) in enumerate(zip(params["layers"],
+                                            cache["layers"])):
+        x = _apply_layer_serve(layer, lcache, x, cos, sin, pos, cfg,
+                               cfg.layer_kind(i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)[:, 0].float()
     cache["pos"] = pos + 1

@@ -104,10 +104,12 @@ def test_wrappers_refuse_devices_other_than_cpu():
 
 def test_scans_cover_the_lm_modules():
     """The subprocess import and the static scan above reach the LM
-    serving modules: models, configs, the launcher and the attention
-    kernel's wrapper."""
+    serving modules: models (the mixers too), configs, the launcher and
+    the attention kernel's wrapper."""
     mods = _port_modules()
     for m in ("repro_torch.models.transformer", "repro_torch.models.layers",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.models.xlstm",
               "repro_torch.configs", "repro_torch.configs.qwen3_1_7b",
               "repro_torch.launch.serve", "repro_torch.kernels.flash_attention"):
         assert m in mods, m
