@@ -6,7 +6,7 @@ Run from the root of the repository, on a machine with one CUDA device:
 
 It builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the ten ports of the TPU kernels and the flash-attention backward) and
-drives twelve paths, each with the kernels' launch counts zeroed just before
+drives thirteen paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve, the training path once per step):
 
@@ -145,7 +145,30 @@ engine they serve, the training path once per step):
   only); step ms of both paths, tokens/s, peak memory, the NCCL version,
   the collective counters of a step and the NCCL kernels' device seconds
   of one profiled step; then 3 steps with ``grad_compression``, finite and
-  within ``MESH_COMPRESSED_RTOL`` of the uncompressed steps.
+  within ``MESH_COMPRESSED_RTOL`` of the uncompressed steps;
+* **lm_train_mixers**: the archs with MoE, Mamba and xLSTM layers trained
+  at full width through ``Trainer.step`` (``MIXER_TRAIN``; random bf16
+  weights from a seeded generator, AdamW at ``MIXER_LR``): jamba-v0.1-52b
+  cut to its layers 4 and 5 (attention with a dense MLP, then Mamba with
+  the 16-expert MoE MLP; 3,678,941,184 parameters) at 1 × 4,096, 3 steps
+  (``flash_attention`` 2 launches a step: the forward and the per-layer
+  checkpoint's recompute; ``flash_attention_bwd`` 1) and one profiled
+  (the Mamba scan's kernels, matrix products, attention, the optimizer),
+  the attention backward held at the operands step 0 gave it (B 1, Hq 32,
+  Hkv 8, D 128: a GQA group of 4 at D 128) against the plain gradients;
+  moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b at 2 layers, 1 × 4,096, 2
+  steps (4 / 2 launches a step); xlstm-125m whole at 1 × 1,024, 2 steps;
+  every step on the model's batch 0. Gates: finite metrics, the last loss
+  below the first, the loss equal to
+  ce + 0.01·aux (aux > 0 exactly where there are experts), loss₀ within
+  ``TRAIN_LOSS_ATOL`` of the same model on the plain attention; step ms,
+  tokens/s, the aux and peak memory printed. Then moonshot through a 1 × 1
+  NCCL mesh with ``fsdp_params`` under ``moe_impl`` ``tp_ragged`` and
+  ``ep`` (the all-to-alls), 2 steps each, within ``MESH_LOSS_RTOL`` of its
+  single-device losses; and the four archs' smoke configs in float32
+  (``MIXER_AGREE``: both MoE branches, dropped slots, Mamba and mLSTM
+  chunks at a sequence of 300), whose loss and every gradient leaf on the
+  card lie within ``MIXER_AGREE_RTOL`` of the CPU's.
 
 Then it holds each kernel against its plain PyTorch version (the solve
 kernels at shapes from the 32³ schedule; ``extend_add_batch`` at the
@@ -188,10 +211,11 @@ attention shapes, at ragged lengths, with Hq = Hkv, at D = 32 and in
 float32; first it prints the bf16 kernel's registers, shared memory and
 spills), the forward's training statistics (log-sum-exp, output
 remainder) against the plain forward's at llama3.2-1b's and qwen3-1.7b's
-training shapes (B 4, S 4,096), ``flash_attention_bwd`` against
+training shapes (B 4, S 4,096) and at jamba's and phi3.5-moe's (B 1, Hq 32,
+Hkv 8, D 128), ``flash_attention_bwd`` against
 ``torch.autograd.grad`` through
-the plain attention also on seeded inputs at llama3.2-1b's and
-qwen3-1.7b's shapes (B 1, S 4,096), a ragged S, rep 1 (the wgmma kernels
+the plain attention also on seeded inputs at llama3.2-1b's,
+qwen3-1.7b's and jamba's/phi3.5-moe's shapes (B 1, S 4,096), a ragged S, rep 1 (the wgmma kernels
 of ``csrc/flash_attention_bwd_sm90.cu``), D 32 and 16 and
 float32 (the first design; each twice for
 the same bits; the kernels' registers, shared memory and spills first)
@@ -359,6 +383,49 @@ MESH_LOSS_RTOL, MESH_COMPRESSED_RTOL = 2e-3, 2e-2
 MESH_SLICE_WIDTH, MESH_SLICE_RANK = 2, 1
 #: lm_train's losses and step walls, which the mesh phase compares against
 TRAIN_RUN: dict = {}
+
+#: the mixers' training path: (arch, layers or None for the full depth,
+#: the block pattern of the cut or None, batch, sequence, steps). Widths
+#: are the configs' own. jamba-v0.1-52b is cut to its layers 4 and 5 (an
+#: attention layer with a dense MLP, then a Mamba layer with the 16-expert
+#: MoE MLP; moe_period 2 places the MoE as on layer 5): 3,678,941,184
+#: parameters, 58.9 GB with their AdamW state and gradient (16 bytes a
+#: parameter), where one Jamba period of 8 layers would need 212.7 GB;
+#: moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b at 2 layers; xlstm-125m
+#: whole, at 1,024 since its sLSTM is a host loop over the tokens. Each
+#: takes its steps at MIXER_LR on its SyntheticData batch 0 (so that the
+#: falling-loss gate compares losses of one batch: at B 1 one update moves
+#: the loss less than two batches differ), the step index one ahead so
+#: that the first step already updates
+#: the mixers' peak learning rate: at d_model 4,096 the first AdamW step at
+#: TRAIN_LR (5e-5) overshoots from this random init (jamba's losses read
+#: 11.74, 18.54, 10.99 and phi3.5-moe's 11.16, 11.38 on an H100; moonshot's,
+#: at d_model 2,048, 12.63, 9.87), as llama's did at 3e-4
+MIXER_LR = 1e-5
+MIXER_TRAIN = (("jamba-v0.1-52b", 2, ("a", "m"), 1, 4096, 3),
+               ("moonshot-v1-16b-a3b", 2, None, 1, 4096, 2),
+               ("phi3.5-moe-42b-a6.6b", 2, None, 1, 4096, 2),
+               ("xlstm-125m", None, None, 1, 1024, 2))
+#: the MoE trained over a 1 x 1 NCCL mesh under both of the reference's
+#: mesh branches (on one rank local and global capacity agree), against
+#: its single-device losses within MESH_LOSS_RTOL
+MIXER_MESH_ARCH, MIXER_MESH_IMPLS = "moonshot-v1-16b-a3b", ("tp_ragged", "ep")
+#: the card against the CPU at the smoke configs in float32: the loss and
+#: each gradient leaf within this much of the CPU's (relative, of each
+#: leaf's largest magnitude); TF32 is off, so only the order of float32
+#: sums differs. (arch, B, S, jamba's two-layer cut, crowded routing: the
+#: embedding rows moved by +1, so that the MoE's capacity branch drops
+#: slots) as ``tests/test_torch_train_mixers.py`` runs them against the
+#: reference
+MIXER_AGREE_RTOL = 1e-4
+MIXER_AGREE = (("jamba-v0.1-52b", 2, 16, False, False),
+               ("jamba-v0.1-52b", 2, 300, True, True),
+               ("phi3.5-moe-42b-a6.6b", 2, 256, False, True),
+               ("moonshot-v1-16b-a3b", 2, 16, False, False),
+               ("xlstm-125m", 1, 300, False, False))
+#: the loss against ce + MOE_AUX_COEF · aux recomputed from the float32
+#: metrics (relative)
+MIXER_LOSS_SUM_RTOL = 1e-6
 
 #: a profiled window whose kernels are counted one by one opens on
 #: OPEN_SLEEPS sleep kernels of SLEEP_CYCLES cycles (~5 ms on the H100) and
@@ -2506,8 +2573,9 @@ def attention_stats_checks(dev) -> None:
     """The forward's training statistics (``flash_attention(...,
     stats=True)``: the rows' log-sum-exp and the output's bf16 remainder)
     against the plain forward's, at the training shapes of llama3.2-1b (B 4,
-    Hq 32, Hkv 8, S 4,096, D 64) and qwen3-1.7b (Hq 16, D 128) on seeded
-    inputs, one batch element of the plain version at a time, within
+    Hq 32, Hkv 8, S 4,096, D 64), qwen3-1.7b (Hq 16, D 128) and the
+    attention layers of jamba-v0.1-52b and phi3.5-moe (B 1, Hq 32, Hkv 8,
+    D 128: a GQA group of 4 at D 128) on seeded inputs, one batch element of the plain version at a time, within
     ATTN_STATS_TOL; the output is the one the call without statistics
     gives, bit for bit, and every stored row is finite."""
     import torch
@@ -2516,9 +2584,10 @@ def attention_stats_checks(dev) -> None:
                                                      flash_attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    for tag, hq, hkv, d in (("llama3.2-1b", 32, 8, 64),
-                            ("qwen3-1.7b", 16, 8, 128)):
-        b, s = TRAIN_BATCH, TRAIN_SEQ
+    for tag, b, hq, hkv, d in (("llama3.2-1b", TRAIN_BATCH, 32, 8, 64),
+                               ("qwen3-1.7b", TRAIN_BATCH, 16, 8, 128),
+                               ("jamba/phi3.5-moe", 1, 32, 8, 128)):
+        s = TRAIN_SEQ
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
                                ).bfloat16() for h in (hq, hkv, hkv))
         o, lse, o_lo = flash_attention(q, k, v, causal=True, stats=True)
@@ -2558,7 +2627,8 @@ def attention_bwd_checks(dev, out: dict) -> None:
     seeded inputs, each gradient within ATTN_BWD_RTOL of the plain
     gradient's largest magnitude and the same bits on a second run, at the
     training shapes at B 1: llama3.2-1b (Hq 32, Hkv 8, S 4,096, D 64, bf16,
-    causal), qwen3-1.7b (Hq 16, Hkv 8, D 128), a
+    causal), qwen3-1.7b (Hq 16, Hkv 8, D 128), jamba-v0.1-52b's and
+    phi3.5-moe's attention layers (Hq 32, Hkv 8, D 128), a
     ragged S of 4,097, rep 1, D 32 and 16 (the small head dims of the bf16
     kernels) and float32; with times beside the backward of
     ``scaled_dot_product_attention`` on k/v repeated to the query heads
@@ -2599,6 +2669,7 @@ def attention_bwd_checks(dev, out: dict) -> None:
     bf16, f32 = torch.bfloat16, torch.float32
     cases = (("llama3.2-1b", 32, 8, 64, 4096, bf16),
              ("qwen3-1.7b", 16, 8, 128, 4096, bf16),
+             ("jamba/phi3.5-moe", 32, 8, 128, 4096, bf16),
              ("llama3.2-1b ragged", 32, 8, 64, 4097, bf16),
              ("rep 1", 16, 16, 128, 4096, bf16),
              ("D 32", 16, 8, 32, 1000, bf16),
@@ -3029,83 +3100,6 @@ def _to_float(tree):
     return tree.float()
 
 
-def _train_step_profile(trainer, params, opt, batch, step: int,
-                        wall_unprofiled: float) -> None:
-    """Profile one Trainer.step: device time of the attention forward and
-    backward kernels, the matrix products, the optimizer (the device time
-    of the kernels launched inside ``adamw_update``) and the rest, the
-    largest kernels by name, and the device's idle share of the profiled
-    step's wall time (which the profiler stretches) and of an unprofiled
-    step's (``wall_unprofiled``)."""
-    import re
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.train import trainer as trainer_mod
-
-    real = trainer_mod.adamw_update
-
-    def adamw_update(*a, **kw):
-        with record_function("optimizer"):
-            return real(*a, **kw)
-
-    trainer_mod.adamw_update = adamw_update
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            trainer.step(params, opt, batch, step)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        trainer_mod.adamw_update = real
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    # the range's device-side annotation: from the optimizer's first kernel
-    # to its last; the kernels inside it are the optimizer's
-    window = [(s0, s1) for s0, s1, name in spans if name == "optimizer"]
-    spans = [x for x in spans if x[2] != "optimizer"]
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
-    busy, end, by_name = 0.0, float("-inf"), {}
-    split = dict(attention_fwd=0.0, attention_bwd=0.0, matmul=0.0, other=0.0)
-    for s0, s1, name in spans:
-        busy += max(0.0, s1 - max(s0, end))
-        end = max(end, s1)
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (s1 - s0) / 1e6
-        if re.search(r"flash_(wgmma|mma|simt)", name):
-            key = "attention_fwd"
-        elif re.search(r"bwd_(dq|dkdv)_", name):
-            # both designs: bwd_{dq,dkdv}_wgmma_kernel (the dQ kernel forms
-            # the rows' D itself: no pre-pass, no convert pass) and the
-            # first design's bwd_{dq,dkdv}_{mma,simt}_kernel
-            key = "attention_bwd"
-        elif re.search(r"gemm|xmma|cutlass|nvjet|wgmma|Kernel2", name):
-            key = "matmul"
-        else:
-            key = "other"
-        split[key] += (s1 - s0) / 1e6
-    opt = "not measured (no device annotation recorded)"
-    if window:
-        inside = sum(s1 - s0 for s0, s1, _ in spans
-                     if any(w0 <= s0 and s1 <= w1 for w0, w1 in window))
-        opt = (f"{inside / 1e6:.6f} s in a window of "
-               f"{sum(w1 - w0 for w0, w1 in window) / 1e6:.6f} s")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log(f"lm_train profile of one step: wall {wall:.4f} s, device busy "
-        f"{busy / 1e6:.4f} s, idle share {1 - busy / 1e6 / wall:.4f} of the "
-        f"profiled step, {max(0.0, 1 - busy / 1e6 / wall_unprofiled):.4f} "
-        f"of an unprofiled one ({wall_unprofiled * 1e3:.1f} ms), "
-        f"{len(spans)} device events; device s by kind: "
-        + json.dumps({k: round(v, 6) for k, v in split.items()})
-        + f"; of it the optimizer's kernels (adamw_update) {opt}; top "
-        f"kernels (s): "
-        + json.dumps({n: round(t, 6) for n, t in top}))
-
-
 def capture_attention_bwd():
     """Patch ``FlashAttentionFn.backward`` to keep the operands and the
     gradients of the first backward it runs (the last layer's attention,
@@ -3180,19 +3174,21 @@ def _attention_bwd_in_kernel_precision(q, k, v, dout):
     return tuple(t[None].to(q.dtype) for t in (dq, dk, dv))
 
 
-def hold_step_attention_bwd(cap: dict, out: dict) -> None:
+def hold_step_attention_bwd(cap: dict, out: dict, tag: str = "training step",
+                            headline: bool = True) -> None:
     """flash_attention_bwd at the training step's own shape and layouts:
     the operands that one Trainer.step passed it (``capture_attention_bwd``;
-    B 4, Hq 32, Hkv 8, S 4,096, D 64, bf16, with q, k, v, the output and
-    dO strided as the model's head-transposed views make them). A rerun
+    llama3.2-1b's B 4, Hq 32, Hkv 8, S 4,096, D 64, or jamba-v0.1-52b's
+    B 1, Hq 32, Hkv 8, D 128, bf16, with q, k, v, the output and dO strided
+    as the model's head-transposed views make them). A rerun
     gives the step's bits, and so does the kernel on each batch element
     alone (B 1), which holds its batch index at every b. Each element's
     gradients are held against the plain gradients (the (Hq, S, S) float32
     scores of one element fit), beside the same formulas carried out in
     the kernel's precision (``attention_bwd_in_kernel_precision``). Timed
-    beside the plain version over the four elements and the backward of
-    SDPA on k/v repeated to the query heads (timed only): the kernels
-    line's figures for flash_attention_bwd."""
+    beside the plain version over the batch elements and the backward of
+    SDPA on k/v repeated to the query heads (timed only): with
+    ``headline``, the kernels line's figures for flash_attention_bwd."""
     import torch
     import torch.nn.functional as F
 
@@ -3202,8 +3198,8 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
     q, k, v, o, dout = (cap[n] for n in ("q", "k", "v", "o", "dout"))
     stats = cap["stats"]
     if not stats:
-        raise AssertionError("flash_attention_bwd training step: the "
-                             "forward saved no statistics")
+        raise AssertionError(f"flash_attention_bwd {tag}: the "
+                             f"forward saved no statistics")
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     names = ("dq", "dk", "dv")
@@ -3214,7 +3210,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         for n, t in (("q", q), ("k", k), ("v", v), ("out", o), ("dO", dout)))
     again = flash_attention_bwd(q, k, v, o, dout, **stats)
     for name, g, a in zip(names, cap["grads"], again):
-        same_bits("flash_attention_bwd", f"training step {name}", g, a)
+        same_bits("flash_attention_bwd", f"{tag} {name}", g, a)
     del again
     tol = ATTN_BWD_RTOL[str(q.dtype).split(".")[1]]
     errs, fails, rows = [0.0] * 3, [], []
@@ -3223,7 +3219,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         one_stats = {n: t[i:i + 1] for n, t in stats.items()}
         for name, g, a in zip(names, cap["grads"],
                               flash_attention_bwd(*one, **one_stats)):
-            same_bits("flash_attention_bwd", f"training step b={i} alone "
+            same_bits("flash_attention_bwd", f"{tag} b={i} alone "
                       f"{name}", g[i:i + 1], a)
         want = flash_attention_bwd_plain(*one[:3], one[4])
         emul = attention_bwd_in_kernel_precision(*one[:3], one[4])
@@ -3233,7 +3229,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
                                                 emul)):
             g = g[i:i + 1]
             if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"flash_attention_bwd training step "
+                raise AssertionError(f"flash_attention_bwd {tag} "
                                      f"{name}: {g.shape} {g.dtype}, want "
                                      f"{w.shape} {w.dtype}")
             wf = w.float()
@@ -3250,7 +3246,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         rows.append(f"b={i}: " + ", ".join(row))
         del want, emul, one
     torch.cuda.empty_cache()
-    log(f"flash_attention_bwd training step (the last layer): {layouts}; "
+    log(f"flash_attention_bwd {tag} (the last layer): {layouts}; "
         f"from the forward's saved statistics (lse "
         f"{tuple(stats['lse'].shape)}, out_lo); "
         f"the same bits on a rerun and on each batch element alone; max abs "
@@ -3258,7 +3254,7 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
         f"relative to each element's largest plain gradient: "
         + "; ".join(rows) + f" (limit {tol})")
     if fails:
-        raise AssertionError(f"flash_attention_bwd training step: "
+        raise AssertionError(f"flash_attention_bwd {tag}: "
                              f"{'; '.join(fails)} exceed rel tol {tol}")
     ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, dout, **stats))
     pms = stream_ms(lambda: [flash_attention_bwd_plain(
@@ -3273,10 +3269,10 @@ def hold_step_attention_bwd(cap: dict, out: dict) -> None:
     pairs = s * (s + 1) // 2
     flops = 10 * b * hq * d * pairs
     nbytes = q.element_size() * d * b * s * (4 * hq + 4 * hkv)
-    record(out, "flash_attention_bwd", f"training step B={b} Hq={hq} "
+    record(out, "flash_attention_bwd", f"{tag} B={b} Hq={hq} "
            f"Hkv={hkv} S={s} D={d} {str(q.dtype).split('.')[1]} causal, "
            f"the step's layouts", max(errs), ms, pms, lms, flops, nbytes,
-           PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32, True)
+           PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32, headline)
 
 
 def lm_train_phase(dev, out: dict) -> dict:
@@ -3401,7 +3397,7 @@ def lm_train_phase(dev, out: dict) -> dict:
                          peak=torch.cuda.max_memory_allocated())
         hold_step_attention_bwd(cap, out)
         del cap
-        _train_step_profile(trainer, params, opt,
+        _train_step_profile("lm_train", trainer, params, opt,
                             trainer.data.batch(TRAIN_STEPS), TRAIN_STEPS,
                             walls[-1])
         torch.cuda.synchronize()
@@ -3689,6 +3685,358 @@ def lm_train_mesh_phase(dev) -> dict:
     return totals
 
 
+def _mixer_cfg(arch: str, layers, pattern):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  block_pattern=pattern or cfg.block_pattern)
+    return cfg
+
+
+def _train_step_profile(tag: str, trainer, params, opt, batch, step: int,
+                        wall_unprofiled: float) -> None:
+    """Profile one Trainer.step: device seconds by kind, the optimizer's
+    kernels (those inside ``adamw_update``) and the Mamba scan's (inside
+    ``ScanChunk``'s forward and backward), each annotated for this
+    profile, apart from the attention forward and backward kernels, the
+    matrix products and the rest; the largest kernels by name, and the
+    device's idle share of the profiled step's wall time (which the
+    profiler stretches) and of an unprofiled step's (``wall_unprofiled``)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm
+    from repro_torch.train import trainer as trainer_mod
+
+    real = (trainer_mod.adamw_update, ssm.ScanChunk.forward,
+            ssm.ScanChunk.backward)
+
+    def annotated(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    trainer_mod.adamw_update = annotated("optimizer", real[0])
+    ssm.ScanChunk.forward = staticmethod(annotated("mamba_scan", real[1]))
+    ssm.ScanChunk.backward = staticmethod(annotated("mamba_scan", real[2]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.step(params, opt, batch, step)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.adamw_update = real[0]
+        ssm.ScanChunk.forward = staticmethod(real[1])
+        ssm.ScanChunk.backward = staticmethod(real[2])
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    windows = {k: [(s0, s1) for s0, s1, n in spans if n == k]
+               for k in ("optimizer", "mamba_scan")}
+    spans = [x for x in spans if x[2] not in windows]
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    split = dict(mamba_scan=0.0, optimizer=0.0, attention_fwd=0.0,
+                 attention_bwd=0.0, matmul=0.0, other=0.0)
+    by_name: dict = {}
+    for s0, s1, name in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (s1 - s0) / 1e6
+        inside = [k for k, ws in windows.items()
+                  if any(w0 <= s0 and s1 <= w1 for w0, w1 in ws)]
+        if inside:
+            key = inside[0]
+        elif re.search(r"flash_(wgmma|mma|simt)", name):
+            key = "attention_fwd"
+        elif re.search(r"bwd_(dq|dkdv)_", name):
+            # both designs: bwd_{dq,dkdv}_wgmma_kernel (the dQ kernel forms
+            # the rows' D itself: no pre-pass, no convert pass) and the
+            # first design's bwd_{dq,dkdv}_{mma,simt}_kernel
+            key = "attention_bwd"
+        elif re.search(r"gemm|xmma|cutlass|nvjet|wgmma|Kernel2", name):
+            key = "matmul"
+        else:
+            key = "other"
+        split[key] += (s1 - s0) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"{tag} profile of one step: wall {wall:.4f} s, "
+        f"device busy {busy / 1e6:.4f} s, idle share "
+        f"{1 - busy / 1e6 / wall:.4f} of the profiled step, "
+        f"{max(0.0, 1 - busy / 1e6 / wall_unprofiled):.4f} of an unprofiled "
+        f"one ({wall_unprofiled * 1e3:.1f} ms), {len(spans)} device events; "
+        f"device s by kind (the scan's and the optimizer's kernels by their "
+        f"annotated windows, {len(windows['mamba_scan'])} scan windows): "
+        + json.dumps({k: round(v, 6) for k, v in split.items()})
+        + "; top kernels (s): "
+        + json.dumps({n: round(t, 6) for n, t in top}))
+
+
+def _train_mixer(dev, tmp: str, arch: str, layers, pattern, b: int, s: int,
+                 steps: int, mesh=None, plan=None, profile: bool = False,
+                 plain: bool = True, hold_bwd=None) -> dict:
+    """``steps`` Trainer.steps of one mixer model (over ``mesh`` under
+    ``plan`` when given), gated: launches a step, finite and falling losses,
+    loss = ce + 0.01·aux, and (``plain``) loss₀ against the same model on
+    the plain attention. With ``hold_bwd`` (a kernel records dict), the
+    attention backward of step 0 is captured and held against its plain
+    version once the model is freed (``hold_step_attention_bwd``). Returns
+    its losses, walls and launch totals."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.distributed.collectives import (collective_counts,
+                                                     reset_collective_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import loss_fn
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.transformer import MOE_AUX_COEF
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = _mixer_cfg(arch, layers, pattern)
+    kw = {} if mesh is None else dict(mesh=mesh, plan=plan)
+    tag = cfg.name + ("" if mesh is None else f" mesh {plan.moe_impl}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    trainer = Trainer(cfg, ShapeSpec("train", s, b, "train"), TrainerConfig(
+        ckpt_dir=os.path.join(tmp, tag.replace(" ", "_")), total_steps=100,
+        warmup_steps=1, log_every=1), AdamWConfig(lr=MIXER_LR), device=dev,
+        **kw)
+    params, opt = trainer.init_state()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves((params, opt))) / 1e9
+    n_attn = len(cfg.attn_layers)
+    kinds = "".join(cfg.layer_kind(i) for i in range(cfg.num_layers))
+    n_moe = sum(cfg.layer_is_moe(i % cfg.pattern_period)
+                for i in range(cfg.num_layers)
+                if cfg.layer_kind(i) in ("a", "m"))
+    log(f"lm_train_mixers {tag}: {cfg.num_layers} layers ({kinds}; {n_moe} "
+        f"MoE of {cfg.num_experts} experts top {cfg.experts_per_token}), "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; {n_params} parameters; parameters and optimizer "
+        f"state {state_gb:.3f} GB (+ a bf16 gradient a parameter in the "
+        f"step); batch {b} x {s}")
+    plain_loss = None
+    if plain and n_attn:
+        real = model_layers.ops.attention
+        model_layers.ops.attention = attention_as(
+            lambda q, k, v, causal: flash_attention_plain(q, k, v,
+                                                          causal=causal))
+        try:
+            with torch.no_grad():
+                plain_loss = float(loss_fn(trainer.cfg, params,
+                                           trainer.batch(0))[0])
+        finally:
+            model_layers.ops.attention = real
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    losses, walls, totals = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    batch = trainer.batch(0)
+    for step in range(steps):
+        torch.cuda.synchronize()
+        capture = hold_bwd is not None and n_attn and step == 0
+        if capture:
+            cap, undo = capture_attention_bwd()
+        reset_launch_counts()
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        try:
+            params, opt, m = trainer.step(params, opt, batch, step + 1)
+            m = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+        finally:
+            if capture:
+                undo()
+        walls.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        losses.append(m["loss"])
+        coll = "" if mesh is None else "; collectives " + json.dumps(
+            collective_counts())
+        log(f"lm_train_mixers {tag} step {step}: loss {m['loss']:.6f} (ce "
+            f"{m['ce']:.6f}, aux {m['aux']:.6f}), grad norm "
+            f"{m['grad_norm']:.6f}, wall {walls[-1] * 1e3:.1f} ms "
+            f"({b * s / walls[-1]:.0f} tokens/s); flash_attention "
+            f"{counts['flash_attention']}, flash_attention_bwd "
+            f"{counts['flash_attention_bwd']} launches" + coll)
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"lm_train_mixers {tag} step {step}: "
+                                 f"launches {got}, want {want}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"lm_train_mixers {tag}: metrics {m}")
+        total = m["ce"] + MOE_AUX_COEF * m["aux"]
+        if abs(m["loss"] - total) > MIXER_LOSS_SUM_RTOL * abs(total):
+            raise AssertionError(f"lm_train_mixers {tag}: loss {m['loss']} "
+                                 f"is not ce + {MOE_AUX_COEF}·aux = {total}")
+        if (m["aux"] > 0.0) != bool(cfg.num_experts):
+            raise AssertionError(f"lm_train_mixers {tag}: aux {m['aux']} "
+                                 f"with {cfg.num_experts} experts")
+    peak = torch.cuda.max_memory_allocated()
+    warm = walls[1:] or walls
+    line = (f"lm_train_mixers {tag} {steps} steps: losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; step wall ms "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}, steps 1-"
+            f"{steps - 1} mean {sum(warm) / len(warm) * 1e3:.1f} ms, "
+            f"{b * s * len(warm) / sum(warm):.0f} tokens/s; peak device "
+            f"memory of the steps {peak / 1e9:.3f} GB ({held / 1e9:.3f} GB "
+            f"held before the trainer)")
+    if plain_loss is not None:
+        line += (f"; loss0 on the plain attention {plain_loss:.6f} (|Δ| "
+                 f"{abs(losses[0] - plain_loss):.2e}, limit "
+                 f"{TRAIN_LOSS_ATOL})")
+    log(line)
+    if plain_loss is not None and abs(losses[0] - plain_loss) > \
+            TRAIN_LOSS_ATOL:
+        raise AssertionError(f"lm_train_mixers {tag}: loss0 {losses[0]} on "
+                             f"the kernels vs {plain_loss} on the plain "
+                             f"attention")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_train_mixers {tag}: the loss did not fall: "
+                             f"{losses}")
+    if n_attn:
+        launched(f"lm_train_mixers {tag}", totals,
+                 ("flash_attention", "flash_attention_bwd"))
+    if profile:
+        _train_step_profile(f"lm_train_mixers {tag}", trainer, params, opt,
+                            batch, steps + 1, walls[-1])
+    torch.cuda.synchronize()
+    del params, opt, trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hold_bwd is not None and n_attn:
+        hold_step_attention_bwd(cap, hold_bwd, f"lm_train_mixers {tag} step",
+                                headline=False)
+        del cap
+        torch.cuda.empty_cache()
+    return dict(losses=losses, walls=walls, totals=totals, peak=peak)
+
+
+def _agree_on_cpu(dev) -> None:
+    """The smoke configs in float32, the loss and every gradient leaf on
+    the card against the same computation on the CPU (MIXER_AGREE)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    for arch, b, s, cut, crowd in MIXER_AGREE:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        if cut:
+            cfg = dataclasses.replace(cfg, num_layers=2,
+                                      block_pattern=("a", "m"))
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        if crowd:
+            params["embed"] = params["embed"] + 1.0
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)
+                                                  ).astype(np.int32))
+                 for k in ("tokens", "labels")}
+        out = {}
+        for where in ("cpu", dev):
+            p = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
+                         params)
+            loss, m = loss_fn(cfg, p, {k: v.to(where)
+                                       for k, v in batch.items()})
+            loss.backward()
+            out[str(where)] = (float(loss), float(m["aux"]),
+                               [t.grad.double().cpu()
+                                for t in tree_leaves(p)])
+        (lc, ac, gc_), (lg, ag, gg) = out["cpu"], out[str(dev)]
+        worst = max(float((g - c).abs().max())
+                    / max(float(c.abs().max()), 1e-30)
+                    for g, c in zip(gg, gc_))
+        rel = abs(lg - lc) / abs(lc)
+        log(f"lm_train_mixers agreement {cfg.name}{' cut' if cut else ''} "
+            f"{b}x{s}{' crowded' if crowd else ''} (float32): loss card "
+            f"{lg:.7f} vs CPU {lc:.7f} (relative {rel:.2e}), aux {ag:.7f} vs "
+            f"{ac:.7f}; {len(gg)} gradient leaves, worst max|Δ| "
+            f"{worst:.2e} of the leaf's largest (limit {MIXER_AGREE_RTOL})")
+        if rel > MIXER_AGREE_RTOL or worst > MIXER_AGREE_RTOL:
+            raise AssertionError(f"lm_train_mixers agreement {cfg.name}: "
+                                 f"loss {rel:.2e}, gradients {worst:.2e}")
+
+
+def lm_train_mixers_phase(dev, out: dict) -> dict:
+    """The archs with MoE, Mamba and xLSTM layers trained at full width on
+    the card (MIXER_TRAIN; jamba's steps profiled once, its attention
+    backward held at the step's operands, into ``out``), moonshot over a
+    1 x 1 NCCL mesh under tp_ragged and ep against its single-device
+    losses, and the smoke configs' loss and gradients on the card against
+    the CPU. Returns the launch totals of the single-device steps."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import ExecutionPlan
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    t_phase = time.perf_counter()
+    totals, runs = {}, {}
+    tmp = tempfile.mkdtemp(prefix="lm_train_mixers_")
+    try:
+        for arch, layers, pattern, b, s, steps in MIXER_TRAIN:
+            first = arch == MIXER_TRAIN[0][0]
+            runs[arch] = r = _train_mixer(
+                dev, tmp, arch, layers, pattern, b, s, steps, profile=first,
+                hold_bwd=out if first else None)
+            for k, v in r["totals"].items():
+                totals[k] = totals.get(k, 0) + v
+        arch, layers, pattern, b, s, steps = next(
+            x for x in MIXER_TRAIN if x[0] == MIXER_MESH_ARCH)
+        single = runs[arch]["losses"]
+        init_ranks(0, 1, os.path.join(tmp, "store"), dev)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            for impl in MIXER_MESH_IMPLS:
+                got = _train_mixer(
+                    dev, tmp, arch, layers, pattern, b, s, steps, mesh=mesh,
+                    plan=ExecutionPlan(fsdp_params=True, moe_impl=impl),
+                    plain=False)["losses"]
+                rels = [abs(x - y) / abs(y) for x, y in zip(got, single)]
+                log(f"lm_train_mixers mesh {impl}: losses "
+                    f"{', '.join(f'{x:.6f}' for x in got)} against the single "
+                    f"device's {', '.join(f'{x:.6f}' for x in single)}: "
+                    f"relative {', '.join(f'{x:.2e}' for x in rels)} (limit "
+                    f"{MESH_LOSS_RTOL})")
+                if max(rels) > MESH_LOSS_RTOL:
+                    raise AssertionError(f"lm_train_mixers mesh {impl}: "
+                                         f"{got} vs {single}")
+        finally:
+            dist.destroy_process_group()
+        _agree_on_cpu(dev)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    PHASE_S["lm_train_mixers"] = time.perf_counter() - t_phase
+    return totals
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -3710,9 +4058,9 @@ def main(argv=None) -> int:
                     help="only the lm_serve_mixers path (the kernels line "
                          "then lists flash_attention)")
     ap.add_argument("--train", action="store_true",
-                    help="only the lm_train and lm_train_mesh paths and the "
-                         "flash_attention_bwd checks (the kernels line then "
-                         "lists that kernel)")
+                    help="only the lm_train, lm_train_mesh and "
+                         "lm_train_mixers paths and the flash_attention_bwd "
+                         "checks (the kernels line then lists that kernel)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3754,6 +4102,7 @@ def main(argv=None) -> int:
         records = {}
         counts = lm_train_phase(dev, records)
         lm_train_mesh_phase(dev)
+        lm_train_mixers_phase(dev, records)
         attention_bwd_checks(dev, records)
     else:
         counts, records = all_paths(dev)
@@ -3811,6 +4160,7 @@ def all_paths(dev) -> tuple:
     counts["flash_attention_bwd"] = lm_train_phase(
         dev, train_records)["flash_attention_bwd"]
     lm_train_mesh_phase(dev)
+    lm_train_mixers_phase(dev, train_records)
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)

@@ -10,8 +10,8 @@ output, a reduce-scatter's input), since :func:`reset_collective_counts`.
 Over a group, a CUDA tensor runs NCCL and a CPU tensor gloo; any other
 pairing raises, so a mesh on the card never falls back to gloo or the CPU.
 
-The model's three autograd-aware collectives (Megatron's f and g, and
-FSDP's gather):
+The model's autograd-aware collectives (Megatron's f and g, FSDP's
+gather, and what the MoE and the whole-computed mixers need):
 
 * :func:`copy_to` — identity forward, all-reduce (sum) backward: the input
   of a column-parallel product, whose gradient each rank forms only in
@@ -21,6 +21,14 @@ FSDP's gather):
 * :func:`gather_from` — all-gather along a dimension forward,
   reduce-scatter (sum) backward: a parameter sharded over data ranks
   (FSDP), gathered where it is used.
+* :func:`gather_whole` — all-gather along a dimension forward, this rank's
+  slice of the gradient backward: a parameter sharded over model ranks
+  that every rank of the group uses whole, in the same computation, so
+  that each forms the same whole gradient (the Mamba and xLSTM mixers).
+* :func:`exchange` — an all-to-all forward, the same all-to-all of the
+  gradient backward (expert parallelism: ``x[i]`` goes to rank i and
+  rank i's part lands at ``out[i]``, a transposition over the ranks,
+  which is its own adjoint).
 """
 from __future__ import annotations
 
@@ -29,10 +37,10 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce", "all_gather", "reduce_scatter",
+__all__ = ["all_reduce", "all_gather", "reduce_scatter", "all_to_all",
            "all_reduce_coalesced", "all_gather_coalesced", "copy_to",
-           "reduce_from", "gather_from", "collective_counts",
-           "reset_collective_counts"]
+           "reduce_from", "gather_from", "gather_whole", "exchange",
+           "collective_counts", "reset_collective_counts"]
 
 _COUNTS: Dict[str, Dict[str, int]] = {}
 
@@ -40,7 +48,7 @@ _COUNTS: Dict[str, Dict[str, int]] = {}
 def collective_counts() -> Dict[str, Dict[str, int]]:
     """{kind: {"calls", "bytes"}} since the last reset; kinds
     ``all_reduce_sum``, ``all_reduce_max``, ``all_gather``,
-    ``reduce_scatter``."""
+    ``reduce_scatter``, ``all_to_all``."""
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
@@ -106,6 +114,21 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     _count("reduce_scatter", x)
     dist.reduce_scatter_tensor(out, x.flatten(0, 1), group=group)
+    return out
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` (n, ...) over a group of n ranks: ``t[i]`` is sent to rank i,
+    and row i of the result is what rank i sent this rank."""
+    _check(t, group)
+    n = dist.get_world_size(group)
+    if t.shape[0] != n:
+        raise ValueError(f"an all-to-all over {n} ranks takes a leading "
+                         f"dimension of {n}, not {tuple(t.shape)}")
+    x = t.contiguous()
+    out = torch.empty_like(x)
+    _count("all_to_all", x)
+    dist.all_to_all_single(out, x, group=group)
     return out
 
 
@@ -188,6 +211,29 @@ class _GatherFrom(torch.autograd.Function):
         return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Identity; the gradient is summed over ``group``."""
     return _CopyTo.apply(x, group)
@@ -202,3 +248,16 @@ def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """``x``'s shards over ``group`` concatenated along ``dim``; the
     gradient is summed over ``group`` and split back."""
     return _GatherFrom.apply(x, group, dim)
+
+
+def gather_whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x``'s shards over ``group`` concatenated along ``dim``; the
+    gradient, the same whole tensor on every rank of ``group``, is cut back
+    to this rank's slice (no sum)."""
+    return _GatherWhole.apply(x, group, dim)
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` of ``x``; the gradient goes back by the same
+    all-to-all."""
+    return _Exchange.apply(x, group)

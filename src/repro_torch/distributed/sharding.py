@@ -27,10 +27,19 @@ heads do not tile the model axis but the q heads do, GSPMD splits ``wk`` and
 axes its spec names raises ``ValueError`` (GSPMD pads uneven shards; the
 port does not).
 
+``moe_impl`` picks the MoE layer's mesh branch (expert-TP ``tp_ragged``
+or expert-parallel ``ep``, :mod:`repro_torch.models.moe`). The rules lay
+the MoE, Mamba and xLSTM leaves out as the reference's do; the model
+gathers a Mamba or xLSTM mixer's model-axis leaves and computes the mixer
+whole on each model rank (a deliberate divergence, as
+:func:`kv_whole_specs` is: the layout is the reference's, the values
+GSPMD's).
+
 ``cache_specs`` and the knobs ``attn_batch_reshard``,
-``shard_activation_ckpt``, ``seq_shard_decode``, ``moe_impl`` and
-``scan_layers`` wait for the code that reads them (ROADMAP §1, items
-3.2b, 3.3 and 4): a knob is a field once code reads it.
+``shard_activation_ckpt``, ``seq_shard_decode`` and ``scan_layers`` wait
+for the code that reads them (ROADMAP §1, items 3.3 and 4): a knob is a
+field once code reads it. The port loops over its layers, so
+``scan_layers`` would change no value.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ class ExecutionPlan:
     """Execution-strategy choices for one (arch × shape × mesh) cell."""
     fsdp_params: bool = False
     remat: str = "layer"            # none | layer
+    moe_impl: str = "tp_ragged"     # tp_ragged | ep
     attn_q_chunk: int = 1024
     attn_kv_chunk: int = 1024
     grad_compression: bool = False  # int8 + error feedback on the DP axis
@@ -65,8 +75,8 @@ class ExecutionPlan:
 
     def apply(self, cfg: ModelConfig) -> ModelConfig:
         return dataclasses.replace(
-            cfg, remat=self.remat, attn_q_chunk=self.attn_q_chunk,
-            attn_kv_chunk=self.attn_kv_chunk)
+            cfg, remat=self.remat, moe_impl=self.moe_impl,
+            attn_q_chunk=self.attn_q_chunk, attn_kv_chunk=self.attn_kv_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -75,9 +85,13 @@ class ExecutionPlan:
 
 def _rule(path: Tuple[str, ...], shape: Tuple[int, ...], tp, fsdp,
           attn_tp: bool = True) -> Spec:
-    """Spec for one parameter leaf (the reference's rules for the leaves
-    the port builds: embeddings, attention, dense MLPs, norms)."""
+    """Spec for one parameter leaf: the reference's rules (:72-111)."""
     name = path[-1]
+    if "mlp" in path and name in ("wg", "wu", "wd") and len(shape) == 3:
+        # (E, D, F) / (E, F, D): the expert-TP layout (F on model)
+        return (None, fsdp, tp) if name != "wd" else (None, tp, fsdp)
+    if name == "router":
+        return (None, None)
     if name == "embed":
         return (tp, fsdp)
     if name == "lm_head":
@@ -88,11 +102,17 @@ def _rule(path: Tuple[str, ...], shape: Tuple[int, ...], tp, fsdp,
         return (fsdp, tp) if attn_tp else (fsdp, None)
     if name == "wo":
         return (tp, fsdp) if attn_tp else (None, fsdp)
-    if name in ("wg", "wu", "wi"):
+    if name in ("wg", "wu", "wi", "up_proj", "in_proj", "up_w", "w_izfo"):
         return (fsdp, tp)
-    if name == "wd":
+    if name in ("wd", "out_proj", "down_w"):
         return (tp, fsdp)
-    # norms: replicated
+    if name in ("x_proj", "a_log", "i_gate", "f_gate"):
+        return (tp, None)
+    if name in ("dt_proj", "q_proj", "k_proj", "v_proj", "conv_w"):
+        return (None, tp)
+    if name in ("conv_b", "dt_bias", "d_skip", "gn_scale") and len(shape) == 1:
+        return (tp,)
+    # norms, biases, small states: replicated
     return (None,) * len(shape)
 
 

@@ -7,9 +7,10 @@
         [--timeout SECONDS]
 
 The reference's flags, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the plain versions of the kernels). ``--smoke`` swaps in the reduced config
-and a small shape (sequence 128, batch 8, unless given) so the launcher
-runs end to end on a CPU.
+the plain versions of the kernels). ``--arch`` takes every config, those
+with MoE, Mamba and xLSTM layers included. ``--smoke`` swaps in the reduced
+config and a small shape (sequence 128, batch 8, unless given) so the
+launcher runs end to end on a CPU.
 
 With ``--devices 1`` and no mesh flag the single-device path runs in this
 process. Otherwise the launcher starts ``--devices`` ranks itself (the

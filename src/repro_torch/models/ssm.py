@@ -16,6 +16,15 @@ rounding only, and it holds (B, chunk, d_inner, N) at a time, never a
 with dt = 0, an identity step (Ābar = 1, B̄x = 0), so the state at the
 last real position is exact.
 
+Training differentiates the scan by autograd, one chunk at a time: when a
+gradient will be taken, each chunk is a :class:`ScanChunk`, whose forward
+keeps only the chunk's inputs (its carry and its slices of dt, B, C and
+x) and whose backward recomputes the chunk's rounds and takes their
+gradient there. Without that, the layer's recompute under the per-layer
+checkpoint would hold every chunk's rounds at once: about 3.1 GB a chunk
+at jamba's d_inner 8,192, N 16 and batch 1, sixteen chunks at a sequence
+of 4,096. The values are the same.
+
 Decode is the O(1) recurrence on a rolling conv window.
 """
 from __future__ import annotations
@@ -29,7 +38,7 @@ from .config import ModelConfig
 from .layers import gen_device, init_dense
 
 __all__ = ["init_mamba_params", "mamba_forward", "mamba_decode_step",
-           "init_mamba_state"]
+           "init_mamba_state", "ScanChunk"]
 
 
 def init_mamba_params(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -93,6 +102,28 @@ def _ssm_chunk(h0, dt, b_in, c_in, xc, a):
     return y, h[:, -1]
 
 
+class ScanChunk(torch.autograd.Function):
+    """:func:`_ssm_chunk` whose backward recomputes it: the forward saves
+    the chunk's inputs only, the backward reruns the chunk with autograd
+    on and takes the gradient of its rounds, which then go."""
+
+    @staticmethod
+    def forward(ctx, h0, dt, b_in, c_in, xc, a):
+        ctx.save_for_backward(h0, dt, b_in, c_in, xc, a)
+        return _ssm_chunk(h0, dt, b_in, c_in, xc, a)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, h = _ssm_chunk(*ins)
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad((y, h), wrt, (gy, gh),
+                                       allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
 def _dt(params, dt_r: torch.Tensor) -> torch.Tensor:
     return F.softplus(dt_r @ params["dt_proj"].float() + params["dt_bias"])
 
@@ -119,10 +150,15 @@ def mamba_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
     h = torch.zeros((b, cfg.d_inner, n), dtype=torch.float32,
                     device=x.device)
     ys = []
+    grad = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in params.values()))
     for t0 in range(0, s + pad, c):
         sl = slice(t0, t0 + c)
-        y, h = _ssm_chunk(h, dt[:, sl], b_in[:, sl], c_in[:, sl],
-                          xcp[:, sl].float(), a)
+        args = (h, dt[:, sl], b_in[:, sl], c_in[:, sl], xcp[:, sl].float(), a)
+        if grad:
+            y, h = ScanChunk.apply(*args)
+        else:
+            y, h = _ssm_chunk(*args)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :s] + xc.float() * params["d_skip"]
     out = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)

@@ -7,8 +7,7 @@ for items 4 and 3.3), ``_mlp_apply`` (:208, dense gated, GELU and MoE),
 ``_unembed`` (:270), and serving: ``init_cache`` (:351, every slot kind),
 ``_apply_group_serve`` (:372), ``prefill`` (:406) and ``decode_step``
 (:429); and training: ``MOE_AUX_COEF`` (:39), ``_apply_group_train``
-(:227) for 'a' layers with dense MLPs, ``_forward`` (:276) and
-``loss_fn`` (:315).
+(:227) for every slot kind, ``_forward`` (:276) and ``loss_fn`` (:315).
 
 Parameters are a plain dict with one entry per layer in ``"layers"``; the
 reference's ``scan`` over stacked groups is a Python loop here. Layer i is
@@ -29,7 +28,11 @@ on the same dict (the reference returned a new cache). A mixer input of
 length 1 takes the mixer's decode step from the cache, in a prefill too,
 as in the reference; serving drops the MoE aux loss.
 
-Training runs the same layers on one device. ``cfg.remat == "layer"``
+Training runs the same layers: a Mamba, mLSTM or sLSTM mixer under
+``norm1``, an MLP after 'a' and 'm' layers only, and the MoE aux losses
+summed over the layers into the loss (``ce + MOE_AUX_COEF · aux``, the aux
+in the gradient). The backward of the mixers is autograd through their
+forward (the reference has no kernel for them). ``cfg.remat == "layer"``
 wraps each layer in ``torch.utils.checkpoint.checkpoint(...,
 use_reentrant=False)``, the reference's ``jax.checkpoint`` of a layer
 group; ``scan_layers`` changes nothing, since the port loops over its
@@ -46,14 +49,14 @@ with the reference's GSPMD semantics made explicit in named collectives
 (:mod:`repro_torch.distributed.collectives`): FSDP leaves are all-gathered
 where a layer uses them; attention (when the q heads tile the model axis),
 the MLP, the embedding and the cross entropy are split over the model
-axis, with the attention kernels running on each rank's local heads. The
-loss is the mean over this rank's rows; the trainer reduces the gradients
-over the data axes.
-
-Training a config with layers of kind 'm', 'M' or 's' (Mamba, mLSTM,
-sLSTM) or with MoE MLPs is not ported: :func:`loss_fn` (and the
-``Trainer``) raise ``NotImplementedError`` for it (:func:`check_trainable`,
-ROADMAP §1, item 3.2b).
+axis, with the attention kernels running on each rank's local heads; the
+MoE MLP runs the reference's mesh branches (:mod:`.moe`: dense, expert-TP
+``tp_ragged`` or expert-parallel ``ep``, per ``cfg.moe_impl``). A Mamba,
+mLSTM or sLSTM mixer gathers its leaves that the layout splits over the
+model axis and computes whole on every model rank (a deliberate
+divergence: GSPMD splits d_inner; the values are the same). The loss is
+the mean over this rank's rows, with the aux as the reference combines it;
+the trainer reduces the gradients over the data axes.
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ from .config import ModelConfig
 from .layers import (apply_rope, gen_device, gqa_attention, init_dense,
                      init_norm, mrope_cos_sin, rms_norm, rope_cos_sin,
                      swiglu_mlp)
-from .moe import init_moe_params, moe_ffn
+from .moe import MoeMesh, dense_branch, init_moe_params, moe_ffn
 from .ssm import (init_mamba_params, init_mamba_state, mamba_decode_step,
                   mamba_forward)
 from .xlstm import (init_mlstm_params, init_mlstm_state, init_slstm_params,
@@ -78,27 +81,13 @@ from .xlstm import (init_mlstm_params, init_mlstm_state, init_slstm_params,
                     slstm_decode_step, slstm_forward)
 
 __all__ = ["init_params", "loss_fn", "prefill", "decode_step", "init_cache",
-           "model_dtype", "check_trainable"]
+           "model_dtype"]
 
 MOE_AUX_COEF = 0.01
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
-    attention with a dense MLP: the port builds, converts and serves every
-    config, and trains those."""
-    other = sorted(set(cfg.block_pattern) - {"a"})
-    if other or cfg.num_experts:
-        what = ", ".join([f"{k!r} layers" for k in other]
-                         + (["MoE MLPs"] if cfg.num_experts else []))
-        raise NotImplementedError(
-            f"{cfg.name}: training a model with {what} is not ported yet "
-            f"(ROADMAP §1, item 3.2b: training of the MoE, Mamba and xLSTM "
-            f"mixers)")
 
 
 #: the mixers other than attention: the layer's key, its forward (a
@@ -261,19 +250,25 @@ def _local_kv(k, v, r: int, hq_l: int, rep: int):
     return k.index_select(1, ix), v.index_select(1, ix)
 
 
-def _mlp_apply(layer, x, cfg: ModelConfig, par=None):
+def _mlp_apply(layer, x, cfg: ModelConfig, par=None, mspec=None):
     """Post-mixer MLP: dense (gated SwiGLU or tanh-approximate GELU), or
-    MoE (:func:`~repro_torch.models.moe.moe_ffn`, its aux loss dropped:
-    only serving reaches it). Under a mesh whose layout splits the hidden
-    width (``par.mlp``): ``wg``, ``wu``, ``wi`` column-parallel, ``wd``
-    row-parallel with its partial products summed over the model group."""
+    MoE (:func:`~repro_torch.models.moe.moe_ffn`). Returns (x, the float32
+    MoE aux loss, or ``None`` for a dense MLP or none). Under a mesh whose
+    layout splits the hidden width (``mspec``, the MLP's specs): ``wg``,
+    ``wu``, ``wi`` column-parallel, ``wd`` row-parallel with its partial
+    products summed over the model group; an MoE MLP takes the reference's
+    mesh branches (:meth:`_Par.moe`)."""
     if "mlp" not in layer:
-        return x
+        return x, None
     h = rms_norm(x, layer["norm2"], cfg.norm_eps)
     mlp = layer["mlp"]
     if "router" in mlp:
-        return x + moe_ffn(mlp, h, cfg)[0]
-    tp = par is not None and par.mlp
+        if par is None:
+            y, aux = moe_ffn(mlp, h, cfg)
+        else:
+            y, aux = par.moe(mlp, mspec, h, cfg)
+        return x + y, aux
+    tp = par is not None and par.split(mspec["wd"], 0)
     if tp:
         h = C.copy_to(h, par.group)
     if cfg.mlp_gated:
@@ -283,20 +278,34 @@ def _mlp_apply(layer, x, cfg: ModelConfig, par=None):
         y = u @ mlp["wd"]
     if tp:
         y = C.reduce_from(y, par.group)
-    return x + y
+    return x + y, None
 
 
-def _apply_group_train(layer, x, cos, sin, cfg: ModelConfig, par=None,
-                       lspec=None):
-    """One layer of the training forward (the reference's group of one 'a'
-    slot): attention, then the MLP. The reference also returns the group's
-    MoE aux loss, which is 0 without experts. Under a mesh the layer's
-    FSDP-sharded leaves are gathered first, here, so that a checkpointed
-    layer gathers them again when it is recomputed."""
+def _apply_group_train(layer, x, cos, sin, cfg: ModelConfig, kind: str,
+                       par=None, lspec=None):
+    """One layer of the training forward (the reference's group slot):
+    its mixer (attention, or a Mamba, mLSTM or sLSTM mixer under
+    ``norm1``), then, after 'a' and 'm' layers, the MLP. Returns (x, the
+    layer's MoE aux loss or ``None``). Under a mesh the layer's FSDP-sharded leaves are
+    gathered first, here, so that a checkpointed layer gathers them again
+    when it is recomputed; a mixer's leaves are gathered whole."""
     if par is not None:
-        layer = par.use_tree(layer, lspec)
-    x, _ = _attn_apply(layer, x, cos, sin, cfg, par=par)
-    return _mlp_apply(layer, x, cfg, par=par)
+        layer = {k: par.use_tree(v, lspec[k], whole=k in _WHOLE)
+                 for k, v in layer.items()}
+    if kind == "a":
+        x, _ = _attn_apply(layer, x, cos, sin, cfg, par=par)
+    else:
+        name, forward, _ = _MIXERS[kind]
+        h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+        x = x + forward(layer[name], h, cfg)
+    if kind not in ("a", "m"):
+        return x, None
+    return _mlp_apply(layer, x, cfg, par=par,
+                      mspec=None if lspec is None else lspec.get("mlp"))
+
+
+#: the mixers a mesh computes whole on every model rank
+_WHOLE = ("mamba", "mlstm", "slstm")
 
 
 # ---------------------------------------------------------------------------
@@ -306,45 +315,59 @@ def _apply_group_train(layer, x, cos, sin, cfg: ModelConfig, par=None,
 class _Par:
     """The model's view of an active training mesh: the parameters'
     layout (the context's ``specs``), the model group, its width ``n`` and
-    this rank's index ``r`` on it, and which products the layout splits
-    over it. A product is split where its weight's spec puts the model
-    axis (a bare name) on a dimension; every other sharded dimension (FSDP:
-    a tuple of axes) is all-gathered where the leaf is used."""
+    this rank's index ``r`` on it, the data group and its width, and which
+    products the layout splits over the model axis. A product is split
+    where its weight's spec puts the model axis (a bare name) on a
+    dimension; every other sharded dimension (FSDP: a tuple of axes) is
+    all-gathered where the leaf is used."""
 
     def __init__(self, ctx: MeshContext, cfg: ModelConfig):
         self.ctx, self.specs = ctx, ctx.specs
         ma = ctx.model_axis
-        has_model = ma in tuple(ctx.mesh.mesh_dim_names)
-        self.group = ctx.group(ma) if has_model else None
-        self.n = ctx.size(ma) if has_model else 1
-        self.r = ctx.index(ma) if has_model else 0
-
-        def split(spec, dim):
-            return has_model and spec is not None and spec[dim] == ma
+        self.has_model = ma in tuple(ctx.mesh.mesh_dim_names)
+        self.group = ctx.group(ma) if self.has_model else None
+        self.n = ctx.size(ma) if self.has_model else 1
+        self.r = ctx.index(ma) if self.has_model else 0
+        self.data_group = ctx.group(ctx.data_axes)
+        self.n_data = ctx.size(ctx.data_axes)
 
         sp = self.specs or {}
-        l0 = sp.get("layers", [{}])[0] if sp else {}
-        self.attn = split(l0.get("attn", {}).get("wq"), 1)
-        self.kv_split = split(l0.get("attn", {}).get("wk"), 1)
-        self.mlp = split(l0.get("mlp", {}).get("wd"), 0)
-        self.embed = split(sp.get("embed"), 0)
+        layers = sp.get("layers", []) if sp else []
+        attn = next((l["attn"] for l in layers if "attn" in l), {})
+        self.attn = self.split(attn.get("wq"), 1)
+        self.kv_split = self.split(attn.get("wk"), 1)
+        self.embed = self.split(sp.get("embed"), 0)
         self.head = (self.embed if cfg.tie_embeddings
-                     else split(sp.get("lm_head"), 1))
+                     else self.split(sp.get("lm_head"), 1))
 
-    def use(self, w: torch.Tensor, spec) -> torch.Tensor:
+    def split(self, spec, dim: int) -> bool:
+        """Whether ``spec`` splits dimension ``dim`` over the model axis."""
+        return (self.has_model and spec is not None
+                and spec[dim] == self.ctx.model_axis)
+
+    def use(self, w: torch.Tensor, spec, whole: bool = False
+            ) -> torch.Tensor:
         """``w`` all-gathered over every axis its spec shards it on, other
-        than the model axis."""
+        than the model axis; with ``whole``, over the model axis too, for a
+        computation every model rank makes alike (its gradient is then cut
+        back to this rank's slice, not summed)."""
+        ma = self.ctx.model_axis
         for d, e in enumerate(spec or ()):
-            if e is not None and e != self.ctx.model_axis:
+            if e is not None and e != ma:
                 w = C.gather_from(w, self.ctx.group(e), d)
+        if whole:
+            for d, e in enumerate(spec or ()):
+                if e == ma:
+                    w = C.gather_whole(w, self.group, d)
         return w
 
-    def use_tree(self, tree, specs):
+    def use_tree(self, tree, specs, whole: bool = False):
         if specs is None:
             return tree
         if isinstance(tree, dict):
-            return {k: self.use_tree(v, specs[k]) for k, v in tree.items()}
-        return self.use(tree, specs)
+            return {k: self.use_tree(v, specs[k], whole)
+                    for k, v in tree.items()}
+        return self.use(tree, specs, whole)
 
     def spec(self, *path):
         sp = self.specs
@@ -353,6 +376,40 @@ class _Par:
                 return None
             sp = sp[k]
         return sp
+
+    def moe(self, mlp, mspec, h, cfg: ModelConfig):
+        """The MoE MLP over the mesh (``mlp``: this rank's leaves, FSDP
+        dimensions gathered). The dense branch and ``tp_ragged`` take the
+        layout's ``F`` slices; ``ep``'s capacity path reshards them to this
+        rank's experts at their whole ``F`` (:meth:`own_experts`)."""
+        split = self.split(mspec["wg"], 2)
+        mesh = MoeMesh(self.group if split else None, self.n if split else 1,
+                       self.data_group, self.n_data)
+        b, s, _ = h.shape
+        if cfg.moe_impl == "ep" and not dense_branch(b * s, mesh):
+            if mesh.model_group is None:
+                raise ValueError("moe_impl='ep' needs a model axis that "
+                                 "splits the experts' hidden width")
+            e = cfg.num_experts
+            if e % self.n:
+                raise ValueError(f"{e} experts do not split over {self.n} "
+                                 f"model ranks")
+            mlp = dict(mlp, **{k: self.own_experts(mlp[k], 2 if k != "wd"
+                                                   else 1)
+                               for k in ("wg", "wu", "wd")})
+        return moe_ffn(mlp, h, cfg, mesh)
+
+    def own_experts(self, w: torch.Tensor, f_dim: int) -> torch.Tensor:
+        """Every expert's ``F`` slice (E, ..., F/n on ``f_dim``) resharded
+        to this rank's E/n experts whole along ``F``, by one all-to-all over
+        the model group: GSPMD's reshard from the layout to ``ep``'s
+        ``P(model, None, None)``. Each rank moves and holds 1/n of the
+        experts; the gradient goes back by the reverse all-to-all."""
+        n, e = self.n, w.shape[0]
+        blocks = C.exchange(w.reshape((n, e // n) + tuple(w.shape[1:])),
+                            self.group)
+        # blocks[j]: this rank's experts, model rank j's F slice
+        return blocks.movedim(0, f_dim).flatten(f_dim, f_dim + 1)
 
 
 def _par(cfg: ModelConfig) -> Optional[_Par]:
@@ -412,26 +469,27 @@ def _unembed(cfg: ModelConfig, params, x):
 def _forward(cfg: ModelConfig, params, batch, par=None):
     """The training forward: embed, every layer (each under
     ``checkpoint`` when ``cfg.remat == "layer"``), the final norm. Returns
-    (x (B, S, D), aux); aux, the MoE loss, is 0, since no ported layer has
-    experts. ``par``: the mesh path (:class:`_Par`), or ``None``. Raises
-    ``NotImplementedError`` for a config :func:`check_trainable` refuses."""
-    check_trainable(cfg)
+    (x (B, S, D), aux), aux the float32 sum of the MoE layers' aux losses.
+    ``par``: the mesh path (:class:`_Par`), or ``None``."""
     x = _embed_inputs(cfg, params, batch, par)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos, sin = _rope_tables(cfg, positions, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params["layers"]):
         lspec = None if par is None else par.spec("layers", i)
+        args = (layer, x, cos, sin, cfg, cfg.layer_kind(i), par, lspec)
         if cfg.remat == "layer":
-            x = checkpoint(_apply_group_train, layer, x, cos, sin, cfg, par,
-                           lspec, use_reentrant=False)
+            x, a = checkpoint(_apply_group_train, *args, use_reentrant=False)
         else:
-            x = _apply_group_train(layer, x, cos, sin, cfg, par, lspec)
+            x, a = _apply_group_train(*args)
+        if a is not None:
+            aux = aux + a
     norm = params["final_norm"]
     if par is not None:
         norm = par.use(norm, par.spec("final_norm"))
     x = rms_norm(x, norm, cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def _chunk_ce(cfg: ModelConfig, params, xc, lc, par=None):
@@ -547,7 +605,7 @@ def _apply_layer_serve(layer, lcache, x, cos, sin, pos: int,
             y, state = forward(layer[name], h, cfg, return_state=True)
         lcache.update(state)
         x = x + y
-    return _mlp_apply(layer, x, cfg)
+    return _mlp_apply(layer, x, cfg)[0]
 
 
 def prefill(cfg: ModelConfig, params, batch, max_seq: int):

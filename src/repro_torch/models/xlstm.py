@@ -14,6 +14,9 @@ window. The sLSTM has exponential gating with the m stabilizer (started at
 reference has ``lax.scan``. As there: the per-head group norm takes the
 population variance, and the sLSTM's post-up MLP the tanh-approximate
 GELU (``jax.nn.gelu``'s default).
+
+Training differentiates both by autograd through this forward: the
+chunkwise mLSTM, and the sLSTM's loop over time, one cell a step.
 """
 from __future__ import annotations
 
@@ -91,9 +94,11 @@ def _mlstm_chunk(C, n, qc, kc, vc, ic, lfc, causal):
     at its end)."""
     qf, kf, vf = qc.float(), kc.float(), vc.float()
     Fc = torch.cumsum(lfc, dim=1)                              # (B,c,H)
-    dmat = torch.where(causal[None, :, :, None],
-                       torch.exp(Fc[:, :, None, :] - Fc[:, None, :, :]),
-                       0.0)                                    # (B,c,c,H)
+    # the exponent is masked before exp: above the diagonal F_i − F_j > 0
+    # may overflow, and an inf there would make the gradient NaN
+    dmat = torch.exp(torch.where(causal[None, :, :, None],
+                                 Fc[:, :, None, :] - Fc[:, None, :, :],
+                                 float("-inf")))               # (B,c,c,H)
     att = torch.einsum("bihe,bjhe->bijh", qf, kf) * dmat * ic[:, None]
     h_intra = torch.einsum("bijh,bjhe->bihe", att, vf)
     nk = torch.einsum("bijh,bjhe->bihe", dmat * ic[:, None], kf)

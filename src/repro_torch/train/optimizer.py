@@ -11,13 +11,21 @@ new values into the parameter tensors, so a step holds no second copy of
 the state (about 20 GB at llama3.2-1b), and returns the same objects. The
 arithmetic is the reference's, in float32: the global-norm clip scale
 folded into each leaf's update, the bias corrections in float32, and
-weight decay on every leaf, norms included.
+weight decay on every leaf, norms included. A leaf of more than
+:data:`SLICE_ELEMENTS` elements is updated in slices along its first
+dimension (an expert, or a run of rows), each slice's float32
+temporaries freed before the next: the values are the same, elementwise,
+and a (16, 4,096, 14,336) expert leaf then needs ~0.24 GB of temporaries
+instead of ~3.8 GB for each.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+
+#: leaves larger than this are updated in slices along their first dimension
+SLICE_ELEMENTS = 1 << 26
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update",
            "global_norm", "clip_by_global_norm", "tree_leaves", "tree_map"]
@@ -108,12 +116,26 @@ def adamw_update(grads: Any, opt_state: Dict[str, Any], params: Any,
     flat = zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
                tree_leaves(opt_state["v"]), tree_leaves(opt_state["master"]),
                tree_leaves(params))
-    for g, m, v, w, p in flat:
-        g = g.float() * clip_scale
-        m.mul_(ocfg.b1).add_((1 - ocfg.b1) * g)
-        v.mul_(ocfg.b2).add_((1 - ocfg.b2) * g * g)
-        step = (m / b1c) / (torch.sqrt(v / b2c) + ocfg.eps)
-        w.sub_(lr * (step + ocfg.weight_decay * w))
-        p.copy_(w)
+    for leaf in flat:
+        for g, m, v, w, p in _slices(*leaf):
+            g = g.float() * clip_scale
+            m.mul_(ocfg.b1).add_((1 - ocfg.b1) * g)
+            v.mul_(ocfg.b2).add_((1 - ocfg.b2) * g * g)
+            step = (m / b1c) / (torch.sqrt(v / b2c) + ocfg.eps)
+            w.sub_(lr * (step + ocfg.weight_decay * w))
+            p.copy_(w)
     opt_state["count"] = count
     return params, opt_state, dict(grad_norm=gnorm)
+
+
+def _slices(*ts):
+    """Matching slices of same-shaped tensors along dimension 0, each of
+    at most :data:`SLICE_ELEMENTS` elements where a row allows (views, so
+    the in-place updates land in the tensors); the tensors themselves when
+    they are small."""
+    t0 = ts[0]
+    if t0.numel() <= SLICE_ELEMENTS or t0.dim() == 0 or t0.shape[0] == 1:
+        return [ts]
+    rows = max(1, SLICE_ELEMENTS // max(1, t0.numel() // t0.shape[0]))
+    return [tuple(t[i:i + rows] for t in ts)
+            for i in range(0, t0.shape[0], rows)]

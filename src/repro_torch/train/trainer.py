@@ -77,7 +77,7 @@ from ..distributed.sharding import (ExecutionPlan, batch_specs,
                                     opt_state_spec_for, param_specs,
                                     to_shardings)
 from ..models.config import ModelConfig, ShapeSpec
-from ..models.transformer import check_trainable, init_params, loss_fn
+from ..models.transformer import init_params, loss_fn
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .data import SyntheticData
 from .optimizer import (AdamWConfig, adamw_update, init_opt_state,
@@ -135,9 +135,9 @@ class _Leaf:
 
 class Trainer:
     """Trains ``cfg`` on ``shape``'s synthetic batches on ``device``
-    (default: the card), over ``mesh`` when one is given. Raises
-    ``NotImplementedError`` for a config with Mamba or xLSTM layers or MoE
-    MLPs (ROADMAP §1, item 3.2b)."""
+    (default: the card), over ``mesh`` when one is given: every arch,
+    attention, Mamba, mLSTM and sLSTM layers and MoE MLPs alike (the MoE
+    over a mesh as ``plan.moe_impl`` says)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeSpec,
                  tcfg: TrainerConfig = TrainerConfig(),
@@ -145,7 +145,6 @@ class Trainer:
                  mesh=None, plan: ExecutionPlan = ExecutionPlan(),
                  data_axes=("data",), model_axis: str = "model",
                  device=None):
-        check_trainable(cfg)
         self.cfg = plan.apply(cfg)
         self.shape = shape
         self.tcfg, self.ocfg, self.plan = tcfg, ocfg, plan

@@ -10,6 +10,7 @@ such sums, plus a tied unembedding over the vocabulary) with equal greedy
 tokens, and in bf16 at 2e-2 in relative norm (bf16 rounds at other places
 in the two frameworks)."""
 import dataclasses
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -39,8 +40,8 @@ from repro_torch.models import layers  # noqa: E402
 PORTED = ["llama3.2-1b", "qwen3-1.7b", "codeqwen1.5-7b", "starcoder2-7b",
           "qwen2-vl-2b", "musicgen-large", "jamba-v0.1-52b",
           "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b", "xlstm-125m"]
-#: the archs with Mamba, xLSTM or MoE layers, whose training is not ported
-UNPORTED = ["jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b",
+#: the archs with Mamba, xLSTM or MoE layers, whose training came last
+MIXER_ARCHS = ["jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b",
             "xlstm-125m"]
 
 
@@ -517,28 +518,45 @@ def test_decode_past_the_end_of_the_cache_raises():
 # -- (f) what is not ported, and the launcher --------------------------------------
 
 def test_every_arch_resolves_and_the_unported_ones_raise():
-    """Every arch builds and serves; training the ones with Mamba, xLSTM
-    or MoE layers raises, naming ROADMAP item 3.2b, in ``loss_fn`` and in
-    the ``Trainer``."""
+    """Every arch builds and serves, and the ones with Mamba, xLSTM or MoE
+    layers (whose training the port once refused) train: ``loss_fn`` gives
+    a finite loss, ``ce + 0.01·aux`` with a positive aux where there are
+    experts, and a gradient on every leaf, and a ``Trainer`` takes a step
+    and lowers the loss of its batch."""
     from repro_torch.models import loss_fn
     from repro_torch.models.config import ShapeSpec
-    from repro_torch.train.trainer import Trainer
+    from repro_torch.models.transformer import MOE_AUX_COEF
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     assert sorted(ARCH_NAMES) == sorted(PORTED)
     gen = torch.Generator().manual_seed(0)
     for name in ARCH_NAMES:
         assert get_config(name).name == name
-    for name in UNPORTED:
-        cfg = get_smoke_config(name)
+    for name in MIXER_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(name), dtype="float32")
         params = init_params(cfg, gen)
         assert len(init_cache(cfg, 1, 8, device="cpu")["layers"]) == \
             cfg.num_layers
         batch = serve.make_batch(cfg, 1, 8, "cpu")
         batch["labels"] = batch["tokens"]
-        with pytest.raises(NotImplementedError, match="ROADMAP §1, item 3.2b"):
-            loss_fn(cfg, params, batch)
-        with pytest.raises(NotImplementedError, match="ROADMAP §1, item 3.2b"):
-            Trainer(cfg, ShapeSpec("t", 8, 1, "train"), device="cpu")
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss, m = loss_fn(cfg, params, batch)
+        loss.backward()
+        assert bool(torch.isfinite(loss))
+        assert float(loss) == pytest.approx(
+            float(m["ce"]) + MOE_AUX_COEF * float(m["aux"]), rel=1e-6)
+        assert (float(m["aux"]) > 0.0) == bool(cfg.num_experts)
+        assert all(p.grad is not None for p in tree_leaves(params))
+        with tempfile.TemporaryDirectory() as d:
+            t = Trainer(cfg, ShapeSpec("t", 8, 2, "train"), TrainerConfig(
+                ckpt_dir=d, total_steps=4, warmup_steps=1), device="cpu")
+            ps, opt = t.init_state()
+            b0 = t.batch(0)
+            ps, opt, m0 = t.step(ps, opt, b0, 1)
+            m1, _ = t.gradients(ps, b0)
+            assert float(m1["loss"]) < float(m0["loss"])
 
 
 @pytest.mark.parametrize("name", ["jamba-v0.1-52b", "xlstm-125m"])

@@ -16,6 +16,21 @@ the uncompressed ones. The elastic restart: the losses of steps 3 and 4
 after a restore under another mesh, or none, within 1e-5 relative of the
 uninterrupted run's.
 
+The MoE, Mamba and xLSTM archs over a 2 × 2 mesh (``MIXER_SCENARIOS``):
+phi3.5-moe under ``tp_ragged`` and ``ep``, on the dense branch and on the
+capacity branch (where, at these weights and batches, 170-280 of each
+shard's 1,024 slots drop in each layer), jamba and
+xlstm with ``fsdp_params``. Their oracle is the port on one device, the
+reference's GSPMD semantics made explicit: on the capacity branch, which
+the reference maps over the data shards, the mean over the data shards of
+the loss on each shard's rows (its aux the shard's own, ``pmean``-ed), on
+the dense branch the loss of the whole batch (the aux's shares taken over
+the global batch), with their gradients; loss and gradients within 1e-5.
+The port's ``tp_ragged`` and ``ep`` are also held to the reference's own
+``shard_map`` branches on a (2, 2) mesh of forced host devices, in a
+subprocess, on the dense and the capacity branch: loss, aux and every
+gradient leaf within 1e-4.
+
 All scenarios share one spawn of four ranks (``mesh_results``); the
 reference's oracles are computed in this process while the ranks run."""
 import dataclasses
@@ -36,9 +51,13 @@ from repro_torch.distributed.sharding import (ExecutionPlan,  # noqa: E402
                                               map_specs)
 from repro_torch.launch.mesh import (make_mesh,  # noqa: E402
                                      make_production_mesh, run_ranks)
+from repro_torch.models import loss_fn, moe  # noqa: E402
 from repro_torch.models.config import ShapeSpec  # noqa: E402
+from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
-from repro_torch.train.optimizer import tree_leaves  # noqa: E402
+from repro_torch.train.data import SyntheticData  # noqa: E402
+from repro_torch.train.optimizer import (init_opt_state,  # noqa: E402
+                                         tree_leaves, tree_map)
 
 SHAPE = ("t", 32, 4, "train")
 STEPS = 3
@@ -63,6 +82,32 @@ SCENARIOS = {
                            dict(grad_compression=True)),
 }
 ORACLE = {"llama_compressed_4": None}
+
+PHI = "phi3.5-moe-42b-a6.6b"
+#: name → (arch, mesh shape, plan knobs, (S, global batch), crowded
+#: routing): 128 tokens take the MoE's dense branch, 4 × 256 its capacity
+#: branch (512 a data shard, where slots drop)
+MIXER_SCENARIOS = {
+    "phi_tp_dense": (PHI, (2, 2), dict(moe_impl="tp_ragged"), (32, 4), False),
+    "phi_tp_capacity": (PHI, (2, 2), dict(moe_impl="tp_ragged"), (256, 4),
+                        False),
+    "phi_ep_dense": (PHI, (2, 2), dict(moe_impl="ep"), (32, 4), False),
+    "phi_ep_capacity": (PHI, (2, 2), dict(moe_impl="ep"), (256, 4), False),
+    "jamba_fsdp": ("jamba-v0.1-52b", (2, 2), dict(fsdp_params=True),
+                   (32, 4), False),
+    "xlstm_fsdp": ("xlstm-125m", (2, 2), dict(fsdp_params=True), (16, 4),
+                   False),
+}
+#: the reference's ``moe_ffn`` under ``shard_map`` on a (2, 2) mesh against
+#: the port's: phi's smoke config in float32, the reference's weights;
+#: name → (moe_impl, (global batch, S)): 4 × 32 tokens take the dense
+#: branch, 8 × 128 the capacity branch (512 a data shard)
+REF_MOE_CASES = {
+    "tp_ragged_dense": ("tp_ragged", (4, 32)),
+    "tp_ragged_capacity": ("tp_ragged", (8, 128)),
+    "ep_dense": ("ep", (4, 32)),
+    "ep_capacity": ("ep", (8, 128)),
+}
 
 
 def _cfg(arch):
@@ -164,6 +209,53 @@ def _refusals(rank):
     return out
 
 
+def _mixer_params(cfg, crowd: bool):
+    """Seeded logical parameters; with ``crowd`` every embedding entry
+    moved by +1, so that the tokens share a direction and routing crowds
+    a few experts (slots drop on the capacity branch)."""
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    if crowd:
+        params["embed"] = params["embed"] + 1.0
+    return params
+
+
+def _mixer_scenario(rank, out, name):
+    """One gradient of the first batch: the mean loss and aux over the data
+    ranks, and the logical gradients."""
+    arch, shape, knobs, (s, b), crowd = MIXER_SCENARIOS[name]
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    t = Trainer(_cfg(arch), ShapeSpec("t", s, b, "train"), TrainerConfig(
+        ckpt_dir=os.path.join(out, name), **TKW), mesh=mesh,
+        plan=ExecutionPlan(**knobs), device="cpu")
+    logical = _mixer_params(t.cfg, crowd)
+    params, _ = t.from_logical(logical, init_opt_state(logical))
+    metrics, grads = t.gradients(params, t.batch(0))
+    return dict(loss=float(metrics["loss"]), aux=float(metrics["aux"]),
+                grads=[_np(g) for g in tree_leaves(_gather(t, grads))])
+
+
+def _moe_against_the_reference(rank, out, state, name):
+    """The port's loss, aux and logical gradients of phi (float32, the
+    reference's weights) on a 2 × 2 mesh under one of ``REF_MOE_CASES``,
+    over the batch the reference's subprocess takes."""
+    impl, (b, s) = REF_MOE_CASES[name]
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    t = Trainer(_cfg(PHI), ShapeSpec("t", s, b, "train"), TrainerConfig(
+        ckpt_dir=os.path.join(out, "ref_" + name), **TKW), mesh=mesh,
+        plan=ExecutionPlan(moe_impl=impl), device="cpu")
+    params, _ = t.from_logical(lm_params_from_jax(t.cfg, state[0], "cpu"),
+                               lm_opt_state_from_jax(t.cfg, state[1], "cpu"))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, t.cfg.vocab_size, (b, s)
+                                              ).astype(np.int32))
+             for k in ("tokens", "labels")}
+    sh = t.shardings["batch"]
+    batch = {k: sh[k].shard(v).contiguous() for k, v in batch.items()}
+    metrics, grads = t.gradients(params, batch)
+    return dict(loss=float(metrics["loss"]), aux=float(metrics["aux"]),
+                grads=[_np(g) for g in tree_leaves(_gather(t, grads))])
+
+
 def _ranks_main(rank, out):
     with open(os.path.join(out, "states.pkl"), "rb") as f:
         states = pickle.load(f)
@@ -171,6 +263,10 @@ def _ranks_main(rank, out):
                for name in SCENARIOS}
     results["elastic"] = _elastic(rank, out)
     results["refusals"] = _refusals(rank)
+    for name in MIXER_SCENARIOS:
+        results[name] = _mixer_scenario(rank, out, name)
+    results["ref_moe"] = {name: _moe_against_the_reference(
+        rank, out, states[PHI], name) for name in REF_MOE_CASES}
     if rank == 0:
         with open(os.path.join(out, "results.pkl"), "wb") as f:
             pickle.dump(results, f)
@@ -228,11 +324,11 @@ def mesh_results(tmp_path_factory):
 
     out = str(tmp_path_factory.mktemp("mesh"))
     archs = sorted({a for a, _, _ in SCENARIOS.values()})
-    refs = {a: _reference_state(a) for a in archs}
+    refs = {a: _reference_state(a) for a in archs + [PHI]}
     # the states travel in a file: as spawn arguments a few MB took ~12 s
     # to reach the ranks
     with open(os.path.join(out, "states.pkl"), "wb") as f:
-        pickle.dump({a: refs[a][3] for a in archs}, f)
+        pickle.dump({a: refs[a][3] for a in archs + [PHI]}, f)
     err = []
 
     def ranks():
@@ -244,7 +340,7 @@ def mesh_results(tmp_path_factory):
 
     th = threading.Thread(target=ranks)
     th.start()
-    oracles = {}
+    oracles = {name: _mixer_oracle(name) for name in MIXER_SCENARIOS}
     for a in archs:
         rcfg, rp, ropt, _ = refs[a]
         cfg = _cfg(a)
@@ -334,3 +430,129 @@ def test_mesh_trainer_refuses_what_it_cannot_lay_out(mesh_results):
     assert axis is not None and "not in the mesh" in axis
     assert production is not None and "needs 256 ranks" in production
     assert gloo is not None and "runs nccl; the group runs gloo" in gloo
+
+
+# -- the MoE, Mamba and xLSTM archs ---------------------------------------------
+
+def _mixer_oracle(name):
+    """The port on one device: the loss and gradients of the whole batch
+    on the dense branch (and without experts), else the mean over the data
+    shards of each shard's."""
+    arch, shape, knobs, (s, b), crowd = MIXER_SCENARIOS[name]
+    cfg = dataclasses.replace(_cfg(arch), **{
+        k: v for k, v in knobs.items() if k == "moe_impl"})
+    params = _mixer_params(cfg, crowd)
+    tree_map(lambda p: p.requires_grad_(True), params)
+    batch = SyntheticData(cfg, ShapeSpec("t", s, b, "train"), seed=0,
+                          device="cpu").batch(0)
+    n_data = shape[0]
+    mesh = moe.MoeMesh(None, 1, None, n_data)
+    capacity = cfg.num_experts and not moe.dense_branch(b // n_data * s,
+                                                        mesh)
+    shards = n_data if capacity else 1
+    total, auxes = 0.0, []
+    for i in range(shards):
+        rows = slice(i * b // shards, (i + 1) * b // shards)
+        loss, m = loss_fn(cfg, params, {k: v[rows] for k, v in batch.items()})
+        total = total + loss / shards
+        auxes.append(float(m["aux"].detach()))
+    total.backward()
+    return dict(loss=float(total.detach()), aux=sum(auxes) / shards,
+                grads=[_np(p.grad) for p in tree_leaves(params)],
+                capacity=bool(capacity))
+
+
+@pytest.mark.parametrize("name", list(MIXER_SCENARIOS))
+def test_mixer_archs_over_a_mesh_match_the_one_device_oracle(mesh_results,
+                                                             name):
+    """The mean loss, its aux and the logical gradients over the 2 × 2
+    mesh against the one-device oracle of the same branch."""
+    results, oracles, _ = mesh_results
+    got, want = results[name], oracles[name]
+    assert want["capacity"] == name.endswith("capacity")
+    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+    assert abs(got["aux"] - want["aux"]) <= 1e-5 * max(abs(want["aux"]),
+                                                       1e-30)
+    if "phi" in name or "jamba" in name:
+        assert want["aux"] > 0.0
+    assert len(got["grads"]) == len(want["grads"])
+    for g, w in zip(got["grads"], want["grads"]):
+        assert g.shape == w.shape
+        assert float(np.abs(g - w).max()) <= 1e-5 * max(
+            float(np.abs(w).max()), 1e-30)
+
+
+@pytest.fixture(scope="module")
+def reference_moe(tmp_path_factory):
+    """``jax.value_and_grad`` of the reference's ``loss_fn`` under
+    ``mesh_context`` on a (2, 2) mesh of forced host devices, for each of
+    ``REF_MOE_CASES``, in one subprocess (as the reference's own
+    ``test_moe_ep_variant_compiles_and_matches`` runs it): name → (loss,
+    aux, gradients as the port's logical leaves). The mesh's axes are
+    ``Auto``, GSPMD's propagation: under JAX's default of ``Explicit``
+    axes the reference's backward refuses the router's product over the
+    data-sharded tokens."""
+    import subprocess
+    import sys
+    import textwrap
+
+    import jax
+
+    path = str(tmp_path_factory.mktemp("ref_moe") / "ref_moe.pkl")
+    code = textwrap.dedent(f"""
+        import dataclasses, pickle
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.configs import get_smoke_config
+        from repro.models import init_params, loss_fn
+        from repro.distributed.meshctx import MeshContext, mesh_context
+        auto = (jax.sharding.AxisType.Auto,) * 2
+        mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=auto)
+        base = dataclasses.replace(get_smoke_config({PHI!r}),
+                                   dtype="float32")
+        params = init_params(base, jax.random.PRNGKey(0))
+        out = {{}}
+        for name, (impl, (b, s)) in {REF_MOE_CASES!r}.items():
+            cfg = dataclasses.replace(base, moe_impl=impl)
+            rng = np.random.default_rng(0)
+            batch = {{k: jnp.asarray(rng.integers(0, cfg.vocab_size, (b, s)),
+                                    jnp.int32) for k in ("tokens", "labels")}}
+            f = jax.value_and_grad(lambda p, x: loss_fn(cfg, p, x),
+                                   has_aux=True)
+            with mesh_context(MeshContext(mesh, ("data",), "model")):
+                (loss, m), g = jax.jit(f)(params, batch)
+            out[name] = (float(loss), float(m["aux"]),
+                         jax.tree_util.tree_map(np.asarray, g))
+        with open({path!r}, "wb") as fh:
+            pickle.dump(out, fh)
+    """)
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    with open(path, "rb") as f:
+        raw = pickle.load(f)
+    cfg = _cfg(PHI)
+    return {name: (loss, aux, [_np(t) for t in tree_leaves(
+        lm_params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, g),
+                           "cpu"))])
+            for name, (loss, aux, g) in raw.items()}
+
+
+@pytest.mark.parametrize("name", list(REF_MOE_CASES))
+def test_moe_impls_match_the_references_shard_map(mesh_results,
+                                                  reference_moe, name):
+    """The port's ``tp_ragged`` and ``ep`` on four gloo ranks against the
+    reference's under ``shard_map`` on the dense and the capacity branch:
+    the loss and aux within 1e-4 relative, each logical gradient leaf
+    within 1e-4 of its largest magnitude."""
+    got = mesh_results[0]["ref_moe"][name]
+    loss, aux, grads = reference_moe[name]
+    assert abs(got["loss"] - loss) <= 1e-4 * abs(loss), (got["loss"], loss)
+    assert aux > 0.0
+    assert abs(got["aux"] - aux) <= 1e-4 * abs(aux), (got["aux"], aux)
+    assert len(got["grads"]) == len(grads)
+    for g, w in zip(got["grads"], grads):
+        assert g.shape == w.shape
+        assert float(np.abs(g - w).max()) <= 1e-4 * max(
+            float(np.abs(w).max()), 1e-30)

@@ -4,7 +4,9 @@ ranks: ``param_specs`` for the six ported smoke configs and llama3.2-1b at
 full width (its shapes from ``jax.eval_shape``, no arrays), at model widths
 1, 2, 4 and 16, with ``fsdp_params`` off and on and with ``pure_dp``, over
 ('data',) and ('pod', 'data'); ``opt_state_spec_for`` on every leaf; and
-``batch_specs``. The reference's specs over stacked layer groups carry a
+``batch_specs``; and ``param_specs`` of the four archs with MoE, Mamba or
+xLSTM layers (smoke configs, and jamba at full width) under both
+``moe_impl``\ s. The reference's specs over stacked layer groups carry a
 leading ``None``, which the port, with a list of layers, drops."""
 import types
 
@@ -118,6 +120,55 @@ def test_param_and_opt_specs_match_the_reference(shapes, name, smoke, plan):
                 else:
                     assert laid[path] == g
     assert len(kinds) > 1
+
+
+MIXERS = [("jamba-v0.1-52b", True), ("phi3.5-moe-42b-a6.6b", True),
+          ("moonshot-v1-16b-a3b", True), ("xlstm-125m", True),
+          ("jamba-v0.1-52b", False)]
+
+
+@pytest.mark.parametrize("name,smoke", MIXERS,
+                         ids=[f"{n}{'' if s else '-full'}" for n, s in MIXERS])
+def test_mixer_param_specs_match_the_reference(name, smoke):
+    """The MoE (3-D expert leaves, the router), Mamba and xLSTM leaves, leaf
+    for leaf, with ``fsdp_params`` off and on, under ``tp_ragged`` and
+    ``ep``, at model widths 1, 2, 4 and 16, over ('data',) and ('pod',
+    'data'); and their optimizer specs."""
+    rcfg = (ref_smoke_config if smoke else ref_config)(name)
+    cfg = (get_smoke_config if smoke else get_config)(name)
+    ref = jax.eval_shape(lambda: ref_init_params(rcfg, jax.random.PRNGKey(0)))
+    port = init_params(cfg, None)
+    pl = dict(_leaves(port))
+    names = set()
+    for knobs in ({}, dict(fsdp_params=True), dict(moe_impl="ep"),
+                  dict(moe_impl="ep", fsdp_params=True)):
+        for data_axes in AXES.values():
+            for n_model in (1, 2, 4, 16):
+                sizes = dict(pod=2, data=2, model=n_model)
+                kw = dict(model_axis="model", data_axes=data_axes,
+                          n_model=n_model)
+                want = list(_leaves(_unstacked(rcfg, ref_param_specs(
+                    ref, rcfg, RefPlan(**knobs), **kw))))
+                got = list(_leaves(param_specs(port, cfg,
+                                               ExecutionPlan(**knobs), **kw)))
+                assert [p for p, _ in want] == [p for p, _ in got] == list(pl)
+                for (path, w), (_, g) in zip(want, got):
+                    w = tuple(w)
+                    if path[0] == "layers":
+                        assert w[0] is None
+                        w = w[1:]
+                    assert g == w, (path, g, w)
+                    names.add(path[-1])
+                    shape = tuple(pl[path].shape)
+                    o = opt_state_spec_for(g, shape, data_axes, sizes)
+                    assert o == tuple(ref_opt_spec(
+                        jax.sharding.PartitionSpec(*w), shape, data_axes,
+                        types.SimpleNamespace(shape=sizes))), (path, o)
+    kinds = {"jamba": {"router", "in_proj", "x_proj", "dt_proj", "conv_w",
+                       "conv_b", "dt_bias", "a_log", "d_skip", "out_proj"},
+             "xlstm": {"up_proj", "q_proj", "k_proj", "v_proj", "i_gate",
+                       "f_gate", "gn_scale", "w_izfo", "up_w", "down_w"}}
+    assert kinds.get(name.split("-")[0], {"router", "wg", "wu", "wd"}) <= names
 
 
 @pytest.mark.parametrize("name", PORTED)

@@ -275,24 +275,29 @@ def test_a_mesh_is_not_ported():
 
 
 def test_the_plan_applies_what_one_device_reads_and_nothing_else():
-    """``apply`` sets remat and the attention chunks as the reference's
-    does; the mesh knobs (``fsdp_params``, ``grad_compression``,
-    ``pure_dp``) are fields with the reference's defaults, and a knob that
-    nothing in the port reads yet is no field, so it cannot be passed and
-    then ignored."""
+    """``apply`` sets remat, the attention chunks and ``moe_impl`` as the
+    reference's does; the mesh knobs (``fsdp_params``, ``grad_compression``,
+    ``pure_dp``) and ``moe_impl`` are fields with the reference's defaults,
+    and a knob that nothing in the port reads yet is no field, so it cannot
+    be passed and then ignored."""
     from repro.distributed.sharding import ExecutionPlan as RefPlan
     from repro_torch.distributed.sharding import ExecutionPlan
 
-    knobs = dict(remat="none", attn_q_chunk=256, attn_kv_chunk=512)
+    knobs = dict(remat="none", attn_q_chunk=256, attn_kv_chunk=512,
+                 moe_impl="ep")
     got = ExecutionPlan(**knobs).apply(get_smoke_config("llama3.2-1b"))
     want = RefPlan(**knobs).apply(ref_smoke_config("llama3.2-1b"))
     for name in knobs:
-        assert getattr(got, name) == getattr(want, name)
-    for name in ("fsdp_params", "grad_compression", "pure_dp"):
+        assert getattr(got, name) == getattr(want, name) == knobs[name]
+    for name in ("fsdp_params", "grad_compression", "pure_dp", "moe_impl"):
         assert getattr(ExecutionPlan(), name) == getattr(RefPlan(), name)
+    assert ExecutionPlan().moe_impl == "tp_ragged"
+    default = ExecutionPlan().apply(get_smoke_config("llama3.2-1b"))
+    assert default.moe_impl == "tp_ragged"
+    for name in ("fsdp_params", "grad_compression", "pure_dp"):
         assert getattr(ExecutionPlan(**{name: True}), name) is True
     for name in ("attn_batch_reshard", "shard_activation_ckpt",
-                 "seq_shard_decode", "moe_impl", "scan_layers"):
+                 "seq_shard_decode", "scan_layers"):
         with pytest.raises(TypeError):
             ExecutionPlan(**{name: True})
 
