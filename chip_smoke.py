@@ -6,7 +6,7 @@ Run from the root of the repository, on a machine with one CUDA device:
 
 It builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the ten ports of the TPU kernels and the flash-attention backward) and
-drives thirteen paths, each with the kernels' launch counts zeroed just before
+drives fifteen paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve, the training path once per step):
 
@@ -48,6 +48,19 @@ engine they serve, the training path once per step):
   ``entry_stats`` launch; and one ``solve(ctx=...)`` at the residual gate;
   requests/s, client and per-stage p50/p99, hit rates per tier and the
   card's name and power limit printed;
+* **serving_mesh**: the selector's serving mesh. The select path's
+  served batch, cut to 16, 13, 7, 3 and 1 matrices, featurized over a
+  ``ServingMesh`` of every card the machine has and over one listing
+  cuda:0 four times (one card split four ways: real splits, gathers and
+  kernel launches): the features the bits of the one-device run, one
+  ``entry_stats`` and one ``row_stats`` launch a shard, each shard's
+  kernel outputs held against the plain versions on its own arguments,
+  and the selected names equal to the one-device mesh's; then
+  ``SolverEngine(EngineConfig(serving_devices=<every card>))`` behind
+  ``serve(rpc=True)`` under ``SERVING``'s traffic over
+  ``generate_suite(16, seed=1, size_scale=2)``, cold: every request
+  answered with the one-device selection, requests/s, p99 and the
+  per-shard counters printed;
 * **lifecycle**: the solve tuner, ``tune(device=cuda)`` over the
   reference's default suite and grids (a line per candidate, the winner),
   with ``frontal_factor_batch``, ``extend_add_batch`` and
@@ -97,6 +110,23 @@ engine they serve, the training path once per step):
   2e-2 against the same prefill on the plain chunked twin, then 16 greedy
   decode steps (finite logits); then a prompt of 64, where the plain branch
   runs and the kernel launches 0 times;
+* **lm_serve_mesh**: LM decode from a sequence-sharded KV cache:
+  qwen3-1.7b at full width and depth (seeded bf16 weights) through an
+  NCCL process group of one rank and a 1 × 1 (data, model) mesh whose
+  context sets ``decode_seq_axes=("data",)``, laid out as
+  ``repro_torch.launch.serve --devices`` lays it out (``cache_specs``):
+  B 1, a prompt of 4,096 (28 ``flash_attention`` launches), a cache of
+  32,768 positions (``decode_32k``'s length) and 16 decode steps through
+  ``sharded_decode_attention``, against the unsharded ``prefill`` /
+  ``decode_step`` fed the same tokens: in bf16 each step's logits within
+  the larger of ``LM_MESH_BF16_TOL`` of the largest and
+  ``LM_MESH_BF16_CONTROL`` times a control's distance (the unsharded
+  decode with P kept in float32 against the plain one), and on a float32
+  copy of the weights within ``LM_MESH_TOL`` (its two prefills launch the
+  float32 ``flash_attention`` 56 times), the greedy picks equal (a
+  difference passes only on a near tie, printed); then
+  ``sharded_decode_attention`` alone against the plain decode attention
+  at those operands, timed, and the kernel at the prefill's B 1 shape;
 * **lm_serve_mixers**: the archs with Mamba, MoE and xLSTM layers at full
   width (``MIXER_RUNS``; random bf16 weights from a seeded generator):
   jamba-v0.1-52b cut to one Jamba period of 8 layers (7 Mamba, 1
@@ -237,7 +267,11 @@ device. Imports nothing of JAX and nothing of the JAX package ``repro``.
 flash_attention checks (a few minutes less), ``python3 chip_smoke.py
 --mixers`` only the lm_serve_mixers path, ``python3 chip_smoke.py
 --train`` only the lm_train and lm_train_mesh paths and the
-flash_attention_bwd checks, each with the same last line.
+flash_attention_bwd checks, ``python3 chip_smoke.py --serve-mesh`` only
+the serving_mesh path (after training the select path's engine) and the
+lm_serve_mesh path, its kernels line listing ``entry_stats``,
+``row_stats`` and ``flash_attention`` at the shapes those paths give
+them, each with the same last line.
 """
 from __future__ import annotations
 
@@ -320,6 +354,29 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_SHORT = "qwen3-1.7b", 4, 4096, 16, 64
 #: of ``lm_serve_phase`` is the check that sees a kernel fault; this one
 #: fails if the 1 % control passes it
 LM_PREFILL_RTOL = 2e-2
+#: the serving mesh: the served selection batch cut to these sizes, each
+#: split over a mesh of every card and over cuda:0 listed four times (one
+#: card split four ways: real splits, gathers and kernels)
+MESH_SIZES = (16, 13, 7, 3, 1)
+MESH_REPEAT = 4
+#: the mesh engine's traffic: SERVING's over generate_suite(16, seed=1,
+#: size_scale=2) (n 220–3,360), whose plans build in a fraction of the
+#: serving path's time
+MESH_SUITE = dict(count=16, seed=1, size_scale=2)
+#: LM decode from a sequence-sharded cache: qwen3-1.7b at B 1, a prompt of
+#: LM_PROMPT, a cache of decode_32k's 32,768 positions, LM_STEPS steps;
+#: each step's logits within this share of the largest unsharded logit on
+#: a float32 copy of the weights (sums in other orders only: 1.658e-6 on a
+#: 1 x 1 mesh, 1.731e-6 and 4.828e-6 over four cards as 4 x 1 and 2 x 2;
+#: PERF.md)
+LM_MESH_SEQ, LM_MESH_TOL = 32768, 2e-5
+#: the same in bf16: within the larger of LM_MESH_BF16_TOL and
+#: LM_MESH_BF16_CONTROL times the control's distance, the control being
+#: the unsharded decode with P kept in float32 against the plain one. Two
+#: such correct decodes lie 2.130e-2 apart on the card, and the sharded
+#: one 2.281e-2 from the plain (PERF.md): 28 random layers carry any
+#: change of bf16 rounding that far
+LM_MESH_BF16_TOL, LM_MESH_BF16_CONTROL = 1e-2, 1.5
 
 #: the mixers path: (arch, layers or None for the full depth, batch,
 #: prompt, decode steps). Widths are the configs' own. jamba-v0.1-52b is
@@ -1756,6 +1813,56 @@ def _pct(xs, q: float) -> float:
     return float(np.percentile(xs, q)) if len(xs) else float("nan")
 
 
+def drive_traffic(clients, mats, stream, cfg_t) -> tuple:
+    """``stream`` (indices into ``mats``) in bursts of ``cfg_t["burst"]``
+    with ``cfg_t["pause_ms"]`` pauses, each burst fanned over ``clients``
+    (one thread each); returns ([(outcome, i, plan, spans_ms, client ms)],
+    wall seconds)."""
+    import threading
+
+    from repro_torch.core.reqctx import DeadlineExceeded, QueueFull
+    from repro_torch.launch.rpc import RPCError
+
+    results, res_lock = [], threading.Lock()
+    work, work_lock = [], threading.Lock()
+
+    def worker(c):
+        while True:
+            with work_lock:
+                if not work:
+                    return
+                i = work.pop()
+            t0 = time.perf_counter()
+            try:
+                r = c.plan_detailed(mats[i], deadline_ms=cfg_t["deadline_ms"])
+                out = ("ok", r["plan"], r["spans_ms"])
+            except DeadlineExceeded:
+                out = ("shed", None, {})
+            except QueueFull:
+                out = ("rejected", None, {})
+            except (RPCError, OSError) as exc:
+                out = ("error", repr(exc), {})
+            with res_lock:
+                results.append((out[0], i, out[1], out[2],
+                                (time.perf_counter() - t0) * 1e3))
+
+    t_start = time.perf_counter()
+    for lo in range(0, len(stream), cfg_t["burst"]):
+        with work_lock:
+            work.extend(int(i) for i in stream[lo : lo + cfg_t["burst"]])
+        ts = [threading.Thread(target=worker, args=(c,), daemon=True)
+              for c in clients]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join(600)
+            if th.is_alive():
+                raise AssertionError("serving: a client thread hung")
+        if lo + cfg_t["burst"] < len(stream):
+            time.sleep(cfg_t["pause_ms"] / 1e3)
+    return results, time.perf_counter() - t_start
+
+
 def serving_phase(engine, mats, dev) -> None:
     """The serving plane on the card: ``engine``'s selector behind
     ``SolverEngine.serve(rpc=True)`` on 127.0.0.1, a fresh two-tier plan
@@ -1770,17 +1877,15 @@ def serving_phase(engine, mats, dev) -> None:
     ``solve(ctx=...)`` under a generous deadline must reach the fp64
     residual gate."""
     import tempfile
-    import threading
 
     from repro_torch.core.features import (extract_features_batch,
                                            extract_features_batch_device,
                                            pad_csr_batch)
-    from repro_torch.core.reqctx import (DeadlineExceeded, QueueFull,
-                                         RequestContext)
+    from repro_torch.core.reqctx import DeadlineExceeded, RequestContext
     from repro_torch.core.scaling import scaler_transform_device
     from repro_torch.engine import EngineConfig, SolverEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.rpc import PlanRPCClient, RPCError
+    from repro_torch.launch.rpc import PlanRPCClient
     from repro_torch.sparse.dataset import grid2d
 
     cfg_t = SERVING
@@ -1829,7 +1934,7 @@ def serving_phase(engine, mats, dev) -> None:
                        build_workers=cfg_t["build_workers"])
     served = SolverEngine(cfg, selector=sel)
     bundle = served.save(os.path.join(tmp.name, "selector.bundle"))
-    results, res_lock = [], threading.Lock()
+    results = []
     srv = None
     clients = []
     try:
@@ -1837,44 +1942,7 @@ def serving_phase(engine, mats, dev) -> None:
         srv = served.serve(rpc=True, host="127.0.0.1", port=0)
         clients = [PlanRPCClient("127.0.0.1", srv.port, timeout=300)
                    for _ in range(cfg_t["clients"])]
-        work, work_lock = [], threading.Lock()
-
-        def worker(c):
-            while True:
-                with work_lock:
-                    if not work:
-                        return
-                    i = work.pop()
-                t0 = time.perf_counter()
-                try:
-                    r = c.plan_detailed(mats[i],
-                                        deadline_ms=cfg_t["deadline_ms"])
-                    out = ("ok", r["plan"], r["spans_ms"])
-                except DeadlineExceeded:
-                    out = ("shed", None, {})
-                except QueueFull:
-                    out = ("rejected", None, {})
-                except (RPCError, OSError) as exc:
-                    out = ("error", repr(exc), {})
-                with res_lock:
-                    results.append((out[0], i, out[1], out[2],
-                                    (time.perf_counter() - t0) * 1e3))
-
-        t_start = time.perf_counter()
-        for lo in range(0, len(stream), cfg_t["burst"]):
-            with work_lock:
-                work.extend(int(i) for i in stream[lo : lo + cfg_t["burst"]])
-            ts = [threading.Thread(target=worker, args=(c,), daemon=True)
-                  for c in clients]
-            for th in ts:
-                th.start()
-            for th in ts:
-                th.join(600)
-                if th.is_alive():
-                    raise AssertionError("serving: a client thread hung")
-            if lo + cfg_t["burst"] < len(stream):
-                time.sleep(cfg_t["pause_ms"] / 1e3)
-        wall = time.perf_counter() - t_start
+        results, wall = drive_traffic(clients, mats, stream, cfg_t)
         traffic = launch_counts()
         stats = srv.dispatcher.stats()
         snap = served.metrics.snapshot()
@@ -1980,6 +2048,151 @@ def serving_phase(engine, mats, dev) -> None:
     log("serving solve(ctx) spans ms: " + json.dumps(
         {k: round(v, 4) for k, v in ctx.spans_ms().items()}))
     tmp.cleanup()
+
+
+def serving_mesh_phase(engine, served, dev, out: dict,
+                       headline: bool) -> dict:
+    """The selector's serving mesh on the card. The served batch, cut to
+    each of MESH_SIZES, featurized over a mesh of every card and over
+    cuda:0 listed MESH_REPEAT times: the features the bits of the one-device
+    run, one ``entry_stats`` and one ``row_stats`` launch a shard, each
+    shard's kernel outputs held against the plain versions on its own
+    arguments (those launches not counted), and the selected names equal
+    to the one-device mesh's. Then ``SolverEngine(EngineConfig(
+    serving_devices=<every card>))`` behind ``serve(rpc=True)`` under
+    SERVING's traffic over MESH_SUITE (cold): every request answered, each
+    plan's algorithm the one-device selection's, with requests/s, p99 and
+    the per-shard counters. Returns that run's launch counts."""
+    import torch
+
+    from repro_torch.core.features import (csr_stats_shard_args,
+                                           extract_features_batch_device,
+                                           pad_csr_batch)
+    from repro_torch.distributed import meshctx
+    from repro_torch.engine import EngineConfig, SolverEngine
+    from repro_torch.kernels import csr_stats as cs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.rpc import PlanRPCClient
+    from repro_torch.sparse.dataset import generate_suite
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    one = meshctx.make_serving_mesh(1, dev)
+    meshes = {f"{n_cards} card(s)": meshctx.make_serving_mesh(n_cards, dev),
+              f"cuda:0 x{MESH_REPEAT}": meshctx.ServingMesh(
+                  (torch.device("cuda", 0),) * MESH_REPEAT)}
+    sel = engine.selector
+    for b in MESH_SIZES:
+        batch = pad_csr_batch(served[:b], bucket=True)
+        want = extract_features_batch_device(batch, device=dev, mesh=one)
+        with meshctx.serving_mesh(one):
+            want_names, _ = sel.select_batch(served[:b], path="device",
+                                             device=dev)
+        for tag, sm in meshes.items():
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = extract_features_batch_device(batch, device=dev, mesh=sm)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            nd = sm.num_devices
+            if not (counts["entry_stats"] == counts["row_stats"] == nd):
+                raise AssertionError(f"serving_mesh {tag} B={b}: launches "
+                                     f"{counts}, want {nd} of each")
+            if not (got.device == sm.devices[0] and torch.equal(got, want)):
+                raise AssertionError(f"serving_mesh {tag} B={b}: features "
+                                     f"are not the one-device run's bits")
+            errs = []
+            for i, (ea, ra) in enumerate(csr_stats_shard_args(batch, sm)):
+                for name, args, plain, exact in (
+                        ("entry_stats", ea, cs.entry_stats_plain, [0]),
+                        ("row_stats", ra, cs.row_stats_plain, [0, 1])):
+                    errs.append(hold_stats(name, f"{tag} shard {i}",
+                                           getattr(cs, name)(*args),
+                                           plain(*args), exact)[0])
+            with meshctx.serving_mesh(sm):
+                names, t_sel = sel.select_batch(served[:b], path="device",
+                                                device=dev)
+            if names != want_names:
+                raise AssertionError(f"serving_mesh {tag} B={b}: names "
+                                     f"{names}, one device {want_names}")
+            log(f"serving_mesh {tag} B={b}: {nd} shards, features equal to "
+                f"one device's bits, launches {counts}, shard kernels vs "
+                f"plain max abs err {max(errs):.3e}; featurize {dt:.4f} s, "
+                f"select_batch {t_sel:.4f} s")
+    # the shapes the shards of the full batch give the kernels, timed (the
+    # headline of --serve-mesh)
+    sm = meshes[f"cuda:0 x{MESH_REPEAT}"]
+    ea, ra = csr_stats_shard_args(pad_csr_batch(served, bucket=True), sm)[0]
+    B, E, N = ea[0].shape[0], ea[0].shape[1], ra[0].shape[1]
+    for name, args, plain, exact, ops in (
+            ("entry_stats", ea, cs.entry_stats_plain, [0], 4 * B * E),
+            ("row_stats", ra, cs.row_stats_plain, [0, 1], 5 * B * N)):
+        kern = getattr(cs, name)
+        err, rel = hold_stats(name, "mesh shard", kern(*args), plain(*args),
+                              exact)
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + B * (2 if name == "entry_stats" else 3) * 4
+        record(out, name, f"a shard of {MESH_REPEAT}, B={B} E={E} N={N} "
+               f"(max rel err float stats {rel:.3e})", err,
+               device_ms(lambda: kern(*args)),
+               stream_ms(lambda: plain(*args)), None, ops, nbytes,
+               PEAK_FP32, headline)
+
+    # the engine over a mesh of every card, behind RPC, cold
+    cfg_t = SERVING
+    mats = list(generate_suite(**MESH_SUITE))
+    with meshctx.serving_mesh(one):
+        want_names, _ = sel.select_batch(mats, path="device", device=dev)
+    rng = np.random.default_rng(cfg_t["seed"])
+    pop = 1.0 / np.power(1.0 + np.arange(len(mats)), cfg_t["zipf_alpha"])
+    stream = rng.choice(len(mats), size=cfg_t["requests"], p=pop / pop.sum())
+    eng = SolverEngine(EngineConfig(
+        serving_devices=n_cards, batch_size=cfg_t["batch"],
+        max_wait_ms=cfg_t["max_wait_ms"], max_queue=cfg_t["max_queue"],
+        build_workers=cfg_t["build_workers"]), selector=sel)
+    srv, clients = None, []
+    try:
+        srv = eng.serve(rpc=True, host="127.0.0.1", port=0)
+        clients = [PlanRPCClient("127.0.0.1", srv.port, timeout=300)
+                   for _ in range(cfg_t["clients"])]
+        reset_launch_counts()
+        results, wall = drive_traffic(clients, mats, stream, cfg_t)
+        counts = launch_counts()
+        stats = srv.dispatcher.stats()
+        snap = eng.metrics.snapshot()
+    finally:
+        for c in clients:
+            c.close()
+        if srv is not None:
+            srv.close(timeout=60)
+        meshctx.set_serving_mesh(None)
+    bad = [r for r in results if r[0] != "ok"]
+    if bad or len(results) != len(stream):
+        raise AssertionError(f"serving_mesh rpc: {len(bad)} of {len(stream)} "
+                             f"requests failed, first {bad[:3]}")
+    wrong = [mats[r[1]].name for r in results
+             if r[2].algorithm != want_names[r[1]]]
+    if wrong:
+        raise AssertionError(f"serving_mesh rpc: plans for {sorted(set(wrong))}"
+                             f" differ from the one-device selection")
+    launched("serving_mesh rpc", counts, ("entry_stats", "row_stats"))
+    cl = [r[4] for r in results]
+    shards = {f"shard{i}": [snap.get(f"mesh.shard{i}.requests", 0),
+                            snap.get(f"mesh.shard{i}.pad_rows", 0)]
+              for i in range(int(snap.get("mesh.shards", 0)))}
+    log(f"serving_mesh rpc over {n_cards} card(s): {len(stream)} requests "
+        f"over {len(set(stream))} structures in {wall:.3f} s = "
+        f"{len(stream) / wall:.3f} requests/s; client ms p50 "
+        f"{_pct(cl, 50):.3f} p99 {_pct(cl, 99):.3f}; {stats['select_calls']}"
+        f" device selections, {stats['plans_built']} plans built; "
+        f"per-shard [requests, pad rows] {json.dumps(shards)}; launches "
+        f"{counts}")
+    if int(snap.get("mesh.shards", 0)) != n_cards:
+        raise AssertionError(f"serving_mesh rpc: mesh.shards "
+                             f"{snap.get('mesh.shards')}, want {n_cards}")
+    PHASE_S["serving_mesh"] = time.perf_counter() - t_phase
+    return counts
 
 
 def lifecycle_holds(dev) -> dict:
@@ -2938,6 +3151,297 @@ def lm_serve_phase(dev) -> dict:
     if n != 0 or not bool(torch.isfinite(r["logits"]).all()):
         raise AssertionError(f"lm_serve: a {LM_SHORT}-token prompt launched "
                              f"the kernel {n} times or gave non-finite logits")
+    return counts
+
+
+def plain_attention_f32p(q, k, v, causal: bool, kv_valid_len=None):
+    """``layers._plain_attention`` with P kept in float32 through P·V (the
+    function ``sharded_decode_attention`` computes, as the reference's
+    does); the output in q's dtype. The plain version rounds P to v's
+    dtype first."""
+    import torch
+
+    from repro_torch.models.layers import NEG_INF
+
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, hkv, rep * s, d)
+    scores = torch.matmul(qg.float(), k.float().transpose(-1, -2)) \
+        * (d ** -0.5)
+    scores = scores.view(b, hkv, rep, s, t)
+    if causal and s > 1:
+        mask = (torch.arange(s, device=q.device)[:, None]
+                >= torch.arange(t, device=q.device)[None, :] - (t - s))
+        scores = torch.where(mask, scores, NEG_INF)
+    if kv_valid_len is not None:
+        valid = torch.arange(t, device=q.device) < kv_valid_len
+        scores = torch.where(valid, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).view(b, hkv, rep * s, t)
+    return torch.matmul(p, v.float()).view(b, hq, s, d).to(q.dtype)
+
+
+def decode_fed(cfg, params, batch: dict, steps: int, max_seq: int,
+               ctx=None, feed=None) -> dict:
+    """Prefill and ``steps`` decode steps of ``cfg`` at B 1: under the mesh
+    context ``ctx`` on this rank's shards of the logical ``params`` when it
+    is given, else unsharded; each step fed ``feed[i]`` when given, else
+    the greedy pick. Returns the prefill's launch ``counts``, ``logits``
+    (the prefill's, then each step's), the argmax ``picks`` of the steps'
+    inputs, ``prefill_s``, ``step_s`` (the median step), and ``cache`` and
+    ``params`` as the last step left them and ran on."""
+    import torch
+
+    from repro_torch.distributed.meshctx import MeshContext, mesh_context
+    from repro_torch.distributed.sharding import map_specs, to_shardings
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, prefill
+
+    dev = next(iter(batch.values())).device
+    if ctx is not None:
+        params = map_specs(lambda sh, t: sh.shard(t).contiguous(),
+                           to_shardings(ctx.specs, ctx), params)
+    scope = ctx or MeshContext(None)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with mesh_context(scope):
+        logits, cache = prefill(cfg, params, batch, max_seq)
+    sync()
+    prefill_s, counts = time.perf_counter() - t0, launch_counts()
+    out, picks, ts = [logits], [], []
+    for i in range(steps):
+        picks.append(int(logits.argmax(-1)[0]))
+        tok = torch.tensor([[picks[-1] if feed is None else int(feed[i])]],
+                           device=dev)
+        t0 = time.perf_counter()
+        with mesh_context(scope):
+            logits, cache = decode_step(cfg, params, cache, tok)
+        sync()
+        ts.append(time.perf_counter() - t0)
+        out.append(logits)
+    return dict(counts=counts, logits=out, picks=np.array(picks),
+                prefill_s=prefill_s, step_s=float(np.median(ts)),
+                cache=cache, params=params)
+
+
+def logit_shares(got, want) -> list:
+    """Each step's largest logit difference as a share of ``want``'s
+    largest logit."""
+    return [float((g.float() - w.float()).abs().max())
+            / float(w.float().abs().max()) for g, w in zip(got, want)]
+
+
+def pick_differences(got, want, got_picks, want_picks) -> list:
+    """Where two decodes fed the same tokens pick differently: the step,
+    the picks, how far apart ``want``'s top two logits lie, how far the
+    logits lie apart, and whether that explains the difference (a near tie:
+    the gap at most twice the distance)."""
+    import torch
+
+    diffs = []
+    for i in np.nonzero(got_picks != want_picks)[0]:
+        top2 = torch.topk(want[i][0].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        apart = float((got[i].float() - want[i].float()).abs().max())
+        diffs.append(dict(step=int(i), got=int(got_picks[i]),
+                          want=int(want_picks[i]), gap=gap, apart=apart,
+                          near_tie=gap <= 2 * apart))
+    return diffs
+
+
+def lm_serve_mesh_phase(dev, out: dict, headline: bool) -> dict:
+    """LM decode from a sequence-sharded cache: qwen3-1.7b at full width
+    and depth (seeded weights) through an NCCL group of one rank and a
+    1 x 1 (data, model) mesh whose context sets ``decode_seq_axes=
+    ("data",)`` (the dry run's rule would not on one card), laid out as
+    ``repro_torch.launch.serve --devices`` lays it out: B 1, a prompt of
+    LM_PROMPT (28 ``flash_attention`` launches in the bf16 prefill), a
+    cache of LM_MESH_SEQ positions, LM_STEPS steps through
+    ``sharded_decode_attention``, against the unsharded ``prefill`` /
+    ``decode_step`` in the same call, every run fed the tokens the plain
+    unsharded run picks greedily.
+
+    In bf16, the served dtype, any change of the attention's roundings
+    moves 28 random layers' logits by ~2 % of the largest: the control is
+    the unsharded decode with P kept in float32
+    (:func:`plain_attention_f32p`, the function the sharded decode
+    computes). The sharded run must lie within the larger of
+    LM_MESH_BF16_TOL and LM_MESH_BF16_CONTROL times the control's distance
+    from the plain unsharded decode, with equal greedy picks (a difference
+    passes only on a near tie, printed). On a float32 copy of the weights,
+    where no rounding to bf16 is left, the sharded run must lie within
+    LM_MESH_TOL of the unsharded one with the same picks; its two prefills
+    launch the float32 ``flash_attention`` a layer each, counted in the
+    log. Then ``sharded_decode_attention`` alone against the plain decode
+    attention at the bf16 operands, timed, and the kernel at the prefill's
+    B 1 shape. Returns the bf16 prefill's launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import (collective_counts,
+                                                     reset_collective_counts)
+    from repro_torch.distributed.meshctx import mesh_context
+    from repro_torch.distributed.sharding import map_specs, to_shardings
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.serve import make_batch, mesh_layout
+    from repro_torch.models import decode_step, init_params, layers
+    from repro_torch.models.layers import (gqa_attention,
+                                           sharded_decode_attention)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    tmp = tempfile.mkdtemp(prefix="lm_serve_mesh_")
+    init_ranks(0, 1, os.path.join(tmp, "store"), dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        ctx, _, _ = mesh_layout(cfg, mesh, 1, LM_MESH_SEQ)
+        ctx.decode_seq_axes = ("data",)
+        batch = make_batch(cfg, 1, LM_PROMPT, dev)
+        log(f"lm_serve_mesh {cfg.name}: backend {dist.get_backend()}, "
+            f"{mesh}; cache specs of layer 0 {ctx.cache_specs['layers'][0]}, "
+            f"decode_seq_axes {ctx.decode_seq_axes}")
+
+        def run(c, params, sharded: bool, feed=None):
+            return decode_fed(c, params, batch, LM_STEPS, LM_MESH_SEQ,
+                              ctx if sharded else None, feed)
+
+        def held(tag, got, want, tol):
+            rel = logit_shares(got["logits"], want["logits"])
+            if not (all(bool(torch.isfinite(g).all()) for g in got["logits"])
+                    and max(rel) <= tol):
+                raise AssertionError(f"lm_serve_mesh {tag}: logits "
+                                     f"{max(rel):.3e} of the largest off "
+                                     f"(limit {tol:.3e})")
+            for d in pick_differences(got["logits"], want["logits"],
+                                      got["picks"], want["picks"]):
+                log(f"lm_serve_mesh {tag} step {d['step']}: picks "
+                    f"{d['got']} against {d['want']}; the unsharded top two "
+                    f"{d['gap']:.3e} apart, the logits {d['apart']:.3e} "
+                    f"apart")
+                if not d["near_tie"]:
+                    raise AssertionError(f"lm_serve_mesh {tag}: step "
+                                         f"{d['step']} picks {d['got']} for "
+                                         f"{d['want']}, not a near tie")
+            return rel
+
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        plain_run = run(cfg, params, False)
+        feed = plain_run["picks"]
+        real = layers._plain_attention
+        layers._plain_attention = plain_attention_f32p
+        try:
+            twin = run(cfg, params, False, feed)
+        finally:
+            layers._plain_attention = real
+        reset_collective_counts()
+        got = run(cfg, params, True, feed)
+        counts = got["counts"]
+        local, tok = got["params"], got["logits"][-1].argmax(-1)[:, None]
+
+        def more():
+            cache = got["cache"]
+            with mesh_context(ctx):
+                for _ in range(4):
+                    _, cache = decode_step(cfg, local, cache, tok)
+
+        profile_call("lm_serve_mesh 4 sharded decode steps", more)
+        coll = collective_counts()
+        launched("lm_serve_mesh prefill", counts, ("flash_attention",))
+        if counts["flash_attention"] != cfg.num_layers:
+            raise AssertionError(f"lm_serve_mesh: the prefill launched the "
+                                 f"attention kernel {counts['flash_attention']}"
+                                 f" times, want {cfg.num_layers}")
+        control = max(logit_shares(twin["logits"], plain_run["logits"]))
+        rel = held("bf16", got, plain_run,
+                   max(LM_MESH_BF16_TOL, LM_MESH_BF16_CONTROL * control))
+        log(f"lm_serve_mesh bf16 logits, a step, as a share of the largest "
+            f"logit: sharded vs plain unsharded "
+            f"{json.dumps([f'{d:.3e}' for d in rel])}; the control (the "
+            f"unsharded decode with P in float32) vs plain up to "
+            f"{control:.3e}, vs sharded up to "
+            f"{max(logit_shares(got['logits'], twin['logits'])):.3e}; picks "
+            f"{got['picks'].tolist()} (plain {feed.tolist()}); decode "
+            f"(median of {LM_STEPS}) {got['step_s'] * 1e3:.3f} ms a step "
+            f"sharded, {plain_run['step_s'] * 1e3:.3f} unsharded; "
+            f"collectives of the sharded run (its prefill, {LM_STEPS} timed "
+            f"and 4 profiled steps) {json.dumps(coll)}")
+        kv_mesh = got["cache"]["layers"][0]["k"]
+        del plain_run, twin, got, local
+
+        # float32 weights: no rounding to bf16 left between the two. Each
+        # prefill of 4,096 runs the float32 attention kernel a layer
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = map_specs(lambda _, t: t.float(), to_shardings(ctx.specs, ctx),
+                        params)
+        want32 = run(c32, p32, False)
+        got32 = run(c32, p32, True, want32["picks"])
+        rel32 = held("float32", got32, want32, LM_MESH_TOL)
+        f32_launches = (want32["counts"]["flash_attention"]
+                        + got32["counts"]["flash_attention"])
+        log(f"lm_serve_mesh float32 weights: sharded vs unsharded logits up "
+            f"to {max(rel32):.3e} of the largest (limit {LM_MESH_TOL}); "
+            f"picks {got32['picks'].tolist()} (unsharded "
+            f"{want32['picks'].tolist()}); decode (median) "
+            f"{got32['step_s'] * 1e3:.3f} ms a step sharded, "
+            f"{want32['step_s'] * 1e3:.3f} unsharded; the two float32 "
+            f"prefills launched flash_attention {f32_launches} times")
+        del p32, want32, got32
+
+        # the attention alone at a layer's operands: the bf16 cache of layer
+        # 0 after the steps, q and the new k/v drawn at its shape
+        gen = torch.Generator(device=dev).manual_seed(6)
+        hd, hq, hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+        q = torch.randn((1, hq, 1, hd), generator=gen, device=dev
+                        ).to(kv_mesh.dtype)
+        kn = torch.randn((1, hkv, 1, hd), generator=gen, device=dev
+                         ).to(kv_mesh.dtype)
+        pos = LM_PROMPT + LM_STEPS
+        ck, cv = kv_mesh.clone(), kv_mesh.clone()
+        sharded = sharded_decode_attention(q, ck, cv, kn, kn, pos, ctx=ctx,
+                                           seq_axes=("data",),
+                                           rep=hq // hkv)[0]
+        plain = gqa_attention(q, ck, cv, causal=False, kv_valid_len=pos + 1,
+                              impl="plain", q_chunk=cfg.attn_q_chunk,
+                              kv_chunk=cfg.attn_kv_chunk)
+        err = float((sharded.float() - plain.float()).abs().max())
+        scale = float(plain.float().abs().max())
+        ms = device_ms(lambda: sharded_decode_attention(
+            q, ck, cv, kn, kn, pos, ctx=ctx, seq_axes=("data",),
+            rep=hq // hkv))
+        pms = device_ms(lambda: gqa_attention(
+            q, ck, cv, causal=False, kv_valid_len=pos + 1, impl="plain",
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk))
+        log(f"lm_serve_mesh sharded_decode_attention (B 1, Hq {hq}, Hkv "
+            f"{hkv}, cache {LM_MESH_SEQ}, pos {pos}, D {hd}, bf16): max abs "
+            f"err {err:.3e} vs the plain decode attention (scale "
+            f"{scale:.3e}); {ms:.5f} ms, plain {pms:.5f} ms (the plain one "
+            f"reads all {LM_MESH_SEQ} masked positions, the sharded one the "
+            f"{pos + 1} written)")
+        if not err <= 2e-2 * max(scale, 1e-30):
+            raise AssertionError(f"lm_serve_mesh: sharded decode attention "
+                                 f"{err:.3e} off the plain one")
+        del params, kv_mesh, ck, cv
+        torch.cuda.empty_cache()
+        # the kernel at the mesh prefill's attention shape (B 1)
+        attention_case(torch.Generator(device=dev).manual_seed(4), dev, out,
+                       1, "qwen3-1.7b mesh prefill", cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim_, LM_PROMPT, True,
+                       None, torch.bfloat16, headline=headline)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    PHASE_S["lm_serve_mesh"] = time.perf_counter() - t_phase
     return counts
 
 
@@ -4057,6 +4561,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mixers", action="store_true",
                     help="only the lm_serve_mixers path (the kernels line "
                          "then lists flash_attention)")
+    ap.add_argument("--serve-mesh", action="store_true",
+                    help="only the serving_mesh and lm_serve_mesh paths "
+                         "(the kernels line then lists entry_stats, "
+                         "row_stats and flash_attention)")
     ap.add_argument("--train", action="store_true",
                     help="only the lm_train, lm_train_mesh and "
                          "lm_train_mixers paths and the flash_attention_bwd "
@@ -4097,6 +4605,17 @@ def main(argv=None) -> int:
         names = ("flash_attention",)
         records = {}
         counts = lm_serve_mixers_phase(dev, records, headline=True)
+    elif args.serve_mesh:
+        from repro_torch.sparse.dataset import generate_suite
+
+        names = ("entry_stats", "row_stats", "flash_attention")
+        records = {}
+        engine = train_phase()
+        served = list(generate_suite(16, seed=1, size_scale=8))
+        counts = serving_mesh_phase(engine, served, dev, records,
+                                    headline=True)
+        counts.update(flash_attention=lm_serve_mesh_phase(
+            dev, records, headline=True)["flash_attention"])
     elif args.train:
         names = ("flash_attention_bwd",)
         records = {}
@@ -4148,12 +4667,15 @@ def all_paths(dev) -> tuple:
     solve_mats = list(generate_suite(16, seed=1, size_scale=4))
     counts = engine_phase(engine, solve_mats)
     serving_phase(engine, solve_mats, dev)
+    mesh_records = {}
+    serving_mesh_phase(engine, served, dev, mesh_records, headline=False)
     lifecycle_errs = lifecycle_phase(engine, solve_mats, dev)
     families_phase(served, solve_mats, dev)
     table2_phase(served, dev)
     counts.update({k: v for k, v in per_front_phase(plans, engine, dev).items()
                    if k in TILE_KERNELS})
     counts["flash_attention"] = lm_serve_phase(dev)["flash_attention"]
+    lm_serve_mesh_phase(dev, mesh_records, headline=False)
     mixer_records = {}
     lm_serve_mixers_phase(dev, mixer_records, headline=False)
     train_records = {}
@@ -4169,9 +4691,10 @@ def all_paths(dev) -> tuple:
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     csr_stats_checks(served, dev, records)
     attention_checks(dev, records)
-    records["flash_attention"]["max_abs_err"] = max(
-        records["flash_attention"]["max_abs_err"],
-        mixer_records["flash_attention"]["max_abs_err"])
+    for extra in (mixer_records, mesh_records):
+        for name, rec in extra.items():
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                               rec["max_abs_err"])
     b = np.random.default_rng(2).standard_normal(a.n)
     spans = profile_call(f"{a.name} {plan.algorithm} k=1 execute_plan",
                          lambda: execute_plan(a, plan, b, device=dev))

@@ -27,18 +27,25 @@ CSR-native over a padded ``(indptr, indices)`` batch, never a dense
 (:mod:`repro_torch.kernels.csr_stats`), where the reference calls its
 Pallas kernels with ``use_pallas=True``; the reference's ``use_pallas``
 switch is not ported, since its other branch would run the plain
-reductions on the card. The legacy dense
+reductions on the card. The reference's sharded wrapper
+(``_build_sharded_featurizer``, :166-209) becomes the split over the
+serving mesh in :func:`extract_features_batch_device`: the padded batch is
+padded again to a multiple of the mesh's width by repeating row 0, cut
+into contiguous shards that keep the global padded ``N`` and ``E`` (only
+the batch axis is split, as under ``shard_map``), and each shard runs the
+whole featurizer on its own device, its two kernels included. The legacy dense
 ``extract_features_jnp`` is not ported. ``paper12`` (with the device
 extractor) and ``extended19`` (host only) register as in the reference.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device, to_device
+from ..distributed.meshctx import ServingMesh, get_serving_mesh
 from ..engine.registry import register_feature_set
 from ..kernels.csr_stats import entry_stats, row_stats
 from ..sparse.csr import CSRMatrix, bandwidth, profile
@@ -47,7 +54,7 @@ from ..sparse.graph import adjacency, degrees
 __all__ = ["FEATURE_NAMES", "EXTENDED_FEATURE_NAMES", "extract_features",
            "extract_features_batch", "extract_features_extended",
            "CSRBatch", "pad_csr_batch", "extract_features_batch_device",
-           "csr_stats_args"]
+           "csr_stats_args", "csr_stats_shard_args", "shard_batch"]
 
 FEATURE_NAMES = [
     "dimension", "nnz", "nnz_ratio", "nnz_max", "nnz_min", "nnz_avg",
@@ -221,15 +228,53 @@ def _stats_args(t: _Entries) -> tuple:
 
 def csr_stats_args(batch: CSRBatch, device=None) -> tuple:
     """The arguments :func:`extract_features_batch_device` hands
-    ``entry_stats`` and ``row_stats`` for ``batch``, on ``device``:
-    ``((rows, cols, valid, first), (row_nnz, row_valid, mean))``."""
+    ``entry_stats`` and ``row_stats`` for ``batch`` on a one-device mesh,
+    on ``device``: ``((rows, cols, valid, first), (row_nnz, row_valid,
+    mean))``."""
     return _stats_args(_entries(batch, resolve_device(device)))
 
 
-def extract_features_batch_device(batch: CSRBatch, *, device=None) -> torch.Tensor:
-    """All 12 Table-3 features for a padded CSR batch, on ``device``
-    (``None`` → CUDA, raising when there is none; ``"cpu"`` runs the
-    kernels' plain versions).
+def csr_stats_shard_args(batch: CSRBatch, mesh: ServingMesh) -> list:
+    """What :func:`extract_features_batch_device` hands the two kernels
+    over ``mesh``: one ``csr_stats_args`` tuple a shard, each on its
+    shard's device."""
+    return [_stats_args(_entries(part, dev))
+            for part, dev in zip(shard_batch(batch, mesh.num_devices),
+                                 mesh.devices)]
+
+
+def shard_batch(batch: CSRBatch, n: int) -> List[CSRBatch]:
+    """``batch`` padded to a multiple of ``n`` rows by repeating row 0 (the
+    reference's filler), then cut into ``n`` contiguous shards along the
+    batch axis; each keeps the batch's padded ``N`` and ``E``."""
+    b = len(batch.n)
+    pad = (-b) % n
+    if pad:
+        batch = CSRBatch(*(np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
+                           for a in batch))
+    per = (b + pad) // n
+    return [CSRBatch(*(a[i * per:(i + 1) * per] for a in batch))
+            for i in range(n)]
+
+
+def extract_features_batch_device(batch: CSRBatch, *, device=None,
+                                  mesh: Optional[ServingMesh] = None
+                                  ) -> torch.Tensor:
+    """All 12 Table-3 features for a padded CSR batch, split over the
+    serving mesh: ``mesh``, else the installed one
+    (:func:`repro_torch.distributed.meshctx.get_serving_mesh`), else the
+    one-device mesh on ``device`` (``None`` → CUDA, raising when there is
+    none; ``"cpu"`` runs the kernels' plain versions). An installed mesh on
+    another kind of device than ``device`` raises.
+
+    The batch is padded to a multiple of the mesh's width (row 0 repeated)
+    and cut into contiguous shards (:func:`shard_batch`); each shard is
+    copied to its device and featurized there, every shard queued before
+    any result is read, so that the cards work at once. The features of a
+    matrix never depend on another's, and every shard keeps the padded
+    ``N`` and ``E``, so the result has the bits of the one-device run. The
+    (B, 12) features are gathered on the mesh's first device with the
+    filler rows dropped.
 
     Pure segment reductions over ``(indptr, indices)``: per-entry row ids by
     binary search on indptr, degrees of the symmetrized graph by float32
@@ -242,10 +287,23 @@ def extract_features_batch_device(batch: CSRBatch, *, device=None) -> torch.Tens
     ``entry_stats`` / ``row_stats`` wrappers, where the reference calls its
     Pallas kernels: on a CUDA device they launch the kernels, on the CPU
     they run their plain versions.
-    Returns a ``(B, 12)`` float32 tensor on ``device``, ordered like
-    ``FEATURE_NAMES``.
+    Returns a ``(B, 12)`` float32 tensor, ordered like ``FEATURE_NAMES``.
     """
-    dev = resolve_device(device)
+    sm = mesh if mesh is not None else get_serving_mesh(device)
+    if device is not None and sm.kind != resolve_device(device).type:
+        raise ValueError(f"the serving mesh is on {sm.kind}; the caller "
+                         f"asked for {resolve_device(device).type}")
+    if sm.num_devices == 1:
+        return _featurize(batch, sm.devices[0])
+    parts = [_featurize(part, dev) for part, dev in
+             zip(shard_batch(batch, sm.num_devices), sm.devices)]
+    head = sm.devices[0]
+    return torch.cat([p.to(head, non_blocking=True) for p in parts]
+                     )[:len(batch.n)]
+
+
+def _featurize(batch: CSRBatch, dev: torch.device) -> torch.Tensor:
+    """The featurizer on one device: (B, 12) float32 on ``dev``."""
     t = _entries(batch, dev)
     rows, cols, valid, n = t.rows, t.cols, t.valid, t.n
     bsz, e = t.indices.shape

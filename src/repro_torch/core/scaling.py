@@ -9,6 +9,8 @@ under the reference's names (``none``, ``minmax``, ``standard``);
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 import torch
@@ -82,23 +84,30 @@ class StandardScaler(IdentityScaler):
 
 SCALERS = SCALER_REGISTRY
 
+#: guards every scaler's per-device state (``_device_state``)
+_STATE_LOCK = threading.Lock()
+
 
 def scaler_transform_device(scaler, x: torch.Tensor) -> torch.Tensor:
     """``scaler.transform`` on a float32 tensor, on its device: the fitted
     affine map in float32, as the reference's device path applies it. The
     state is uploaded once per fit and device and kept on the scaler, so a
-    warm batch uploads nothing."""
+    warm batch uploads nothing (on every device of a serving mesh)."""
     st = scaler.state()
     if not st:
         return x
     shift, div = ((st["mean"], st["std"]) if "mean" in st
                   else (st["min"], st["scale"]))
-    cached = getattr(scaler, "_device_state", None)
-    if (cached is None or cached[0] != x.device or cached[1] is not shift
-            or cached[2] is not div):
-        # strong references to the fitted arrays, not their ids: a refit
-        # frees them, and a new array could reuse an address
-        cached = scaler._device_state = (x.device, shift, div, *(
-            torch.as_tensor(np.asarray(v), dtype=torch.float32).to(x.device)
-            for v in (shift, div)))
-    return (x - cached[3]) / cached[4]
+    with _STATE_LOCK:  # served from several threads at once
+        cached = getattr(scaler, "_device_state", None)
+        if cached is None or cached[0] is not shift or cached[1] is not div:
+            # strong references to the fitted arrays, not their ids: a
+            # refit frees them, and a new array could reuse an address
+            cached = scaler._device_state = (shift, div, {})
+        per_device = cached[2]
+        if x.device not in per_device:
+            per_device[x.device] = tuple(
+                torch.as_tensor(np.asarray(v), dtype=torch.float32)
+                .to(x.device) for v in (shift, div))
+        mean, scale = per_device[x.device]
+    return (x - mean) / scale

@@ -9,10 +9,11 @@ through the host featurizer or the CSR-native device featurizer
 device path the scaler transform, the classifier's forward (the forest
 traversal, or the products of logistic regression, SVM and MLP) and the
 argmax run on the card too (``_predict_device``); the feature batch never
-leaves it, only the label indices do. There is one card and no serving
-mesh, so the reference's shard_map and padding to the mesh width have no
-counterpart. A model without ``forward_device`` (KNN, naive Bayes)
-classifies on the host.
+leaves the devices, only the label indices do. Over a serving mesh
+(:mod:`repro_torch.distributed.meshctx`) both stages split the padded
+batch contiguously over the mesh's devices, as the reference's shard_maps
+do, and every shard's classifier runs on its own device. A model without
+``forward_device`` (KNN, naive Bayes) classifies on the host.
 
 ``train_selector`` grid-searches and refits a selector on a
 :class:`~repro_torch.core.labeling.LabeledDataset`, as the reference does.
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.meshctx import get_serving_mesh
 from ..engine.registry import FeatureSet, get_feature_set
 from ..sparse.csr import CSRMatrix
 from .features import pad_csr_batch
@@ -98,37 +100,54 @@ class ReorderSelector:
         packs the batch into padded CSR buffers (``bucket=True``) and runs
         the segment-reduction featurizer on ``device`` (``None`` → CUDA;
         on a card through the ``csr_stats`` kernels), then classifies
-        there. The seconds end after the label indices reach the
-        host.
+        there, both over the serving mesh
+        (:func:`~repro_torch.distributed.meshctx.get_serving_mesh`). The
+        seconds end after the label indices reach the host.
         """
         assert path in ("host", "device"), path
         t0 = time.perf_counter()
         fs = self._fs()
         if path == "device" and fs.extract_batch_device is not None:
+            sm = get_serving_mesh(device)
             feats = fs.extract_batch_device(
-                pad_csr_batch(mats, bucket=True), device=device)
-            idx = self._predict_device(feats)
+                pad_csr_batch(mats, bucket=True), device=device, mesh=sm)
+            idx = self._predict_device(feats, sm)
         else:  # host path, or a feature set with no device extractor
             idx = self.predict_features(fs.batch(mats))
         names = [self.algorithms[int(i)] for i in idx]
         return names, time.perf_counter() - t0
 
-    def _predict_device(self, feats: torch.Tensor) -> np.ndarray:
+    def _predict_device(self, feats: torch.Tensor, mesh=None) -> np.ndarray:
         """Label indices for a (B, d) float32 feature tensor.
 
         Models exposing ``forward_device`` (trees and forests, via
         :mod:`repro_torch.core.ml.forest_torch`, and the models of
-        :mod:`repro_torch.core.ml.torch_models`) classify on the tensor's
-        device: scaler transform in float32, forward, argmax. The
-        fitted state is uploaded once per fit and device and cached, so a
-        warm batch uploads only its matrices. Other models classify the
-        transferred features on the host in float64, as the reference does
-        for KNN / naive Bayes.
+        :mod:`repro_torch.core.ml.torch_models`) classify over the serving
+        mesh (``mesh``, else the installed one on the kind of the tensor's
+        device): the batch is padded to a multiple of its width by
+        repeating row 0 and cut into contiguous shards, and each shard is
+        copied to its device for the scaler transform in float32, the
+        forward and the argmax, every shard queued before the indices are
+        gathered. The fitted state is uploaded once per fit and device and
+        cached there, so a warm batch uploads only its features. Other
+        models classify the transferred features on the host in float64,
+        as the reference does for KNN / naive Bayes.
         """
-        if hasattr(self.model, "forward_device"):
-            z = scaler_transform_device(self.scaler, feats)
-            return self.model.forward_device(z).argmax(dim=1).cpu().numpy()
-        return self.model.predict(self.scaler.transform(feats.cpu().numpy()))
+        if not hasattr(self.model, "forward_device"):
+            return self.model.predict(
+                self.scaler.transform(feats.cpu().numpy()))
+        sm = mesh if mesh is not None else get_serving_mesh(feats.device)
+        b, nd = feats.shape[0], sm.num_devices
+        if nd > 1 and b % nd:  # ragged batch: filler rows, dropped below
+            feats = torch.cat([feats, feats[:1].expand((-b) % nd, -1)])
+        parts = []
+        for x, dev in zip(feats.chunk(nd), sm.devices):
+            z = scaler_transform_device(self.scaler,
+                                        x.to(dev, non_blocking=True))
+            parts.append(self.model.forward_device(z).argmax(dim=1))
+        head = parts[0].device
+        idx = torch.cat([p.to(head, non_blocking=True) for p in parts])
+        return idx[:b].cpu().numpy()
 
     def accuracy(self, feats: np.ndarray, labels: np.ndarray) -> float:
         return accuracy_score(labels, self.predict_features(feats))

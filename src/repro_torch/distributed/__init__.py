@@ -11,7 +11,7 @@ from .collectives import collective_counts, reset_collective_counts
 from .gradient_compression import compressed_psum, init_error_state
 from .meshctx import (MeshContext, ServingMesh, get_mesh_context,
                       get_serving_mesh, make_serving_mesh, mesh_context,
-                      set_mesh_context, set_serving_mesh)
+                      serving_mesh, set_mesh_context, set_serving_mesh)
 from .sharding import (ExecutionPlan, batch_specs, opt_state_spec_for,
                        param_specs, to_shardings)
 
@@ -19,5 +19,5 @@ __all__ = ["collective_counts", "reset_collective_counts",
            "compressed_psum", "init_error_state", "MeshContext",
            "get_mesh_context", "mesh_context", "set_mesh_context",
            "ServingMesh", "make_serving_mesh", "get_serving_mesh",
-           "set_serving_mesh", "ExecutionPlan", "batch_specs",
+           "set_serving_mesh", "serving_mesh", "ExecutionPlan", "batch_specs",
            "opt_state_spec_for", "param_specs", "to_shardings"]

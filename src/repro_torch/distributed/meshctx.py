@@ -2,28 +2,35 @@
 model and serving code read.
 
 * :class:`MeshContext` (:35), with ``set_mesh_context``,
-  ``get_mesh_context`` and ``mesh_context`` (:58-81): the *training* mesh
-  (a ``torch.distributed.device_mesh.DeviceMesh`` with the reference's
-  axis names), its data axes and its model axis. The reference's model
-  reads it only to keep the MoE dispatch local; the port's model runs on
-  each rank's local shards with explicit collectives, so it reads the
-  context to find its groups and the parameters' layout (``specs``, the
-  layout the trainer gave them: :mod:`repro_torch.distributed.sharding`).
-  With no mesh set (``mesh=None``, the default) every function computes
-  exactly what it computes on one device. The reference's other fields
-  wait for the code that reads them: ``attn_dp_axes`` and
-  ``shard_activation_ckpt`` (set only by ``launch/dryrun.py``, ROADMAP
-  item 3.3) and ``decode_seq_axes`` (sharded decode, item 4).
+  ``get_mesh_context`` and ``mesh_context`` (:58-81): the *training* and
+  LM-serving mesh (a ``torch.distributed.device_mesh.DeviceMesh`` with the
+  reference's axis names), its data axes and its model axis. The
+  reference's model reads it only to keep the MoE dispatch local; the
+  port's model runs on each rank's local shards with explicit collectives,
+  so it reads the context to find its groups and the parameters' layout
+  (``specs``, the layout the trainer or the serving launcher gave them:
+  :mod:`repro_torch.distributed.sharding`). ``decode_seq_axes`` names the
+  axes a decode's KV cache is sequence-sharded over
+  (:func:`repro_torch.models.layers.sharded_decode_attention`). With no
+  mesh set (``mesh=None``, the default) every function computes exactly
+  what it computes on one device. The reference's ``attn_dp_axes`` and
+  ``shard_activation_ckpt`` are set only by ``launch/dryrun.py`` and wait
+  for it (ROADMAP item 3.3).
 * :class:`ServingMesh` (:88-207), the device layout of the
-  selection-serving plane, and the per-shard utilization report that
-  ``PlanBuilder.select_names`` writes into the metrics registry. In the
-  reference the padded-CSR featurizer and the forest inference shard_map
-  over a 1-D mesh on the request-batch axis. The port serves on one card:
-  a :class:`ServingMesh` here is a list of ``torch.device``\\ s,
-  :func:`make_serving_mesh` raises for more devices than there are CUDA
-  devices (and ``EngineConfig`` refuses ``serving_devices > 1``), and the
-  degenerate one-device mesh is what :func:`get_serving_mesh` gives when
-  none is installed.
+  selection-serving plane, with ``make_serving_mesh``,
+  ``set_serving_mesh``, ``get_serving_mesh``, the ``serving_mesh`` context
+  manager and the per-shard utilization report that
+  ``PlanBuilder.select_names`` writes into the metrics registry. The
+  reference shard_maps the padded-CSR featurizer and the classifier over a
+  1-D mesh on the request-batch axis; here a :class:`ServingMesh` is a
+  tuple of ``torch.device``\\ s, one a shard, and the featurizer and
+  ``ReorderSelector._predict_device`` split the padded batch contiguously
+  over them, queueing every shard's work before any of it is read back.
+  On the CPU, ``make_serving_mesh(n, "cpu")`` gives ``n`` shards on the
+  one host device (the counterpart of the reference's
+  ``--xla_force_host_platform_device_count``); a mesh may also list one
+  card more than once. The degenerate one-device mesh is what
+  :func:`get_serving_mesh` gives when none is installed.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from ..device import resolve_device
 __all__ = ["MeshContext", "set_mesh_context", "get_mesh_context",
            "mesh_context", "register_groups", "ServingMesh",
            "make_serving_mesh", "set_serving_mesh", "get_serving_mesh",
-           "record_shard_utilization"]
+           "serving_mesh", "installed_serving_mesh", "record_shard_utilization"]
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +80,13 @@ class MeshContext:
     data_axes: Tuple[str, ...] = ("data",)   # ('pod', 'data') multi-pod
     model_axis: str = "model"
     specs: Optional[dict] = None
+    # the axes a decode's KV cache is sequence-sharded over: decode then
+    # runs layers.sharded_decode_attention over their group; None for a
+    # cache whose sequence is whole on every rank
+    decode_seq_axes: Optional[Tuple[str, ...]] = None
+    # the layout of the cache the model serves from (sharding.cache_specs
+    # at the global batch); needed by prefill and decode under a mesh
+    cache_specs: Optional[dict] = None
 
     def _ordered(self, axes) -> Tuple[str, ...]:
         names = tuple(self.mesh.mesh_dim_names)
@@ -148,13 +162,28 @@ class mesh_context:
 @dataclasses.dataclass(frozen=True)
 class ServingMesh:
     """1-D mesh over the request-batch axis of the serving plane: the
-    devices a padded batch is split over, contiguously."""
+    devices a padded batch is split over, contiguously, one shard a
+    device (a device may appear more than once). Hashable: it keys the
+    selector's per-mesh state."""
 
     devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a serving mesh needs at least one device")
+        kinds = {d.type for d in self.devices}
+        if len(kinds) != 1:
+            raise ValueError(f"a serving mesh spans one kind of device, "
+                             f"got {sorted(kinds)}")
 
     @property
     def num_devices(self) -> int:
         return len(self.devices)
+
+    @property
+    def kind(self) -> str:
+        """The device type of every shard (``cuda`` or ``cpu``)."""
+        return self.devices[0].type
 
     def shard_utilization(self, b_real: int, b_padded: int
                           ) -> List[Tuple[int, int]]:
@@ -175,14 +204,20 @@ class ServingMesh:
 
 def make_serving_mesh(num_devices: Optional[int] = None,
                       device=None) -> ServingMesh:
-    """Serving mesh over the first ``num_devices`` devices of the kind of
-    ``device`` (``None`` → CUDA, raising when there is none; ``"cpu"`` → the
-    one host device). Default: all of them."""
+    """Serving mesh of ``num_devices`` shards on devices of the kind of
+    ``device`` (``None`` → CUDA, raising when there is none): the first
+    ``num_devices`` cards (default: all of them), raising for more than
+    there are; on the CPU, ``num_devices`` shards (default 1) on the one
+    host device. Raises ``ValueError`` for fewer than one."""
     dev = resolve_device(device)
-    devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-            if dev.type == "cuda" else [dev])
+    if num_devices is not None and num_devices < 1:
+        raise ValueError(f"a serving mesh needs at least one shard, got "
+                         f"{num_devices}")
+    if dev.type == "cpu":
+        return ServingMesh((dev,) * (num_devices or 1))
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if num_devices is not None:
-        if not 1 <= num_devices <= len(devs):
+        if num_devices > len(devs):
             raise ValueError(
                 f"serving mesh wants {num_devices} devices but there are "
                 f"{len(devs)} of type {dev.type}")
@@ -201,13 +236,25 @@ def set_serving_mesh(sm: Optional[ServingMesh]) -> None:
     _SERVING = sm
 
 
+def installed_serving_mesh() -> Optional[ServingMesh]:
+    """The mesh :func:`set_serving_mesh` installed, or ``None``."""
+    return _SERVING
+
+
 def get_serving_mesh(device=None) -> ServingMesh:
     """The installed serving mesh, else the degenerate one-device mesh on
     the kind of ``device`` (built once per kind: this sits on the
-    per-micro-batch path)."""
-    if _SERVING is not None:
+    per-micro-batch path). An installed mesh on another kind of device
+    than an explicit ``device`` raises: nothing moves to the host or the
+    card unasked."""
+    if _SERVING is not None and device is None:
         return _SERVING
     kind = resolve_device(device).type
+    if _SERVING is not None:
+        if _SERVING.kind != kind:
+            raise ValueError(f"the installed serving mesh is on "
+                             f"{_SERVING.kind}; the caller asked for {kind}")
+        return _SERVING
     with _DEFAULT_LOCK:
         sm = _DEFAULT.get(kind)
         if sm is None:
@@ -231,3 +278,20 @@ def record_shard_utilization(metrics, sm: ServingMesh, b_real: int,
         metrics.counter(f"mesh.shard{i}.requests").inc(real)
         metrics.counter(f"mesh.shard{i}.pad_rows").inc(pad)
 
+
+
+class serving_mesh:
+    """with serving_mesh(make_serving_mesh(4, "cpu")): ... (restores the
+    mesh installed before)."""
+
+    def __init__(self, sm: ServingMesh):
+        self.sm = sm
+
+    def __enter__(self):
+        self.prev = _SERVING
+        set_serving_mesh(self.sm)
+        return self.sm
+
+    def __exit__(self, *exc):
+        set_serving_mesh(self.prev)
+        return False

@@ -1,8 +1,8 @@
 """Port of ``repro/distributed/sharding.py``: :class:`ExecutionPlan` (:34)
 with its ``apply`` (:64), and the spec functions that lay parameters,
-optimizer state and batches over a training mesh: ``_rule`` (:72),
+optimizer state, batches and caches over a mesh: ``_rule`` (:72),
 ``param_specs`` (:114), ``opt_state_spec_for`` (:143), ``batch_specs``
-(:172) and ``to_shardings`` (:233).
+(:172), ``cache_specs`` (:187) and ``to_shardings`` (:233).
 
 Layout (mesh axes: optional 'pod', 'data', 'model'):
 
@@ -10,7 +10,10 @@ Layout (mesh axes: optional 'pod', 'data', 'model'):
 * attention heads, FFN hidden, vocab → 'model' (TP);
 * optimizer state → additionally sharded over the data axes (ZeRO);
 * parameters → replicated over 'data' by default; ``plan.fsdp_params``
-  shards them over 'data' too (FSDP), for an all-gather per use.
+  shards them over 'data' too (FSDP), for an all-gather per use;
+* KV caches → batch over 'data' when the batch tiles it, else the sequence
+  over 'data' (sequence parallelism for a batch of 1); kv heads over
+  'model' when they tile it, else the sequence over 'model' too.
 
 A spec is a tuple with one entry per dimension: ``None``, an axis name, or
 a tuple of axis names, as the entries of the reference's
@@ -35,16 +38,23 @@ whole on each model rank (a deliberate divergence, as
 :func:`kv_whole_specs` is: the layout is the reference's, the values
 GSPMD's).
 
-``cache_specs`` and the knobs ``attn_batch_reshard``,
-``shard_activation_ckpt``, ``seq_shard_decode`` and ``scan_layers`` wait
-for the code that reads them (ROADMAP §1, items 3.3 and 4): a knob is a
+:func:`cache_specs` gives the reference's cache specs for every slot
+kind. The model lays attention's k/v out by them, and keeps a Mamba or
+xLSTM state whole on every model rank where they split it over the model
+axis, as it computes those mixers whole there (the divergence above).
+``seq_shard_decode`` (read by :func:`decode_seq_axes_for`, the reference
+dry run's decode rule) decodes from a sequence-sharded cache through
+:func:`repro_torch.models.layers.sharded_decode_attention`; the serving
+launcher always turns it on, as the port never gathers a cache. The knobs
+``attn_batch_reshard``, ``shard_activation_ckpt`` and ``scan_layers``
+wait for the dry run that sets them (ROADMAP §1, item 3.3): a knob is a
 field once code reads it. The port loops over its layers, so
 ``scan_layers`` would change no value.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -53,8 +63,8 @@ from .collectives import all_gather
 from .meshctx import MeshContext, _axes
 
 __all__ = ["ExecutionPlan", "param_specs", "opt_state_spec_for",
-           "batch_specs", "to_shardings", "Sharding", "kv_whole_specs",
-           "map_specs", "Spec"]
+           "batch_specs", "cache_specs", "decode_seq_axes_for", "to_shardings", "Sharding",
+           "kv_whole_specs", "map_specs", "Spec"]
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -72,6 +82,9 @@ class ExecutionPlan:
     # pure_dp: no tensor parallelism — the whole mesh is one flat DP/FSDP
     # domain (params ZeRO-3-sharded over every axis, batch over every axis)
     pure_dp: bool = False
+    # decode over a sequence-sharded KV cache through
+    # layers.sharded_decode_attention (batch-1 cells), never gathering it
+    seq_shard_decode: bool = False
 
     def apply(self, cfg: ModelConfig) -> ModelConfig:
         return dataclasses.replace(
@@ -209,6 +222,96 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec,
     if shape.kind == "train":
         specs["labels"] = (da, None)
     return specs
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+def _batch_split(global_batch: int, n_data: int) -> bool:
+    """Whether a batch is split over the data axes (else sequence
+    parallelism takes them): the reference's rule."""
+    return global_batch % n_data == 0 and global_batch >= n_data
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
+                model_axis: str = "model",
+                data_axes: Tuple[str, ...] = ("data",)) -> Dict[str, Any]:
+    """Specs mirroring ``init_cache``'s tree (``{"pos", "layers"}``), the
+    reference's (:187-229) leaf for leaf: the batch over the data axes when
+    ``shape.global_batch`` tiles them, else the data axes on the sequence;
+    attention's kv heads over the model axis when they tile it, else the
+    model axis on the sequence too; a Mamba state's ``d_inner`` and an
+    mLSTM's ``conv`` over the model axis. ``mesh``: a ``DeviceMesh`` or a
+    mapping of axis widths."""
+    sizes = _sizes(mesh)
+    n_data = 1
+    for ax in data_axes:
+        n_data *= sizes[ax]
+    n_model = sizes[model_axis]
+    da = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+    split = _batch_split(shape.global_batch, n_data)
+    bspec = da if split else None
+    seq_data = None if split else da
+    heads_on_model = cfg.num_kv_heads % n_model == 0
+    head_spec = model_axis if heads_on_model else None
+    if heads_on_model:
+        seq_spec = seq_data
+    elif seq_data is None:
+        seq_spec = model_axis
+    else:  # both data (a batch of 1) and model on the sequence
+        seq_spec = tuple(data_axes) + (model_axis,)
+
+    def slot_spec(kind):
+        if kind == "a":
+            kv = (bspec, head_spec, seq_spec, None)
+            return dict(k=kv, v=kv)
+        if kind == "m":
+            return dict(conv=(bspec, None, model_axis),
+                        ssm=(bspec, model_axis, None))
+        if kind == "M":
+            return dict(C=(bspec, None, None, None), n=(bspec, None, None),
+                        conv=(bspec, None, model_axis))
+        return dict(c=(bspec, None), n=(bspec, None), h=(bspec, None),
+                    m=(bspec, None))
+
+    return dict(pos=(), layers=[slot_spec(cfg.layer_kind(i))
+                                for i in range(cfg.num_layers)])
+
+
+def decode_seq_axes_for(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                        plan: ExecutionPlan, *, model_axis: str = "model",
+                        data_axes: Tuple[str, ...] = ("data",)
+                        ) -> Optional[Tuple[str, ...]]:
+    """``MeshContext.decode_seq_axes`` for a decode of ``shape`` under
+    ``plan``, by the reference dry run's rule (``launch/dryrun.py``
+    :116-128): with ``seq_shard_decode`` on and a batch that does not tile
+    the data axes, the data axes, and the model axis too when the kv heads
+    do not tile it; with a batch that tiles them, the model axis where the
+    kv heads do not tile it (the cache's sequence is split over it, and
+    the port never gathers a cache); else ``None``. With
+    ``seq_shard_decode`` off, ``None`` where :func:`cache_specs` leaves the
+    cache's sequence whole, and ``ValueError`` where it splits it: the
+    reference then lets GSPMD gather the cache, which the port never does,
+    so the serving launcher always turns the knob on."""
+    sizes = _sizes(mesh)
+    n_data = 1
+    for ax in data_axes:
+        n_data *= sizes[ax]
+    if _batch_split(shape.global_batch, n_data):
+        # the reference leaves this cache to GSPMD, which gathers a
+        # sequence split over the model axis; the port decodes it sharded
+        axes = (None if cfg.num_kv_heads % sizes[model_axis] == 0
+                else (model_axis,))
+    elif cfg.num_kv_heads % sizes[model_axis] == 0:
+        axes = tuple(data_axes)
+    else:
+        axes = tuple(data_axes) + (model_axis,)
+    if axes is not None and not plan.seq_shard_decode:
+        raise ValueError(f"the cache's sequence is split over {axes} and "
+                         f"seq_shard_decode is off: the port never gathers "
+                         f"a cache")
+    return axes
 
 
 # ---------------------------------------------------------------------------

@@ -26,9 +26,11 @@ only when asked; the port's own directory is
 ``artifacts/bundles_torch``, the port's own directories, so that a policy
 or bundle registry written by the reference is never read as the port's.
 
-A serving mesh of more than one device (``serving_devices > 1``) is not
-ported yet and raises ``NotImplementedError`` naming the ROADMAP item.
-Nothing falls back.
+``serving_devices`` is the width of the serving mesh the engine installs
+(:func:`repro_torch.distributed.meshctx.make_serving_mesh`): that many
+cards, raising when the machine has fewer, or that many shards on the host
+with ``device="cpu"``. A width below one raises ``ValueError``. Nothing
+falls back to fewer shards.
 """
 from __future__ import annotations
 
@@ -69,7 +71,9 @@ class EngineConfig:
     # featurization / inference path
     path: str = "device"          # "device" (padded CSR batch) or "host"
     batch_size: int = 16
-    # serving-mesh width: None or 1 (one card; more is not ported)
+    # serving-mesh width: None leaves the installed mesh (one device by
+    # default); N splits each served batch over N cards (N shards on the
+    # host with device="cpu")
     serving_devices: Optional[int] = None
     # where the device path and the solve run: None → CUDA (raising when
     # there is no card); "cpu" runs the kernels' plain versions
@@ -134,11 +138,9 @@ class EngineConfig:
         if self.solver not in ("multifrontal", "simplicial"):
             raise ValueError(f"solver must be 'multifrontal' or "
                              f"'simplicial', got {self.solver!r}")
-        if (self.serving_devices or 1) > 1:
-            raise NotImplementedError(
-                "a serving mesh (serving_devices > 1) is not ported yet "
-                "(ROADMAP.md, slice queue: item 4, the sharded serving "
-                "plane)")
+        if self.serving_devices is not None and self.serving_devices < 1:
+            raise ValueError(f"serving_devices must be None or at least 1, "
+                             f"got {self.serving_devices!r}")
         if (self.solve_dtype == "fp64"
                 and (self.backend in ("pallas", "batched", "pipelined")
                      or self.sweep == "device")):

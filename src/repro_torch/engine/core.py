@@ -324,15 +324,21 @@ class SolverEngine:
     def _ensure_serving_mesh(self) -> None:
         """Install the configured serving mesh (``serving_devices``) if it is
         not already active: process-global, as in the reference, and a
-        no-op when the config leaves ``serving_devices`` unset."""
+        no-op when the config leaves ``serving_devices`` unset. A mesh of
+        another width or on another kind of device is replaced."""
         nd = self.config.serving_devices
         if nd is None:
             return
-        from ..distributed.meshctx import (get_serving_mesh,
+        from ..device import resolve_device
+        from ..distributed.meshctx import (installed_serving_mesh,
                                            make_serving_mesh,
                                            set_serving_mesh)
 
-        if get_serving_mesh(self.config.device).num_devices != nd:
+        kind = resolve_device(self.config.device).type
+        cur = installed_serving_mesh()
+        if cur is None and nd == 1:
+            return  # the degenerate mesh of the device's kind is the default
+        if cur is None or cur.num_devices != nd or cur.kind != kind:
             set_serving_mesh(make_serving_mesh(nd, self.config.device))
 
     def serve(self, *, rpc: bool = False, host: Optional[str] = None,

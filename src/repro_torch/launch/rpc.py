@@ -538,8 +538,8 @@ def _train_tiny_engine(args):
 
     engine = SolverEngine(EngineConfig(
         model=args.model, cache_dir=args.cache_dir or None,
-        batch_size=args.batch, device=args.device, fast_grids=True, cv=3,
-        seed=0))
+        serving_devices=args.devices, batch_size=args.batch,
+        device=args.device, fast_grids=True, cv=3, seed=0))
     ds = load_or_build(cache_dir="artifacts", count=args.campaign_count,
                        seed=7, size_scale=args.campaign_scale, repeats=1,
                        verbose=False)
@@ -560,7 +560,8 @@ def main(argv=None) -> None:
                    help="serve this SelectorBundle instead of training")
     p.add_argument("--model", default="decision_tree")
     p.add_argument("--devices", type=int, default=None,
-                   help="serving-mesh device count (None or 1: one card)")
+                   help="serving-mesh width: cards, or host shards with "
+                        "--device cpu (default: one device)")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="where selection and training run (default: the "
                         "card)")
@@ -586,7 +587,8 @@ def main(argv=None) -> None:
 
     server = engine.serve(rpc=True, host=args.host, port=args.port)
     print(f"[rpc] serving on {server.host}:{server.port} "
-          f"(device: {args.device or 'cuda'})", flush=True)
+          f"(device: {args.device or 'cuda'}, mesh devices: "
+          f"{args.devices or 1})", flush=True)
 
     if args.smoke:
         try:

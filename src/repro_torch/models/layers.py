@@ -16,8 +16,14 @@ flash-attention kernel, and CPU tensors run the twin
 in one rounding only: the twin rounds P to the value dtype before P·V, the
 kernel (like the Pallas kernel) does not.
 
-``sharded_decode_attention`` (:167) waits for the serving mesh (ROADMAP
-§1, item 4).
+``sharded_decode_attention`` (:167) is the decode attention over a
+sequence-sharded KV cache: each rank holds one slice of the cache's
+sequence, writes the new position's k/v where it owns it, forms masked
+float32 softmax partials over its slice, and combines them with an
+all-reduce MAX and two SUMs over the group of the sharded axes, so the
+cache is never gathered. The reference runs it as XLA inside a
+``shard_map`` (no Pallas kernel); here the partials are plain tensor work on
+each rank's slice and the combine names its collectives.
 """
 from __future__ import annotations
 
@@ -27,12 +33,14 @@ import torch
 import torch.nn.functional as F
 
 from ..device import on_cuda
+from ..distributed import collectives as C
 from ..kernels import ops
 from ..kernels.flash_attention import NEG_INF
 
 __all__ = ["rms_norm", "rope_cos_sin", "apply_rope", "mrope_cos_sin",
            "gqa_attention", "flash_attention_xla", "swiglu_mlp",
-           "init_dense", "init_norm", "gen_device"]
+           "init_dense", "init_norm", "gen_device",
+           "sharded_decode_attention"]
 
 
 def gen_device(gen: Optional[torch.Generator]) -> torch.device:
@@ -191,6 +199,52 @@ def flash_attention_xla(q, k, v, *, causal: bool, q_chunk: int = 1024,
             m = m_new
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def sharded_decode_attention(q, ck, cv, k_new, v_new, pos: int, *, ctx,
+                             seq_axes, rep: int):
+    """Decode attention over a KV cache whose sequence is sharded over the
+    mesh axes ``seq_axes`` (row-major over them: this rank holds positions
+    ``[i·S, (i+1)·S)``, ``i = ctx.index(seq_axes)``), plus the owner's
+    write of the new position, without ever gathering the cache.
+
+    q: (B, Hq, 1, hd); ck/cv: (B, Hkv, S, hd), this rank's slice (written in
+    place); k_new/v_new: (B, Hkv, 1, hd); ``pos``: the new position (an
+    int); ``ctx``: the :class:`~repro_torch.distributed.meshctx.
+    MeshContext` whose groups combine the partials; ``rep`` = Hq / Hkv.
+    Each rank forms float32 partials over the positions ``≤ pos`` of its
+    slice (row max m, Σ exp(s − m), Σ exp(s − m)·v), then m is all-reduced
+    with MAX and the corrected sums with SUM over the group: the wire
+    carries O(B·Hq·hd). Returns (out (B, Hq, 1, hd) in q's dtype, ck,
+    cv)."""
+    b, hkv, s_loc, hd = ck.shape
+    group = ctx.group(seq_axes)
+    start = ctx.index(seq_axes) * s_loc
+    lpos = pos - start
+    if 0 <= lpos < s_loc:  # the owner writes the new position
+        ck[:, :, lpos] = k_new[:, :, 0].to(ck.dtype)
+        cv[:, :, lpos] = v_new[:, :, 0].to(cv.dtype)
+    # the positions of this slice that are ≤ pos (the rest are masked in the
+    # reference; here they are not read)
+    n = min(max(pos - start + 1, 0), s_loc)
+    qg = q.reshape(b, hkv, rep, hd).to(torch.float32)
+    kk = ck[:, :, :n].to(torch.float32)
+    vv = cv[:, :, :n].to(torch.float32)
+    scores = torch.einsum("bhrd,bhsd->bhrs", qg, kk) * hd ** -0.5
+    if n:
+        m = scores.amax(dim=-1)                           # (b, hkv, rep)
+    else:
+        m = torch.full((b, hkv, rep), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhrs,bhsd->bhrd", p, vv)
+    m_g = C.all_reduce(m.clone(), group, "max")
+    corr = torch.exp(m - m_g)
+    l_g = C.all_reduce(l * corr, group)
+    o_g = C.all_reduce(o * corr[..., None], group)
+    out = o_g / l_g.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hkv * rep, 1, hd).to(q.dtype), ck, cv
 
 
 def gqa_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,

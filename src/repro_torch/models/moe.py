@@ -77,10 +77,11 @@ CAPACITY_FACTOR = 1.25
 class MoeMesh:
     """What the MoE layer needs of a training mesh: the model group (``None``
     without a model axis) and its width, and the group over the data axes
-    and their width."""
+    and their width (``None`` and 1 when every data rank holds the same
+    tokens, as a served batch that does not tile the data axes)."""
     model_group: Optional[object]
     n_model: int
-    data_group: object
+    data_group: Optional[object]
     n_data: int
 
 
@@ -118,7 +119,7 @@ def _aux(gates: torch.Tensor, eflat: torch.Tensor, num_experts: int,
     # maximum back to the host, a sync in every MoE layer of every step
     counts = F.one_hot(eflat, num_experts).sum(dim=0).float()
     slots = eflat.numel()
-    if mesh is not None:
+    if mesh is not None and mesh.data_group is not None:
         counts = C.all_reduce(counts, mesh.data_group)
         slots *= mesh.n_data
     return num_experts * (me * (counts / slots)).sum()

@@ -1,8 +1,8 @@
 """Port of ``repro/models/transformer.py``: parameter init
 (``init_params`` :114 with ``_init_attn_slot`` :50, ``_init_mlp_slot``
 :66 and ``_init_group`` :83, every block kind and MoE MLPs),
-``_attn_apply`` (:137; its sharded-decode and DP-reshard branches wait
-for items 4 and 3.3), ``_mlp_apply`` (:208, dense gated, GELU and MoE),
+``_attn_apply`` (:137, the sharded-decode branch included; its DP-reshard
+branch waits for item 3.3), ``_mlp_apply`` (:208, dense gated, GELU and MoE),
 ``_embed_inputs`` (:252), ``_rope_tables`` (:258, M-RoPE included),
 ``_unembed`` (:270), and serving: ``init_cache`` (:351, every slot kind),
 ``_apply_group_serve`` (:372), ``prefill`` (:406) and ``decode_step``
@@ -57,6 +57,21 @@ model axis and computes whole on every model rank (a deliberate
 divergence: GSPMD splits d_inner; the values are the same). The loss is
 the mean over this rank's rows, with the aux as the reference combines it;
 the trainer reduces the gradients over the data axes.
+
+Serving under a mesh (the context's ``cache_specs``, from
+:func:`repro_torch.distributed.sharding.cache_specs` at the global batch,
+give the cache's layout): ``prefill`` and ``decode_step`` take this rank's
+rows of the batch (all of them when the batch does not tile the data axes)
+and run the same split layers, the logits gathered over the model axis
+where the vocabulary is split. ``init_cache`` allocates this rank's slice:
+its batch rows, its kv heads where they tile the model axis, and its part
+of the sequence where the layout shards it (the data axes for a batch of
+one, the model axis where the kv heads do not tile it); a Mamba or xLSTM
+state is whole on every model rank. A prefill writes only the positions
+of its rank's slice. A decode step with ``decode_seq_axes`` set runs
+:func:`~repro_torch.models.layers.sharded_decode_attention` over those
+axes; a cache whose sequence is split otherwise raises, since the port
+never gathers a cache.
 """
 from __future__ import annotations
 
@@ -68,11 +83,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed import collectives as C
-from ..distributed.meshctx import MeshContext, get_mesh_context
+from ..distributed.meshctx import MeshContext, _axes, get_mesh_context
 from .config import ModelConfig
 from .layers import (apply_rope, gen_device, gqa_attention, init_dense,
                      init_norm, mrope_cos_sin, rms_norm, rope_cos_sin,
-                     swiglu_mlp)
+                     sharded_decode_attention, swiglu_mlp)
 from .moe import MoeMesh, dense_branch, init_moe_params, moe_ffn
 from .ssm import (init_mamba_params, init_mamba_state, mamba_decode_step,
                   mamba_forward)
@@ -215,18 +230,27 @@ def _attn_apply(layer, x, cos, sin, cfg: ModelConfig, *, causal=True,
     q = apply_rope(q.transpose(1, 2), cos, sin)  # (B, H, S, hd)
     k = apply_rope(k.transpose(1, 2), cos, sin)
     v = v.transpose(1, 2)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    k_all, v_all = k, v  # every kv head this rank computed, for its cache
     if tp and not par.kv_split:
-        k, v = _local_kv(k, v, par.r, hq, cfg.num_heads // cfg.num_kv_heads)
+        k, v = _local_kv(k, v, par.r, hq, rep)
     chunks = dict(q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    if cache is not None:
-        if pos + s > cache["k"].shape[2]:
-            raise ValueError(f"the cache holds {cache['k'].shape[2]} "
-                             f"positions; cannot write {s} at {pos}")
-        cache["k"][:, :, pos:pos + s] = k
-        cache["v"][:, :, pos:pos + s] = v
+    if cache is not None and s == 1 and par is not None \
+            and par.ctx.decode_seq_axes:
+        att = _sharded_decode(q, k_all, v_all, cache, pos, par, tp)
+    elif cache is not None:
+        s_loc = cache["k"].shape[2]
+        start, total = ((0, s_loc) if par is None
+                        else par.seq_slice(s_loc))
+        _write_kv(cache, k_all, v_all, pos, start, total)
         if s == 1:
             # decode: read the whole (masked) buffer — the HBM-bound path
-            att = gqa_attention(q, cache["k"], cache["v"], causal=False,
+            if par is not None:
+                par.check_seq_whole()
+            ck, cv = cache["k"], cache["v"]
+            if tp and not par.kv_split:
+                ck, cv = _local_kv(ck, cv, par.r, hq, rep)
+            att = gqa_attention(q, ck, cv, causal=False,
                                 kv_valid_len=pos + s, impl="plain", **chunks)
         else:
             # prefill: attend causally over the fresh k/v, not the buffer
@@ -237,6 +261,45 @@ def _attn_apply(layer, x, cos, sin, cfg: ModelConfig, *, causal=True,
     if tp:
         out = C.reduce_from(out, par.group)
     return x + out, cache
+
+
+def _write_kv(cache, k, v, pos: int, start: int, total: int) -> None:
+    """Write k/v (B, H, s, hd) of positions ``[pos, pos + s)`` into a cache
+    slice holding positions ``[start, start + S)`` of ``total``, in place;
+    positions outside the slice are not stored."""
+    s, s_loc = k.shape[2], cache["k"].shape[2]
+    if pos + s > total:
+        raise ValueError(f"the cache holds {total} positions; cannot write "
+                         f"{s} at {pos}")
+    lo, hi = max(pos, start), min(pos + s, start + s_loc)
+    if lo < hi:
+        cache["k"][:, :, lo - start:hi - start] = k[:, :, lo - pos:hi - pos]
+        cache["v"][:, :, lo - start:hi - start] = v[:, :, lo - pos:hi - pos]
+
+
+def _sharded_decode(q, k, v, cache, pos: int, par, tp: bool):
+    """The decode branch over a sequence-sharded cache: q (B, Hq_l, 1, hd)
+    this rank's q heads, k/v (B, Hkv_c, 1, hd) the new position's kv heads
+    the cache holds. Where the cache holds every kv head but the q heads
+    are split over the model axis, the q heads are gathered over it first
+    and this rank's heads taken from the output."""
+    ctx = par.ctx
+    par.check_seq_axes()
+    total = cache["k"].shape[2] * ctx.size(ctx.decode_seq_axes)
+    if pos >= total:
+        raise ValueError(f"the cache holds {total} positions; cannot write "
+                         f"1 at {pos}")
+    gather_q = tp and not par.kv_split
+    if gather_q:
+        q = C.all_gather(q, par.group, 1)
+    rep = q.shape[1] // cache["k"].shape[1]
+    att, _, _ = sharded_decode_attention(
+        q, cache["k"], cache["v"], k, v, pos, ctx=ctx,
+        seq_axes=ctx.decode_seq_axes, rep=rep)
+    if gather_q:
+        hq_l = q.shape[1] // par.n
+        att = att[:, par.r * hq_l:(par.r + 1) * hq_l]
+    return att
 
 
 def _local_kv(k, v, r: int, hq_l: int, rep: int):
@@ -321,7 +384,8 @@ class _Par:
     dimension; every other sharded dimension (FSDP: a tuple of axes) is
     all-gathered where the leaf is used."""
 
-    def __init__(self, ctx: MeshContext, cfg: ModelConfig):
+    def __init__(self, ctx: MeshContext, cfg: ModelConfig,
+                 serving: bool = False):
         self.ctx, self.specs = ctx, ctx.specs
         ma = ctx.model_axis
         self.has_model = ma in tuple(ctx.mesh.mesh_dim_names)
@@ -330,6 +394,21 @@ class _Par:
         self.r = ctx.index(ma) if self.has_model else 0
         self.data_group = ctx.group(ctx.data_axes)
         self.n_data = ctx.size(ctx.data_axes)
+        # serving: the axes the cache's sequence is split over; a batch
+        # that does not tile the data axes is whole on every data rank, so
+        # the MoE counts its tokens once (no data group)
+        self.seq_axes: Tuple[str, ...] = ()
+        if serving:
+            cs = ctx.cache_specs
+            if cs is None:
+                raise ValueError(
+                    "serving under a mesh needs MeshContext.cache_specs "
+                    "(sharding.cache_specs at the global batch)")
+            if next(iter(cs["layers"][0].values()))[0] is None:
+                self.data_group, self.n_data = None, 1
+            kv = next((l["k"] for l in cs["layers"] if "k" in l), None)
+            if kv is not None:
+                self.seq_axes = ctx._ordered(kv[2])
 
         sp = self.specs or {}
         layers = sp.get("layers", []) if sp else []
@@ -339,6 +418,36 @@ class _Par:
         self.embed = self.split(sp.get("embed"), 0)
         self.head = (self.embed if cfg.tie_embeddings
                      else self.split(sp.get("lm_head"), 1))
+
+    def seq_slice(self, s_loc: int) -> Tuple[int, int]:
+        """(first position, whole length) of a cache slice of ``s_loc``
+        positions on this rank."""
+        if not self.seq_axes:
+            return 0, s_loc
+        return (self.ctx.index(self.seq_axes) * s_loc,
+                s_loc * self.ctx.size(self.seq_axes))
+
+    def _wide(self, axes) -> Tuple[str, ...]:
+        return tuple(a for a in self.ctx._ordered(axes)
+                     if self.ctx.size(a) > 1)
+
+    def check_seq_whole(self) -> None:
+        """Raise unless the cache's sequence is whole on this rank."""
+        if self._wide(self.seq_axes):
+            raise ValueError(
+                f"the cache's sequence is split over {self.seq_axes}: "
+                f"decode needs MeshContext.decode_seq_axes (the cache is "
+                f"never gathered)")
+
+    def check_seq_axes(self) -> None:
+        """Raise unless ``decode_seq_axes`` split the sequence as the
+        cache's layout does (axes of width 1 aside)."""
+        want = self._wide(self.ctx.decode_seq_axes)
+        if want != self._wide(self.seq_axes):
+            raise ValueError(
+                f"decode_seq_axes {self.ctx.decode_seq_axes} do not split "
+                f"the cache's sequence, which its layout splits over "
+                f"{self.seq_axes or 'no axis'}")
 
     def split(self, spec, dim: int) -> bool:
         """Whether ``spec`` splits dimension ``dim`` over the model axis."""
@@ -412,9 +521,9 @@ class _Par:
         return blocks.movedim(0, f_dim).flatten(f_dim, f_dim + 1)
 
 
-def _par(cfg: ModelConfig) -> Optional[_Par]:
+def _par(cfg: ModelConfig, serving: bool = False) -> Optional[_Par]:
     ctx = get_mesh_context()
-    return None if ctx.mesh is None else _Par(ctx, cfg)
+    return None if ctx.mesh is None else _Par(ctx, cfg, serving)
 
 
 # ---------------------------------------------------------------------------
@@ -565,37 +674,69 @@ def loss_fn(cfg: ModelConfig, params, batch
 # Serving: cache init, prefill, decode
 # ---------------------------------------------------------------------------
 
+def _split_dim(n: int, entry, ctx: MeshContext) -> int:
+    """This rank's length of a dimension of ``n`` laid out by ``entry``."""
+    if not entry:
+        return n
+    w = ctx.size(entry)
+    if n % w:
+        raise ValueError(f"a cache dimension of {n} does not split over "
+                         f"{w} ranks of {_axes(entry)}")
+    return n // w
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Dict[str, Any]:
     """``pos`` 0 and, for each layer, zeroed k/v buffers (B, Hkv,
     max_seq, hd) of an attention layer or the initial state of another
-    mixer. ``device`` defaults to the card."""
+    mixer. ``device`` defaults to the card. Under a mesh (the context's
+    ``cache_specs``), ``batch`` is the global batch and the buffers are
+    this rank's slice of them; the other mixers' states are whole over the
+    model axis."""
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
-    shape = (batch, cfg.num_kv_heads, max_seq, cfg.head_dim_)
+    b, hkv, s = batch, cfg.num_kv_heads, max_seq
+    ctx = get_mesh_context()
+    if ctx.mesh is not None:
+        if ctx.cache_specs is None:
+            raise ValueError(
+                "a cache under a mesh needs MeshContext.cache_specs "
+                "(sharding.cache_specs at the global batch)")
+        lay = ctx.cache_specs["layers"]
+        b = _split_dim(batch, next(iter(lay[0].values()))[0], ctx)
+        kv = next((l["k"] for l in lay if "k" in l), None)
+        if kv is not None:
+            hkv = _split_dim(hkv, kv[1], ctx)
+            s = _split_dim(max_seq, kv[2], ctx)
+    shape = (b, hkv, s, cfg.head_dim_)
 
     def layer_cache(kind):
         if kind == "a":
             return dict(k=torch.zeros(shape, dtype=dtype, device=dev),
                         v=torch.zeros(shape, dtype=dtype, device=dev))
         if kind == "m":
-            return init_mamba_state(cfg, batch, dtype, dev)
+            return init_mamba_state(cfg, b, dtype, dev)
         if kind == "M":
-            return init_mlstm_state(cfg, batch, dev)
-        return init_slstm_state(cfg, batch, dev)
+            return init_mlstm_state(cfg, b, dev)
+        return init_slstm_state(cfg, b, dev)
 
     return dict(pos=0, layers=[layer_cache(cfg.layer_kind(i))
                                for i in range(cfg.num_layers)])
 
 
 def _apply_layer_serve(layer, lcache, x, cos, sin, pos: int,
-                       cfg: ModelConfig, kind: str):
+                       cfg: ModelConfig, kind: str, par=None, lspec=None):
     """One layer of ``_apply_group_serve``: its mixer on the layer's cache
     (attention writes k/v at ``pos``; another mixer runs its decode step
     on an input of length 1 and its forward otherwise, and its new state
-    replaces the cache's), then the MLP."""
+    replaces the cache's), then the MLP. Under a mesh the layer's
+    FSDP-sharded leaves are gathered first, a mixer's whole."""
+    if par is not None:
+        layer = {k: par.use_tree(v, lspec[k], whole=k in _WHOLE)
+                 for k, v in layer.items()}
     if kind == "a":
-        x, _ = _attn_apply(layer, x, cos, sin, cfg, cache=lcache, pos=pos)
+        x, _ = _attn_apply(layer, x, cos, sin, cfg, cache=lcache, pos=pos,
+                           par=par)
     else:
         name, forward, step = _MIXERS[kind]
         h = rms_norm(x, layer["norm1"], cfg.norm_eps)
@@ -605,24 +746,52 @@ def _apply_layer_serve(layer, lcache, x, cos, sin, pos: int,
             y, state = forward(layer[name], h, cfg, return_state=True)
         lcache.update(state)
         x = x + y
-    return _mlp_apply(layer, x, cfg)[0]
+    return _mlp_apply(layer, x, cfg, par=par,
+                      mspec=None if lspec is None else lspec.get("mlp"))[0]
+
+
+def _serve_layers(cfg: ModelConfig, params, cache, x, cos, sin, pos: int,
+                  par) -> torch.Tensor:
+    """Every layer on its cache, then the final norm."""
+    for i, (layer, lcache) in enumerate(zip(params["layers"],
+                                            cache["layers"])):
+        lspec = None if par is None else par.spec("layers", i)
+        x = _apply_layer_serve(layer, lcache, x, cos, sin, pos, cfg,
+                               cfg.layer_kind(i), par, lspec)
+    norm = params["final_norm"]
+    if par is not None:
+        norm = par.use(norm, par.spec("final_norm"))
+    return rms_norm(x, norm, cfg.norm_eps)
+
+
+def _serve_logits(cfg: ModelConfig, params, x, par) -> torch.Tensor:
+    """Float32 logits (B, V) of ``x`` (B, 1, D); under a mesh that splits
+    the vocabulary over the model axis, each rank's columns are gathered
+    over it."""
+    if par is None:
+        return _unembed(cfg, params, x)[:, 0].float()
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = par.use(params[name], par.spec(name))
+    logits = (x @ w.T if cfg.tie_embeddings else x @ w)[:, 0].float()
+    if par.head:
+        logits = C.all_gather(logits, par.group, 1)
+    return logits
 
 
 def prefill(cfg: ModelConfig, params, batch, max_seq: int):
     """Returns (last-token logits (B, V) float32, cache). batch: ``tokens``
     (B, S) or ``embeds`` (B, S, D), and for M-RoPE optionally
-    ``positions3`` (3, B, S)."""
-    x = _embed_inputs(cfg, params, batch)
+    ``positions3`` (3, B, S). Under a mesh: this rank's rows, logits and
+    cache slice (module docstring)."""
+    par = _par(cfg, serving=True)
+    x = _embed_inputs(cfg, params, batch, par)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos, sin = _rope_tables(cfg, positions, batch)
-    cache = init_cache(cfg, b, max_seq, device=x.device)
-    for i, (layer, lcache) in enumerate(zip(params["layers"],
-                                            cache["layers"])):
-        x = _apply_layer_serve(layer, lcache, x, cos, sin, 0, cfg,
-                               cfg.layer_kind(i))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(cfg, params, x[:, -1:])[:, 0].float()
+    cache = init_cache(cfg, b * (1 if par is None else par.n_data), max_seq,
+                       device=x.device)
+    x = _serve_layers(cfg, params, cache, x, cos, sin, 0, par)
+    logits = _serve_logits(cfg, params, x[:, -1:], par)
     cache["pos"] = s
     return logits, cache
 
@@ -630,19 +799,18 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int):
 def decode_step(cfg: ModelConfig, params, cache, tokens_or_embeds):
     """One decode step. tokens: (B, 1) integers (or embeds (B, 1, D)).
     Writes into ``cache`` in place and returns (logits (B, V) float32,
-    cache) with ``pos`` advanced by one."""
+    cache) with ``pos`` advanced by one. Under a mesh: this rank's rows
+    and cache slice; with ``decode_seq_axes`` set, attention reads a
+    sequence-sharded cache through ``sharded_decode_attention``."""
+    par = _par(cfg, serving=True)
     batch = ({"tokens": tokens_or_embeds} if cfg.input_mode == "tokens"
              else {"embeds": tokens_or_embeds})
-    x = _embed_inputs(cfg, params, batch)
+    x = _embed_inputs(cfg, params, batch, par)
     b = x.shape[0]
     pos = cache["pos"]
     positions = torch.full((b, 1), pos, device=x.device)
     cos, sin = _rope_tables(cfg, positions, batch)
-    for i, (layer, lcache) in enumerate(zip(params["layers"],
-                                            cache["layers"])):
-        x = _apply_layer_serve(layer, lcache, x, cos, sin, pos, cfg,
-                               cfg.layer_kind(i))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(cfg, params, x)[:, 0].float()
+    x = _serve_layers(cfg, params, cache, x, cos, sin, pos, par)
+    logits = _serve_logits(cfg, params, x, par)
     cache["pos"] = pos + 1
     return logits, cache

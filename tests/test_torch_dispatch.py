@@ -534,9 +534,9 @@ def test_serving_mesh_is_one_device_and_reports_like_the_reference():
 
     cpu = meshctx.make_serving_mesh(1, "cpu")
     assert cpu.num_devices == 1 and cpu.devices == (_torch.device("cpu"),)
-    with pytest.raises(ValueError, match="serving mesh wants 2"):
-        meshctx.make_serving_mesh(2, "cpu")
-    two = meshctx.ServingMesh((_torch.device("cpu"),) * 2)
+    # on the host, n shards of the one device
+    two = meshctx.make_serving_mesh(2, "cpu")
+    assert two == meshctx.ServingMesh((_torch.device("cpu"),) * 2)
     assert two.shard_utilization(3, 8) == [(3, 1), (0, 4)]
     with pytest.raises(ValueError, match="does not divide"):
         two.shard_utilization(3, 7)

@@ -192,17 +192,27 @@ def test_config_solves_with_every_ported_path(engines, mats, kw):
     dict(autotune_dir="at"), dict(bundle_dir="bundles"),
     dict(promote_min_accuracy=0.9), dict(shadow_max_queue=8)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_config_refuses_what_is_not_ported(kw):
-    """A serving mesh of more than one device is still refused; the solve
-    tuner's and the bundle lifecycle's fields, once refused here, are
-    ported and taken as given."""
+def test_config_refuses_what_is_not_ported(kw, engines, mats):
+    """Every field once refused here is ported and taken as given; a
+    serving mesh of two devices serves on a 2-wide CPU mesh, selecting
+    what the one-device engine selects."""
+    from repro_torch.distributed import meshctx
+
+    cfg = EngineConfig(**kw)
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
     if "serving_devices" not in kw:
-        cfg = EngineConfig(**kw)
-        assert all(getattr(cfg, k) == v for k, v in kw.items())
         return
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP\.md, slice queue: "):
-        EngineConfig(**kw)
+    _, port = engines
+    eng = SolverEngine(EngineConfig(device="cpu", **kw),
+                       selector=port.selector)
+    try:
+        plans = eng.plan_batch(mats[1])
+        assert meshctx.get_serving_mesh("cpu").num_devices == 2
+        assert [p.algorithm for p in plans] == [
+            port.plan(a).algorithm for a in mats[1]]
+        assert eng.metrics.snapshot()["mesh.shards"] == 2
+    finally:
+        meshctx.set_serving_mesh(None)
 
 
 def _free_port() -> int:

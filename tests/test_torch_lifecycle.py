@@ -589,8 +589,10 @@ def test_config_takes_the_lifecycle_and_tuner_fields(tmp_path):
     d = EngineConfig()
     assert d.autotune_dir == os.path.join("artifacts", "autotune_torch")
     assert d.bundle_dir == os.path.join("artifacts", "bundles_torch")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        EngineConfig(serving_devices=2)
+    assert EngineConfig(serving_devices=2).serving_devices == 2
+    with pytest.raises(ValueError, match="serving_devices must be None or "
+                                         "at least 1"):
+        EngineConfig(serving_devices=0)
     eng = SolverEngine(EngineConfig(device="cpu", shadow_max_queue=8,
                                     bundle_dir=str(tmp_path / "b")))
     cand = make_engine(tmp_path / "c", seed=9)

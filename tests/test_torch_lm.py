@@ -639,5 +639,8 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     assert out["tokens"].shape == (2, 3)
     assert torch.isfinite(out["logits"]).all()
     assert "[serve] jamba-smoke" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--smoke", "--device", "cpu", "--devices", "2"])
+    with pytest.raises(SystemExit) as e:  # a split that is not --devices
+        serve.main(["--smoke", "--device", "cpu", "--devices", "2",
+                    "--model-par", "3"])
+    assert e.value.code == 2
+    assert "data_par × model_par must = devices" in capsys.readouterr().err
