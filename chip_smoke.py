@@ -6,7 +6,7 @@ Run from the root of the repository, on a machine with one CUDA device:
 
 It builds the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the ten ports of the TPU kernels and the flash-attention backward) and
-drives fifteen paths, each with the kernels' launch counts zeroed just before
+drives sixteen paths, each with the kernels' launch counts zeroed just before
 it and read just after it (the families and Table 2 paths once per
 engine they serve, the training path once per step):
 
@@ -198,7 +198,27 @@ engine they serve, the training path once per step):
   single-device losses; and the four archs' smoke configs in float32
   (``MIXER_AGREE``: both MoE branches, dropped slots, Mamba and mLSTM
   chunks at a sequence of 300), whose loss and every gradient leaf on the
-  card lie within ``MIXER_AGREE_RTOL`` of the CPU's.
+  card lie within ``MIXER_AGREE_RTOL`` of the CPU's;
+* **dryrun**: ``repro_torch.launch.dryrun`` in two processes that see no
+  card (``CUDA_VISIBLE_DEVICES=""``), over ``DRYRUN_CELLS``: lm_train_mesh's
+  own cell (llama3.2-1b at full width and depth, train_4k cut to batch 4, a
+  1 x 1 mesh, ``fsdp_params``), llama3.2-1b train_4k on pod16x16 under
+  ``baseline``, ``fsdp`` and ``fsdp_actshard``, its prefill_32k, and
+  jamba-v0.1-52b decode_32k under ``seqshard_decode`` and ``baseline``
+  (a line each); meanwhile one step of lm_train_mesh's cell through an
+  NCCL group of one rank, counted by ``OpCount``, and two timed steps. The
+  dry run of that cell equals the measured step in collective calls and
+  bytes by kind, dot FLOPs, attention kernel calls and argument bytes, and
+  its argument + temp lies within ``DRYRUN_PEAK_RTOL`` of the step's peak
+  device memory; the step's ms is printed against the roofline's dominant
+  term; ``fsdp_actshard``'s temp lies below ``fsdp``'s and jamba's
+  ``baseline`` decode carries the status of a decode the port cannot run.
+  Then ``PlanSelector`` fitted on the records (learned or fallen back, as
+  printed) recommends a plan for the 1 x 1 cell, which trains
+  ``DRYRUN_STEPS`` steps through the NCCL mesh trainer, each loss within
+  ``MESH_LOSS_RTOL`` of the single-device trainer's, 32 / 16 attention
+  launches a step, both attention kernels held at step 0's operands (one
+  batch element); the phase's seconds on a line of their own.
 
 Then it holds each kernel against its plain PyTorch version (the solve
 kernels at shapes from the 32³ schedule; ``extend_add_batch`` at the
@@ -271,7 +291,9 @@ flash_attention_bwd checks, ``python3 chip_smoke.py --serve-mesh`` only
 the serving_mesh path (after training the select path's engine) and the
 lm_serve_mesh path, its kernels line listing ``entry_stats``,
 ``row_stats`` and ``flash_attention`` at the shapes those paths give
-them, each with the same last line.
+them, and ``python3 chip_smoke.py --dryrun`` only the dryrun phase, its
+kernels line listing ``flash_attention_bwd`` at that phase's step, each
+with the same last line.
 """
 from __future__ import annotations
 
@@ -440,6 +462,44 @@ MESH_LOSS_RTOL, MESH_COMPRESSED_RTOL = 2e-3, 2e-2
 MESH_SLICE_WIDTH, MESH_SLICE_RANK = 2, 1
 #: lm_train's losses and step walls, which the mesh phase compares against
 TRAIN_RUN: dict = {}
+
+#: the dry run (ROADMAP item 3.3): cells (arch, shape, the candidate plan's
+#: name, the mesh's shape or None for pod16x16, the cut global batch or
+#: None) traced on meta tensors by repro_torch.launch.dryrun in processes
+#: that see no card, one process a group run beside the card's work. The
+#: first cell is lm_train_mesh's own (llama3.2-1b at full width and depth,
+#: train_4k cut to batch TRAIN_BATCH, a 1 x 1 mesh, fsdp_params), which the
+#: phase holds against a measured step of the same cell on the card
+DRYRUN_CELLS = (
+    ((TRAIN_ARCH, "train_4k", "fsdp", (1, 1), TRAIN_BATCH),
+     (TRAIN_ARCH, "train_4k", "baseline", None, None),
+     (TRAIN_ARCH, "prefill_32k", "baseline", None, None),
+     ("jamba-v0.1-52b", "decode_32k", "seqshard_decode", None, None),
+     ("jamba-v0.1-52b", "decode_32k", "baseline", None, None)),
+    ((TRAIN_ARCH, "train_4k", "fsdp", None, None),
+     (TRAIN_ARCH, "train_4k", "fsdp_actshard", None, None)),
+)
+#: the measured step's peak device memory against the dry run's argument +
+#: temp: |measured - predicted| within this share of the measured peak
+#: (PERF.md §6: predicted before the first run). The trace sees
+#: every tensor an aten operation returns; it cannot see the temporaries
+#: inside a CUDA operator (logsumexp's shifted copy of the logits, cuBLAS's
+#: workspace) nor the allocator's rounding
+DRYRUN_PEAK_RTOL = 0.01
+#: steps of the selector's plan through the NCCL mesh trainer, against the
+#: single-device trainer's losses within MESH_LOSS_RTOL
+DRYRUN_STEPS = 2
+#: seconds the dry-run processes may take
+DRYRUN_WAIT_S = 600
+#: what each dry-run process runs: its cells, one record each
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.autotune.plan_selector import CANDIDATE_PLANS
+from repro_torch.launch.dryrun import run_cell
+for arch, shape, plan, mesh, batch in json.loads(sys.argv[2]):
+    run_cell(arch, shape, plan=CANDIDATE_PLANS[plan], out_dir=sys.argv[1],
+             tag=plan, mesh_shape=mesh, global_batch=batch)
+"""
 
 #: the mixers' training path: (arch, layers or None for the full depth,
 #: the block pattern of the cut or None, batch, sequence, steps). Widths
@@ -3964,6 +4024,43 @@ def lm_train_restart(dev, cfg, shape, tmp: str) -> None:
                              f"uninterrupted one by {worst:.3f} bf16 steps")
 
 
+def hold_step_attention(tag: str, out, grads, q, k, v, dout,
+                        elements=None, phase: str = "lm_train_mesh") -> None:
+    """Both attention kernels' results at a training step's operands: the
+    forward's ``out`` against ``flash_attention_plain`` and the backward's
+    ``grads`` against ``flash_attention_bwd_plain``, one batch element at a
+    time (the first ``elements`` of them; all by default): the plain
+    versions' float32 scores of four would take ~35 GB."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+
+    tol = ATTN_BWD_RTOL[str(q.dtype).split(".")[1]]
+    fwd, bwd = (0.0, 0.0, 0.0), [0.0, 0.0, 0.0]
+    for i in range(q.shape[0] if elements is None else elements):
+        one = [t[i:i + 1] for t in (q, k, v)]
+        got = hold_attention(f"{tag} b={i}", out[i:i + 1].detach(),
+                             flash_attention_plain(*one, causal=True))
+        fwd = tuple(max(a, b) for a, b in zip(fwd, got))
+        plain = flash_attention_bwd_plain(*one, dout[i:i + 1])
+        for j, (g, w) in enumerate(zip(grads, plain)):
+            g, w = g[i:i + 1].float(), w.float()
+            rel = float((g - w).abs().max() / w.abs().max())
+            bwd[j] = max(bwd[j], rel)
+            if not (bool(torch.isfinite(g).all()) and rel <= tol):
+                raise AssertionError(f"flash_attention_bwd {tag} b={i}: "
+                                     f"{rel:.3e} of the largest plain "
+                                     f"gradient > {tol}")
+        del plain
+    torch.cuda.empty_cache()
+    log(f"{phase} {tag}: flash_attention max abs err {fwd[0]:.3e}, "
+        f"‖Δ‖/‖plain‖ {fwd[1]:.3e} (largest of an element), "
+        f"{fwd[2]:.3f} of the elementwise limit; flash_attention_bwd "
+        f"dq/dk/dv {bwd[0]:.3e} / {bwd[1]:.3e} / {bwd[2]:.3e} of the "
+        f"largest plain gradient (limit {tol})")
+
+
 def hold_mesh_attention(cap: dict) -> None:
     """Both attention kernels at the operands the mesh path gave them
     (``capture_attention_bwd`` of its step 0, the last layer): the
@@ -3972,43 +4069,13 @@ def hold_mesh_attention(cap: dict) -> None:
     heads a rank of a model axis of MESH_SLICE_WIDTH gets (its q heads and
     the kv heads they read as views of the step's tensors: head slices of q
     and k, a column slice of v's projection), both kernels against the
-    plain versions. One batch element at a time: the plain versions'
-    float32 scores of all four would take ~35 GB."""
-    import torch
-
+    plain versions (``hold_step_attention``)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain, operand_error)
-
-    tol = ATTN_BWD_RTOL[str(cap["q"].dtype).split(".")[1]]
-
-    def hold(tag, out, grads, q, k, v, dout):
-        fwd, bwd = (0.0, 0.0, 0.0), [0.0, 0.0, 0.0]
-        for i in range(q.shape[0]):
-            one = [t[i:i + 1] for t in (q, k, v)]
-            got = hold_attention(f"{tag} b={i}", out[i:i + 1],
-                                 flash_attention_plain(*one, causal=True))
-            fwd = tuple(max(a, b) for a, b in zip(fwd, got))
-            plain = flash_attention_bwd_plain(*one, dout[i:i + 1])
-            for j, (g, w) in enumerate(zip(grads, plain)):
-                g, w = g[i:i + 1].float(), w.float()
-                rel = float((g - w).abs().max() / w.abs().max())
-                bwd[j] = max(bwd[j], rel)
-                if not (bool(torch.isfinite(g).all()) and rel <= tol):
-                    raise AssertionError(f"flash_attention_bwd {tag} b={i}: "
-                                         f"{rel:.3e} of the largest plain "
-                                         f"gradient > {tol}")
-            del plain
-        torch.cuda.empty_cache()
-        log(f"lm_train_mesh {tag}: flash_attention max abs err {fwd[0]:.3e},"
-            f" ‖Δ‖/‖plain‖ {fwd[1]:.3e} (largest of an element), "
-            f"{fwd[2]:.3f} of the elementwise limit; flash_attention_bwd "
-            f"dq/dk/dv {bwd[0]:.3e} / {bwd[1]:.3e} / {bwd[2]:.3e} of the "
-            f"largest plain gradient (limit {tol})")
+        flash_attention, flash_attention_bwd, operand_error)
 
     q, k, v, o, dout = (cap[n] for n in ("q", "k", "v", "o", "dout"))
-    hold(f"the step's operands {tuple(q.shape)}", o, cap["grads"], q, k, v,
-         dout)
+    hold_step_attention(f"the step's operands {tuple(q.shape)}", o,
+                        cap["grads"], q, k, v, dout)
     n, r = MESH_SLICE_WIDTH, MESH_SLICE_RANK
     hq, hkv = q.shape[1] // n, k.shape[1] // n
     ql, kl, vl, dl = (t[:, r * h:(r + 1) * h] for t, h in (
@@ -4020,7 +4087,8 @@ def hold_mesh_attention(cap: dict) -> None:
             for name, t in (("q", ql), ("k", kl), ("v", vl))))
     out, lse, out_lo = flash_attention(ql, kl, vl, causal=True, stats=True)
     grads = flash_attention_bwd(ql, kl, vl, out, dl, lse=lse, out_lo=out_lo)
-    hold(f"model width {n} rank {r} slice", out, grads, ql, kl, vl, dl)
+    hold_step_attention(f"model width {n} rank {r} slice", out, grads, ql,
+                        kl, vl, dl)
 
 
 def _mesh_step_profile(trainer, params, opt, batch, step: int) -> None:
@@ -4541,6 +4609,263 @@ def lm_train_mixers_phase(dev, out: dict) -> dict:
     return totals
 
 
+def _dryrun_records(arts: str) -> dict:
+    """The dry run's records by (arch, shape, mesh, plan name)."""
+    from repro_torch.autotune.plan_selector import (load_artifacts,
+                                                    plan_label)
+
+    return {(r["arch"], r["shape"], r["mesh"], plan_label(r["plan"])): r
+            for r in load_artifacts(arts)}
+
+
+def _dryrun_line(plan: str, r: dict) -> str:
+    if r["status"] != "ok":
+        return f"dryrun {r['arch']} {r['shape']} {r['mesh']} {plan}: {r['status']}"
+    m, h, rf = r["memory"], r["hlo"], r["roofline"]
+    return (f"dryrun {r['arch']} {r['shape']} {r['mesh']} {plan}: ok, "
+            f"traced in {r['t_trace_s']} s; a rank: argument "
+            f"{m['argument'] / 1e9:.3f} GB, temp {m['temp'] / 1e9:.3f} GB, "
+            f"resident {r['resident_bytes'] / 1e9:.3f} GB (fits: "
+            f"{r['fits_hbm']}); dot flops {h['dot_flops']:.4e}, collective "
+            f"bytes " + json.dumps(h["collective_bytes"]) + f"; roofline s: "
+            f"compute {rf['compute_s']:.4f}, memory {rf['memory_s']:.4f}, "
+            f"collective {rf['collective_s']:.4f} ({rf['bottleneck']}), "
+            f"useful flops {rf['useful_flops_ratio']:.3f}")
+
+
+def dryrun_phase(dev, out: dict, headline: bool) -> dict:
+    """The dry run against the card (ROADMAP item 3.3). DRYRUN_CELLS are
+    traced in processes that see no card while this one runs lm_train_mesh's
+    cell through an NCCL process group of one rank and a 1 x 1 mesh: one
+    step counted by ``repro_torch.launch.op_analysis.OpCount`` (dot FLOPs,
+    collectives) with its peak device memory, then two timed steps. The
+    dry run of that cell must equal it in collective calls and bytes by
+    kind, dot FLOPs and argument bytes, and predict its peak within
+    DRYRUN_PEAK_RTOL; the step's ms is printed against the roofline's
+    dominant term. A line per production cell; fsdp_actshard's temp must
+    fall below fsdp's, and jamba's decode_32k under baseline carry the
+    status of a decode the port cannot run. Then ``PlanSelector`` fitted
+    on the records recommends a plan for the 1 x 1 cell, which trains
+    DRYRUN_STEPS steps through the mesh trainer within MESH_LOSS_RTOL of
+    the single-device losses, 32 / 16 attention launches a step, both
+    attention kernels held at step 0's operands (one batch element) and,
+    with ``headline``, the backward timed for the kernels line. Returns
+    the launch counts of those steps."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.autotune.plan_selector import (CANDIDATE_PLANS,
+                                                    PlanSelector,
+                                                    load_artifacts)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    from repro_torch.launch.op_analysis import OpCount, tensor_bytes
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    arts = os.path.join(tmp, "records")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for i, cells in enumerate(DRYRUN_CELLS):
+        with open(os.path.join(tmp, f"dryrun{i}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_SCRIPT, arts,
+                 json.dumps(cells)], env=env, stdout=f,
+                stderr=subprocess.STDOUT))
+
+    def trainer(plan, tag, mesh=None):
+        return Trainer(cfg, shape, TrainerConfig(
+            ckpt_dir=os.path.join(tmp, tag), total_steps=100,
+            warmup_steps=1, log_every=1), AdamWConfig(lr=TRAIN_LR),
+            mesh=mesh, plan=plan, device=dev)
+
+    try:
+        single = TRAIN_RUN.get("losses")
+        if single is None:  # --dryrun alone: lm_train's first steps
+            t = trainer(CANDIDATE_PLANS["baseline"], "single")
+            params, opt = t.init_state()
+            single = [float(t.step(params, opt, t.batch(i), i)[2]["loss"])
+                      for i in range(DRYRUN_STEPS)]
+            del t, params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        init_ranks(0, 1, os.path.join(tmp, "store"), dev)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            t = trainer(CANDIDATE_PLANS["fsdp"], "held", mesh)
+            params, opt = t.init_state()
+            batch = t.batch(0)
+            argument = tensor_bytes((params, opt, batch))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() - base
+            with OpCount() as oc:
+                t.step(params, opt, batch, 0)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            walls = []
+            for step in (1, 2):
+                batch = t.batch(step)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.step(params, opt, batch, step)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            del t, params, opt, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            for p in procs:
+                p.wait(timeout=DRYRUN_WAIT_S)
+            for i, p in enumerate(procs):
+                with open(os.path.join(tmp, f"dryrun{i}.log")) as f:
+                    lines = f.read().splitlines()
+                for line in lines:
+                    if line.startswith("[dryrun]"):
+                        log(line)
+                if p.returncode:
+                    raise AssertionError(
+                        f"dryrun process {i} exited {p.returncode}: "
+                        + "\n".join(lines[-20:]))
+            recs = _dryrun_records(arts)
+            for cells in DRYRUN_CELLS:
+                for arch, shp, plan, mesh_shape, _ in cells:
+                    name = ("mesh" + "x".join(map(str, mesh_shape))
+                            if mesh_shape else "pod16x16")
+                    log(_dryrun_line(plan, recs[(arch, shp, name, plan)]))
+
+            rec = recs[(TRAIN_ARCH, "train_4k", "mesh1x1", "fsdp")]
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun of the 1 x 1 cell: "
+                                     f"{rec['status']}")
+            real, h = oc.stats(), rec["hlo"]
+            predicted = rec["memory"]["argument"] + rec["memory"]["temp"]
+            dom = max(rec["roofline"][k] for k in ("compute_s", "memory_s",
+                                                   "collective_s"))
+            log(f"dryrun against the measured step (llama3.2-1b, 1 x 1 "
+                f"NCCL mesh, fsdp, B {TRAIN_BATCH} x {TRAIN_SEQ}): "
+                f"collective calls {json.dumps(h['collective_counts'])} vs "
+                f"{json.dumps(real.collective_counts)}; bytes "
+                f"{json.dumps(h['collective_bytes'])} vs "
+                f"{json.dumps(real.collective_bytes)}; dot flops "
+                f"{h['dot_flops']:.6e} vs {real.dot_flops:.6e}; kernel calls "
+                f"{json.dumps(rec['kernel_calls'])} vs "
+                f"{json.dumps(oc.kernel_calls)}; argument bytes "
+                f"{rec['memory']['argument']} vs {argument} (held on the "
+                f"card before the step: {held}); peak "
+                f"{predicted / 1e9:.4f} GB (argument + temp) vs "
+                f"{peak / 1e9:.4f} GB measured, "
+                f"{(predicted - peak) / peak:+.4f} of it (limit "
+                f"{DRYRUN_PEAK_RTOL}); the step {walls[0] * 1e3:.1f}, "
+                f"{walls[1] * 1e3:.1f} ms against the roofline's dominant "
+                f"term ({rec['roofline']['bottleneck']}) {dom * 1e3:.1f} ms: "
+                f"{min(walls) / dom:.2f}x")
+            fails = [what for what, ok in (
+                ("collective calls",
+                 h["collective_counts"] == real.collective_counts),
+                ("collective bytes",
+                 h["collective_bytes"] == real.collective_bytes),
+                ("dot flops", h["dot_flops"] == real.dot_flops),
+                ("kernel calls", rec["kernel_calls"] == oc.kernel_calls),
+                ("argument bytes", rec["memory"]["argument"] == argument),
+                ("peak", abs(predicted - peak) <= DRYRUN_PEAK_RTOL * peak))
+                if not ok]
+            if fails:
+                raise AssertionError(f"dryrun against the measured step: "
+                                     f"{', '.join(fails)} differ")
+            pod = {p: recs[(TRAIN_ARCH, "train_4k", "pod16x16", p)]
+                   for p in ("baseline", "fsdp", "fsdp_actshard")}
+            dec = {p: recs[("jamba-v0.1-52b", "decode_32k", "pod16x16", p)]
+                   for p in ("baseline", "seqshard_decode")}
+            if not (all(r["status"] == "ok" for r in pod.values())
+                    and pod["fsdp_actshard"]["memory"]["temp"]
+                    < pod["fsdp"]["memory"]["temp"]
+                    and dec["seqshard_decode"]["status"] == "ok"
+                    and dec["baseline"]["status"].startswith("cannot run")):
+                raise AssertionError(
+                    "dryrun production cells: " + "; ".join(
+                        f"{k} {r['status']}" for k, r in
+                        list(pod.items()) + list(dec.items())))
+
+            sel = PlanSelector().fit(art_dir=arts)
+            x, _ = sel.build_dataset(load_artifacts(arts))
+            name, plan = sel.recommend(cfg, shape, 1, 1)
+            log(f"dryrun selector: "
+                f"{'learned' if sel.model is not None else 'fell back to the analytic rule'}"
+                f" ({len(recs)} records, {x.shape[0]} cells with a choice of "
+                f"plans, {sel.min_samples} needed to learn); for the 1 x 1 "
+                f"cell it recommends {name}: {plan}")
+            t = trainer(plan, "recommended", mesh)
+            params, opt = t.init_state()
+            totals = {}
+            want = {"flash_attention": 2 * cfg.num_layers,
+                    "flash_attention_bwd": cfg.num_layers}
+            for step in range(DRYRUN_STEPS):
+                batch = t.batch(step)
+                torch.cuda.synchronize()
+                if step == 0:
+                    cap, undo = capture_attention_bwd()
+                reset_launch_counts()
+                try:
+                    params, opt, m = t.step(params, opt, batch, step)
+                    loss = float(m["loss"])
+                finally:
+                    if step == 0:
+                        undo()
+                counts = launch_counts()
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                rel = abs(loss - single[step]) / abs(single[step])
+                log(f"dryrun {name} step {step}: loss {loss:.6f} (single "
+                    f"device {single[step]:.6f}, relative {rel:.3e}, limit "
+                    f"{MESH_LOSS_RTOL}); flash_attention "
+                    f"{counts['flash_attention']}, flash_attention_bwd "
+                    f"{counts['flash_attention_bwd']} launches")
+                got = {k: counts[k] for k in want}
+                if got != want or not (math.isfinite(loss)
+                                       and rel <= MESH_LOSS_RTOL):
+                    raise AssertionError(f"dryrun {name} step {step}: loss "
+                                         f"{loss} vs {single[step]}, "
+                                         f"launches {got}, want {want}")
+            del t, params, opt, batch
+            torch.cuda.empty_cache()
+            q, k, v, o, dout = (cap[n] for n in ("q", "k", "v", "o", "dout"))
+            hold_step_attention(f"{name} step 0's operands {tuple(q.shape)}",
+                                o, cap["grads"], q, k, v, dout, elements=1,
+                                phase="dryrun")
+            if headline:
+                hold_step_attention_bwd(cap, out, tag="dryrun step")
+            del cap
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    PHASE_S["dryrun"] = time.perf_counter() - t_phase
+    log(f"dryrun phase: {PHASE_S['dryrun']:.1f} s")
+    return totals
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -4569,6 +4894,9 @@ def main(argv=None) -> int:
                     help="only the lm_train, lm_train_mesh and "
                          "lm_train_mixers paths and the flash_attention_bwd "
                          "checks (the kernels line then lists that kernel)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="only the dryrun phase (the kernels line then "
+                         "lists flash_attention_bwd)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4616,6 +4944,10 @@ def main(argv=None) -> int:
                                     headline=True)
         counts.update(flash_attention=lm_serve_mesh_phase(
             dev, records, headline=True)["flash_attention"])
+    elif args.dryrun:
+        names = ("flash_attention_bwd",)
+        records = {}
+        counts = dryrun_phase(dev, records, headline=True)
     elif args.train:
         names = ("flash_attention_bwd",)
         records = {}
@@ -4683,6 +5015,7 @@ def all_paths(dev) -> tuple:
         dev, train_records)["flash_attention_bwd"]
     lm_train_mesh_phase(dev)
     lm_train_mixers_phase(dev, train_records)
+    dryrun_phase(dev, train_records, headline=False)
 
     a, plan = plans[-1]
     records = kernel_checks(a, plan, dev)

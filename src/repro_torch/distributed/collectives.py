@@ -9,6 +9,11 @@ output, a reduce-scatter's input), since :func:`reset_collective_counts`.
 
 Over a group, a CUDA tensor runs NCCL and a CPU tensor gloo; any other
 pairing raises, so a mesh on the card never falls back to gloo or the CPU.
+Inside a dry run (:class:`repro_torch.device.dry_run`) a meta tensor runs
+the dry run's fake process group (``torch.distributed``'s ``fake``
+backend, :func:`repro_torch.launch.mesh.init_fake_ranks`), which moves
+nothing, and is counted like the tensor it stands for; a real tensor never
+reaches a fake group, nor a meta one a real group.
 
 The model's autograd-aware collectives (Megatron's f and g, FSDP's
 gather, and what the MoE and the whole-computed mixers need):
@@ -29,6 +34,12 @@ gather, and what the MoE and the whole-computed mixers need):
   gradient backward (expert parallelism: ``x[i]`` goes to rank i and
   rank i's part lands at ``out[i]``, a transposition over the ranks,
   which is its own adjoint).
+* :func:`split_to` — this rank's slice along a dimension forward, the
+  slices' gradients all-gathered backward: the adjoint of
+  :func:`gather_whole`, for a computation that every rank of the group
+  holds whole and each continues on its own slice of (the DP-only
+  attention's batch reshard, an activation checkpoint cut along the
+  sequence).
 """
 from __future__ import annotations
 
@@ -37,10 +48,12 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from ..device import in_dry_run
+
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "all_to_all",
            "all_reduce_coalesced", "all_gather_coalesced", "copy_to",
            "reduce_from", "gather_from", "gather_whole", "exchange",
-           "collective_counts", "reset_collective_counts"]
+           "split_to", "collective_counts", "reset_collective_counts"]
 
 _COUNTS: Dict[str, Dict[str, int]] = {}
 
@@ -64,8 +77,8 @@ def _count(kind: str, t: torch.Tensor) -> None:
 
 def _check(t: torch.Tensor, group) -> None:
     backend = dist.get_backend(group)
-    want = "nccl" if t.is_cuda else ("gloo" if t.device.type == "cpu"
-                                     else None)
+    want = {"cuda": "nccl", "cpu": "gloo",
+            "meta": "fake" if in_dry_run() else None}.get(t.device.type)
     if backend != want:
         raise RuntimeError(f"a collective over {t.device.type} tensors runs "
                            f"{want or 'nothing'}; the group runs {backend}")
@@ -223,6 +236,22 @@ class _GatherWhole(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = dist.get_world_size(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"split over {n} ranks")
+        w = x.shape[dim] // n
+        return x.narrow(dim, dist.get_rank(group) * w, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -255,6 +284,13 @@ def gather_whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     gradient, the same whole tensor on every rank of ``group``, is cut back
     to this rank's slice (no sum)."""
     return _GatherWhole.apply(x, group, dim)
+
+
+def split_to(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim`` (a view), ``x`` whole and
+    alike on every rank of ``group``; the gradient, each rank's slice of
+    it, is all-gathered back into the whole."""
+    return _SplitTo.apply(x, group, dim)
 
 
 def exchange(x: torch.Tensor, group) -> torch.Tensor:

@@ -13,9 +13,10 @@ model and serving code read.
   axes a decode's KV cache is sequence-sharded over
   (:func:`repro_torch.models.layers.sharded_decode_attention`). With no
   mesh set (``mesh=None``, the default) every function computes exactly
-  what it computes on one device. The reference's ``attn_dp_axes`` and
-  ``shard_activation_ckpt`` are set only by ``launch/dryrun.py`` and wait
-  for it (ROADMAP item 3.3).
+  what it computes on one device. ``attn_dp_axes`` and
+  ``shard_activation_ckpt`` carry the plan's ``attn_batch_reshard`` and
+  ``shard_activation_ckpt`` to the model; the trainer and the dry run
+  (``launch/dryrun.py``, ROADMAP item 3.3) set them.
 * :class:`ServingMesh` (:88-207), the device layout of the
   selection-serving plane, with ``make_serving_mesh``,
   ``set_serving_mesh``, ``get_serving_mesh``, the ``serving_mesh`` context
@@ -87,6 +88,13 @@ class MeshContext:
     # the layout of the cache the model serves from (sharding.cache_specs
     # at the global batch); needed by prefill and decode under a mesh
     cache_specs: Optional[dict] = None
+    # DP-only attention (heads don't tile the model axis): the axes the
+    # attention's batch is spread over (the data axes and the model axis),
+    # each model rank taking its slice of the rows it holds
+    attn_dp_axes: Optional[Tuple[str, ...]] = None
+    # save each checkpointed layer's input cut along the sequence over the
+    # model axis (ExecutionPlan.shard_activation_ckpt)
+    shard_activation_ckpt: bool = False
 
     def _ordered(self, axes) -> Tuple[str, ...]:
         names = tuple(self.mesh.mesh_dim_names)

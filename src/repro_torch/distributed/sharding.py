@@ -45,11 +45,17 @@ axis, as it computes those mixers whole there (the divergence above).
 ``seq_shard_decode`` (read by :func:`decode_seq_axes_for`, the reference
 dry run's decode rule) decodes from a sequence-sharded cache through
 :func:`repro_torch.models.layers.sharded_decode_attention`; the serving
-launcher always turns it on, as the port never gathers a cache. The knobs
-``attn_batch_reshard``, ``shard_activation_ckpt`` and ``scan_layers``
-wait for the dry run that sets them (ROADMAP §1, item 3.3): a knob is a
-field once code reads it. The port loops over its layers, so
-``scan_layers`` would change no value.
+launcher always turns it on, as the port never gathers a cache.
+
+The two knobs the dry run compares (ROADMAP §1, item 3.3) reach the model
+through the :class:`~repro_torch.distributed.meshctx.MeshContext` the
+trainer and the dry run build: ``attn_batch_reshard`` sets its
+``attn_dp_axes`` (:func:`attn_dp_axes_for`, the reference dry run's
+rule), and each rank of the model group then runs the DP-only attention
+on its slice of the batch; ``shard_activation_ckpt`` cuts the input each
+checkpointed layer saves along the sequence over the model axis. The
+reference's ``scan_layers`` is no field: the port loops over its layers,
+so it would change no value (a knob is a field once code reads it).
 """
 from __future__ import annotations
 
@@ -63,8 +69,9 @@ from .collectives import all_gather
 from .meshctx import MeshContext, _axes
 
 __all__ = ["ExecutionPlan", "param_specs", "opt_state_spec_for",
-           "batch_specs", "cache_specs", "decode_seq_axes_for", "to_shardings", "Sharding",
-           "kv_whole_specs", "map_specs", "Spec"]
+           "batch_specs", "cache_specs", "decode_seq_axes_for",
+           "attn_dp_axes_for", "to_shardings", "Sharding", "kv_whole_specs",
+           "map_specs", "Spec"]
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -82,6 +89,15 @@ class ExecutionPlan:
     # pure_dp: no tensor parallelism — the whole mesh is one flat DP/FSDP
     # domain (params ZeRO-3-sharded over every axis, batch over every axis)
     pure_dp: bool = False
+    # For DP-only attention (heads ∤ model axis): each model rank runs the
+    # attention on its slice of the batch, the output gathered back over
+    # the model axis. Measured net-negative on starcoder2 in the
+    # reference; kept as an explicit knob, default off.
+    attn_batch_reshard: bool = False
+    # Save each checkpointed layer's input cut along the sequence over the
+    # model axis (1/|model| the residency, one all-gather a layer in the
+    # backward; MaxText's "checkpoint sharding").
+    shard_activation_ckpt: bool = False
     # decode over a sequence-sharded KV cache through
     # layers.sharded_decode_attention (batch-1 cells), never gathering it
     seq_shard_decode: bool = False
@@ -293,7 +309,10 @@ def decode_seq_axes_for(cfg: ModelConfig, shape: ShapeSpec, mesh,
     ``seq_shard_decode`` off, ``None`` where :func:`cache_specs` leaves the
     cache's sequence whole, and ``ValueError`` where it splits it: the
     reference then lets GSPMD gather the cache, which the port never does,
-    so the serving launcher always turns the knob on."""
+    so the serving launcher always turns the knob on. An arch without
+    attention layers keeps no sequence in its cache: ``None``."""
+    if "a" not in cfg.block_pattern:
+        return None
     sizes = _sizes(mesh)
     n_data = 1
     for ax in data_axes:
@@ -312,6 +331,20 @@ def decode_seq_axes_for(cfg: ModelConfig, shape: ShapeSpec, mesh,
                          f"seq_shard_decode is off: the port never gathers "
                          f"a cache")
     return axes
+
+
+def attn_dp_axes_for(cfg: ModelConfig, plan: ExecutionPlan,
+                     data_axes: Tuple[str, ...], model_axis: str,
+                     n_model: int) -> Optional[Tuple[str, ...]]:
+    """``MeshContext.attn_dp_axes`` under ``plan``, by the reference dry
+    run's rule (``launch/dryrun.py`` :64-69): the data axes and the model
+    axis when the q heads do not tile the model axis of width ``n_model``,
+    ``plan.attn_batch_reshard`` is on and ``plan.pure_dp`` off; else
+    ``None``."""
+    if (cfg.num_heads % n_model == 0 or plan.pure_dp
+            or not plan.attn_batch_reshard):
+        return None
+    return tuple(data_axes) + (model_axis,)
 
 
 # ---------------------------------------------------------------------------

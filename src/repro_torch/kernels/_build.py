@@ -12,6 +12,11 @@ Both helpers here are safe to call from several threads at once, as the
 serving plane does (its batcher, build workers and RPC connection threads):
 :func:`load_kernels` builds once however many first calls race, and
 :func:`count_launch` is the one place a wrapper adds to its ``launches``.
+
+:func:`note_work` is where a wrapper tells the operation count
+(:mod:`repro_torch.launch.op_analysis`) what one call computes, the same
+whether the kernel ran or a dry run applied the wrapper's shape rule; it
+counts no launch.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import os
 import pathlib
 import threading
 
-__all__ = ["load_kernels", "count_launch", "reset_launches"]
+__all__ = ["load_kernels", "count_launch", "reset_launches", "note_work",
+           "WORK_SINKS"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -72,3 +78,16 @@ def reset_launches(wrappers) -> None:
     with _COUNT_LOCK:
         for fn in wrappers:
             fn.launches = 0
+
+
+#: callables ``sink(name, flops, nbytes)`` that :func:`note_work` calls
+#: (an operation count adds itself while it counts)
+WORK_SINKS: list = []
+
+
+def note_work(name: str, flops: float, nbytes: float) -> None:
+    """Tell every sink in :data:`WORK_SINKS` that one call of the kernel
+    ``name`` does ``flops`` operations on ``nbytes`` of operands and
+    results."""
+    for sink in tuple(WORK_SINKS):
+        sink(name, flops, nbytes)

@@ -44,6 +44,16 @@ remainder, which :func:`flash_attention` returns with ``stats=True`` and
 design, ``csrc/flash_attention_bwd.cu`` (two kernels, dQ with the rows'
 statistics rebuilt, then dK and dV). Either way one wrapper call is two
 kernel launches, counted as one in ``flash_attention_bwd.launches``.
+
+The dry run (:mod:`repro_torch.launch.dryrun`) passes meta tensors, which
+:func:`~repro_torch.device.on_cuda` sends down the card's branch there:
+both wrappers check them as on the card, then apply their shape rule (the
+outputs as the kernels lay them out, no storage) and launch nothing, so no
+build is triggered and no launch counted. Either way each call tells the
+operation count its work (:func:`~repro_torch.kernels._build.note_work`):
+4·D flops a (query, key) pair the mask keeps for the forward, 10·D for the
+backward (PERF.md's bounds for rows 10 and 10b), and the bytes of its
+operands and results.
 """
 from __future__ import annotations
 
@@ -52,7 +62,7 @@ from typing import Optional
 import torch
 
 from ..device import on_cuda
-from ._build import count_launch, load_kernels
+from ._build import count_launch, load_kernels, note_work
 
 __all__ = ["flash_attention", "flash_attention_plain", "operand_error",
            "flash_attention_bwd", "flash_attention_bwd_plain",
@@ -64,6 +74,20 @@ NEG_INF = -1e30
 #: head dims at which bf16 training runs the Hopper backward from the
 #: forward's statistics (the wgmma forward stores them at D = 64 and 128)
 STATS_DIMS = (64, 128)
+
+
+def _pairs(sq: int, skv: int, causal: bool, kv_len: Optional[int]) -> int:
+    """The (query, key) pairs the mask keeps: keys below ``kv_len`` and,
+    when ``causal``, at or before the query's position."""
+    n = skv if kv_len is None else max(0, min(skv, kv_len))
+    if not causal:
+        return sq * n
+    m = min(sq, n)
+    return m * (m + 1) // 2 + (sq - m) * n
+
+
+def _nbytes(*ts: Optional[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -186,17 +210,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     out = like_out()
     kv = -1 if kv_len is None else int(kv_len)
+    out_lo = lse = None
     if stats:
         out_lo = like_out()
         lse = torch.empty((b, hq, lse_rows(sq)), dtype=torch.float32,
                           device=q.device)
-        load_kernels().flash_attention_stats(q, k, v, out, out_lo, lse,
-                                             bool(causal), scale, kv)
+    if not q.is_meta:  # meta: the dry run's shape rule, no launch
+        if stats:
+            load_kernels().flash_attention_stats(q, k, v, out, out_lo, lse,
+                                                 bool(causal), scale, kv)
+        else:
+            load_kernels().flash_attention(q, k, v, out, bool(causal),
+                                           scale, kv)
         count_launch(flash_attention)
-        return out, lse[..., :sq], out_lo
-    load_kernels().flash_attention(q, k, v, out, bool(causal), scale, kv)
-    count_launch(flash_attention)
-    return out
+    note_work("flash_attention",
+              4 * b * hq * d * _pairs(sq, k.shape[2], causal, kv_len),
+              _nbytes(q, k, v, out, out_lo, lse))
+    return (out, lse[..., :sq], out_lo) if stats else out
 
 
 flash_attention.launches = 0
@@ -317,15 +347,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=t.device).transpose(1, 2)
 
     dq, dk, dv = grad_like(q), grad_like(k), grad_like(v)
-    if stats:
-        if operand_error(out_lo) is not None:
-            out_lo = out_lo.contiguous()
-        load_kernels().flash_attention_bwd_sm90(
-            q, k, v, out, out_lo, dout, _stats_rows(lse), dq, dk, dv, scale)
-    else:
-        load_kernels().flash_attention_bwd(q, k, v, out, dout, dq, dk, dv,
-                                           scale)
-    count_launch(flash_attention_bwd)
+    if stats and operand_error(out_lo) is not None:
+        out_lo = out_lo.contiguous()
+    if not q.is_meta:  # meta: the dry run's shape rule, no launch
+        if stats:
+            load_kernels().flash_attention_bwd_sm90(
+                q, k, v, out, out_lo, dout, _stats_rows(lse), dq, dk, dv,
+                scale)
+        else:
+            load_kernels().flash_attention_bwd(q, k, v, out, dout, dq, dk,
+                                               dv, scale)
+        count_launch(flash_attention_bwd)
+    b, hq, s, d = q.shape
+    note_work("flash_attention_bwd",
+              10 * b * hq * d * _pairs(s, s, True, None),
+              _nbytes(q, k, v, out, dout, dq, dk, dv,
+                      *((lse, out_lo) if stats else ())))
     return dq, dk, dv
 
 

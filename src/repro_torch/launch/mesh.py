@@ -13,6 +13,12 @@ it, in the same order, as with any group creation.
 
 CUDA tensors go over NCCL and CPU tensors over gloo, with one card a rank:
 :func:`init_ranks` picks the backend from the device and never falls back.
+The dry run (:mod:`repro_torch.launch.dryrun`) builds its meshes over
+:func:`fake_ranks`: ``torch.distributed``'s ``fake`` backend, with this
+process as rank 0 of 256 or 512 ranks that do not exist. Its collectives
+return at once and move nothing; :func:`make_mesh` admits that group only
+inside :class:`repro_torch.device.dry_run`, where the mesh is one of
+``meta`` tensors.
 
 Single pod: 16 × 16 = 256 ranks, axes (data, model). Multi-pod: 2 × 16 × 16
 = 512 ranks, axes (pod, data, model); 'pod' extends the data-parallel
@@ -20,6 +26,7 @@ dimension, and batches shard over ('pod', 'data').
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import os
@@ -33,7 +40,7 @@ from ..device import resolve_device
 from ..distributed.meshctx import register_groups
 
 __all__ = ["make_production_mesh", "mesh_axes", "make_mesh", "init_ranks",
-           "run_ranks", "TIMEOUT_S"]
+           "run_ranks", "fake_ranks", "TIMEOUT_S"]
 
 #: the timeout of every process group and collective (seconds)
 TIMEOUT_S = 120.0
@@ -45,7 +52,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None):
     default process group (row-major: rank = coordinates over ``shape``).
     Raises ``ValueError`` unless the world has ``prod(shape)`` ranks, and
     ``RuntimeError`` when the group's backend does not fit ``device``
-    (NCCL for CUDA, gloo for the CPU)."""
+    (NCCL for CUDA, gloo for the CPU, the fake backend for a dry run's
+    card)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
@@ -79,7 +87,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None):
 
 def _check_backend(group, dev: torch.device) -> None:
     backend = dist.get_backend(group)
-    want = "nccl" if dev.type == "cuda" else "gloo"
+    # a meta device only comes out of resolve_device inside a dry run
+    want = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}[dev.type]
     if backend != want:
         raise RuntimeError(f"a mesh over {dev.type} tensors runs {want}; "
                            f"the process group runs {backend}")
@@ -96,6 +105,22 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 def mesh_axes(multi_pod: bool = False) -> Tuple[Tuple[str, ...], str]:
     """(data_axes, model_axis) for a production mesh."""
     return (("pod", "data") if multi_pod else ("data",)), "model"
+
+
+@contextlib.contextmanager
+def fake_ranks(world: int):
+    """``with fake_ranks(256): ...`` runs the block as rank 0 of a default
+    process group of ``world`` ranks on the ``fake`` backend (a dry run's:
+    no other rank exists and no collective moves data), destroyed on
+    exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def init_ranks(rank: int, world: int, store_path: str,

@@ -1,8 +1,9 @@
 """Port of ``repro/models/transformer.py``: parameter init
 (``init_params`` :114 with ``_init_attn_slot`` :50, ``_init_mlp_slot``
 :66 and ``_init_group`` :83, every block kind and MoE MLPs),
-``_attn_apply`` (:137, the sharded-decode branch included; its DP-reshard
-branch waits for item 3.3), ``_mlp_apply`` (:208, dense gated, GELU and MoE),
+``_attn_apply`` (:137, the sharded-decode branch and the DP-only
+attention's batch reshard included), ``_mlp_apply`` (:208, dense gated,
+GELU and MoE),
 ``_embed_inputs`` (:252), ``_rope_tables`` (:258, M-RoPE included),
 ``_unembed`` (:270), and serving: ``init_cache`` (:351, every slot kind),
 ``_apply_group_serve`` (:372), ``prefill`` (:406) and ``decode_step``
@@ -57,6 +58,21 @@ model axis and computes whole on every model rank (a deliberate
 divergence: GSPMD splits d_inner; the values are the same). The loss is
 the mean over this rank's rows, with the aux as the reference combines it;
 the trainer reduces the gradients over the data axes.
+
+The two knobs the dry run compares (item 3.3), read from the context. With
+``attn_dp_axes`` set (``attn_batch_reshard``) and q heads that do not tile
+the model axis, the attention of a training forward runs on each model
+rank's slice of the rows the rank holds (when they split evenly), with the
+whole, replicated weights, and its output is gathered back over the model
+axis: the reference's sharding constraint (:145-157) made explicit. The
+attention leaves and ``norm1`` then each see a part of the batch, so they
+pass :func:`~repro_torch.distributed.collectives.copy_to` and their
+gradients are summed over the model group. With ``shard_activation_ckpt``
+(the reference's constraint on the checkpointed carry, :284-297) and a
+sequence that splits over the model axis, each checkpointed layer saves
+only this rank's S / n_model slice of its input and all-gathers it back
+before it is recomputed (:class:`_ShardedCheckpoint`). Neither changes a
+value beyond the order of sums over the batch.
 
 Serving under a mesh (the context's ``cache_specs``, from
 :func:`repro_torch.distributed.sharding.cache_specs` at the global batch,
@@ -207,11 +223,20 @@ def _attn_apply(layer, x, cos, sin, cfg: ModelConfig, *, causal=True,
     copy_to`, so its gradient is summed over the model group."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
-    a = layer["attn"]
-    h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+    a, norm1, xa = layer["attn"], layer["norm1"], x
+    tp = par is not None and par.attn
+    # the DP-only attention's batch reshard (module docstring)
+    dp = (par is not None and par.attn_dp and not tp and cache is None
+          and b % par.n == 0)
+    if dp:
+        a = {k: C.copy_to(w, par.group) for k, w in a.items()}
+        norm1 = C.copy_to(norm1, par.group)
+        xa = C.split_to(x, par.group, 0)
+        b //= par.n
+        cos, sin = (t.narrow(0, par.r * b, b) for t in (cos, sin))
+    h = rms_norm(xa, norm1, cfg.norm_eps)
     wk, wv = a["wk"], a["wv"]
     qn, kn = a.get("q_norm"), a.get("k_norm")
-    tp = par is not None and par.attn
     if tp:
         h = C.copy_to(h, par.group)
         hq //= par.n
@@ -260,6 +285,8 @@ def _attn_apply(layer, x, cos, sin, cfg: ModelConfig, *, causal=True,
     out = att.transpose(1, 2).reshape(b, s, hq * hd) @ a["wo"]
     if tp:
         out = C.reduce_from(out, par.group)
+    if dp:
+        out = C.gather_whole(out, par.group, 0)
     return x + out, cache
 
 
@@ -418,6 +445,10 @@ class _Par:
         self.embed = self.split(sp.get("embed"), 0)
         self.head = (self.embed if cfg.tie_embeddings
                      else self.split(sp.get("lm_head"), 1))
+        # the plan's knobs (module docstring): the DP-only attention's batch
+        # reshard over the model group, and checkpoints cut along S over it
+        self.attn_dp = self.has_model and ma in (ctx.attn_dp_axes or ())
+        self.ckpt_shard = self.has_model and ctx.shard_activation_ckpt
 
     def seq_slice(self, s_loc: int) -> Tuple[int, int]:
         """(first position, whole length) of a cache slice of ``s_loc``
@@ -585,10 +616,13 @@ def _forward(cfg: ModelConfig, params, batch, par=None):
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos, sin = _rope_tables(cfg, positions, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sharded = par is not None and par.ckpt_shard and s % par.n == 0
     for i, layer in enumerate(params["layers"]):
         lspec = None if par is None else par.spec("layers", i)
         args = (layer, x, cos, sin, cfg, cfg.layer_kind(i), par, lspec)
-        if cfg.remat == "layer":
+        if cfg.remat == "layer" and sharded:
+            x, a = _ShardedCheckpoint.run(*args)
+        elif cfg.remat == "layer":
             x, a = checkpoint(_apply_group_train, *args, use_reentrant=False)
         else:
             x, a = _apply_group_train(*args)
@@ -599,6 +633,65 @@ def _forward(cfg: ModelConfig, params, batch, par=None):
         norm = par.use(norm, par.spec("final_norm"))
     x = rms_norm(x, norm, cfg.norm_eps)
     return x, aux
+
+
+def _tensors(tree) -> list:
+    """The tensors of a layer's dict of dicts, in insertion order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
+def _rebuild(tree, it):
+    """``tree`` with its tensors replaced, in :func:`_tensors`' order, by
+    the items of the iterator ``it``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+class _ShardedCheckpoint(torch.autograd.Function):
+    """A checkpointed layer whose saved input is this rank's slice of the
+    sequence over the model group (``shard_activation_ckpt``): the forward
+    runs the layer without a graph and keeps x[:, r·S/n:(r+1)·S/n]; the
+    backward all-gathers the slices into the whole input (the same on
+    every model rank), recomputes the layer with a graph and returns its
+    gradients, as ``checkpoint`` does with the whole input saved."""
+
+    @staticmethod
+    def run(layer, x, cos, sin, cfg, kind, par, lspec):
+        """``_apply_group_train(layer, x, ...)`` so checkpointed; returns
+        (x, aux or ``None``)."""
+        def apply(xx, leaves):
+            return _apply_group_train(_rebuild(layer, iter(leaves)), xx,
+                                      cos, sin, cfg, kind, par, lspec)
+
+        return _ShardedCheckpoint.apply(apply, par, x, *_tensors(layer))
+
+    @staticmethod
+    def forward(ctx, apply, par, x, *leaves):
+        ctx.layer_fn, ctx.par = apply, par
+        w = x.shape[1] // par.n
+        ctx.save_for_backward(x.narrow(1, par.r * w, w).contiguous(),
+                              *leaves)
+        return apply(x, leaves)
+
+    @staticmethod
+    def backward(ctx, gy, gaux):
+        xs, *leaves = ctx.saved_tensors
+        x = C.all_gather(xs, ctx.par.group, 1).detach().requires_grad_(
+            ctx.needs_input_grad[2])
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in leaves]
+        with torch.enable_grad():
+            y, aux = ctx.layer_fn(x, leaves)
+        outs, grads = [y], [gy]
+        if aux is not None and gaux is not None:
+            outs.append(aux)
+            grads.append(gaux)
+        want = [t for t in [x] + leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, want, grads, allow_unused=True))
+        return (None, None) + tuple(next(got) if t.requires_grad else None
+                                    for t in [x] + leaves)
 
 
 def _chunk_ce(cfg: ModelConfig, params, xc, lc, par=None):

@@ -33,6 +33,9 @@ shards and the collectives are explicit:
   all-gathered where a layer uses them (again when it is recomputed), their
   gradients reduce-scattered back. ``plan.pure_dp`` drops tensor
   parallelism: the whole mesh is one data/FSDP domain.
+  ``plan.attn_batch_reshard`` and ``plan.shard_activation_ckpt`` reach
+  the model through the context (``attn_dp_axes`` by the dry run's rule,
+  ``shard_activation_ckpt``), as the reference's dry run sets them.
 * **Batches**: each data rank takes its rows of ``SyntheticData``'s global
   batch (``batch_specs``); the global batch must divide over the data
   axes. Each rank's loss is the mean over its rows, the reported loss the
@@ -72,8 +75,8 @@ from ..device import resolve_device
 from ..distributed import collectives as C
 from ..distributed.gradient_compression import compressed_psum
 from ..distributed.meshctx import MeshContext, _axes, mesh_context
-from ..distributed.sharding import (ExecutionPlan, batch_specs,
-                                    kv_whole_specs, map_specs,
+from ..distributed.sharding import (ExecutionPlan, attn_dp_axes_for,
+                                    batch_specs, kv_whole_specs, map_specs,
                                     opt_state_spec_for, param_specs,
                                     to_shardings)
 from ..models.config import ModelConfig, ShapeSpec
@@ -87,7 +90,8 @@ from .schedule import warmup_cosine
 __all__ = ["Trainer", "TrainerConfig"]
 
 #: ExecutionPlan knobs that only a mesh reads
-MESH_KNOBS = ("fsdp_params", "pure_dp", "grad_compression")
+MESH_KNOBS = ("fsdp_params", "pure_dp", "grad_compression",
+              "attn_batch_reshard", "shard_activation_ckpt")
 
 
 @dataclasses.dataclass
@@ -180,8 +184,11 @@ class Trainer:
         # dry run widens its data axes the same way)
         batch_axes = tuple(dict.fromkeys(
             data_axes + ((model_axis,) if plan.pure_dp else ())))
-        ctx = MeshContext(mesh, data_axes, model_axis)
+        ctx = MeshContext(mesh, data_axes, model_axis,
+                          shard_activation_ckpt=plan.shard_activation_ckpt)
         n_model = ctx.size(model_axis)
+        ctx.attn_dp_axes = attn_dp_axes_for(cfg, plan, data_axes, model_axis,
+                                            n_model)
         n_batch = ctx.size(batch_axes)
         if self.shape.global_batch % n_batch:
             raise ValueError(f"the global batch of {self.shape.global_batch} "

@@ -118,6 +118,15 @@ def test_scans_cover_the_lm_modules():
             "launch/serve.py", "convert.py"} <= scanned
 
 
+def test_scans_cover_the_dry_run_modules():
+    """The subprocess import and the static scan above reach the dry run,
+    its op count and the plan selector."""
+    mods = _port_modules()
+    for m in ("repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+              "repro_torch.autotune.plan_selector"):
+        assert m in mods, m
+
+
 def test_flash_attention_refuses_devices_other_than_cpu():
     """The attention wrapper, its entry point and the model's chunked
     branch launch the kernel for a tensor off the CPU or raise: they never

@@ -277,9 +277,11 @@ def test_a_mesh_is_not_ported():
 def test_the_plan_applies_what_one_device_reads_and_nothing_else():
     """``apply`` sets remat, the attention chunks and ``moe_impl`` as the
     reference's does; the mesh knobs (``fsdp_params``, ``grad_compression``,
-    ``pure_dp``, ``seq_shard_decode``) and ``moe_impl`` are fields with the
-    reference's defaults, and a knob that nothing in the port reads yet is
-    no field, so it cannot be passed and then ignored."""
+    ``pure_dp``, ``seq_shard_decode``, and the dry run's
+    ``attn_batch_reshard`` and ``shard_activation_ckpt``) and ``moe_impl``
+    are fields with the reference's defaults, and a knob that nothing in the
+    port reads (``scan_layers``: the port loops over its layers) is no
+    field, so it cannot be passed and then ignored."""
     from repro.distributed.sharding import ExecutionPlan as RefPlan
     from repro_torch.distributed.sharding import ExecutionPlan
 
@@ -290,18 +292,18 @@ def test_the_plan_applies_what_one_device_reads_and_nothing_else():
     for name in knobs:
         assert getattr(got, name) == getattr(want, name) == knobs[name]
     for name in ("fsdp_params", "grad_compression", "pure_dp", "moe_impl",
-                 "seq_shard_decode"):
+                 "seq_shard_decode", "attn_batch_reshard",
+                 "shard_activation_ckpt"):
         assert getattr(ExecutionPlan(), name) == getattr(RefPlan(), name)
     assert ExecutionPlan().moe_impl == "tp_ragged"
     default = ExecutionPlan().apply(get_smoke_config("llama3.2-1b"))
     assert default.moe_impl == "tp_ragged"
     for name in ("fsdp_params", "grad_compression", "pure_dp",
-                 "seq_shard_decode"):
+                 "seq_shard_decode", "attn_batch_reshard",
+                 "shard_activation_ckpt"):
         assert getattr(ExecutionPlan(**{name: True}), name) is True
-    for name in ("attn_batch_reshard", "shard_activation_ckpt",
-                 "scan_layers"):
-        with pytest.raises(TypeError):
-            ExecutionPlan(**{name: True})
+    with pytest.raises(TypeError):
+        ExecutionPlan(scan_layers=True)
 
 
 # -- checkpoints -----------------------------------------------------------------
